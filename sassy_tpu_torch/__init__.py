@@ -1,12 +1,15 @@
 """sassy_tpu_torch: the PyTorch / CUDA port of sassy_tpu for an NVIDIA H100.
 
-Single-pattern approximate search (DNA or IUPAC, both strands, no
-overhang) with the scan on the GPU in a hand-written CUDA kernel:
+Approximate search (DNA or IUPAC, both strands, no overhang) of one
+pattern in one text, or of many patterns in many texts in one batched
+pass, with the scans on the GPU in hand-written CUDA kernels:
 
     from sassy_tpu_torch import Searcher
 
     searcher = Searcher("dna", rc=True, device="cuda")
     matches = searcher.search(b"ATCG", b"CCCATCACCC", k=1)
+    matches = searcher.search_many([b"ATCG", b"GGTA"],
+                                   [b"CCCATCACCC", b"TTGGTAC"], k=1)
 
 It shares the JAX-free host modules of ``sassy_tpu`` (profiles, semantics,
 match records, traceback) and never imports JAX.

@@ -1,2 +1,2 @@
 """Device layer of the PyTorch port: planning, the torch pipeline, the
-selection, and the hand-written CUDA scan kernel."""
+selection, the batched engine, and the hand-written CUDA scan kernels."""

@@ -2,9 +2,10 @@
 
 Port of the no-overhang meta path of ``sassy_tpu/ops/minima.py``: the
 per-word screen and decreasing-state metadata (``meta_from_words``, the
-plain version of what the scan kernel computes in place), the cross-tile
+plain version of what the scan kernels compute in place), the cross-tile
 state chain (``tile_state_chain_codes``) and the selection of
-rightmost-local-minimum end positions (``select_words_tiles``).
+rightmost-local-minimum end positions (``select_words_tiles_q`` over Q
+patterns, ``select_words_tiles`` for one).
 
 The TPU version compacts screened words in 1024-word blocks into
 fixed-size ``cap`` buffers and retries with larger buffers on overflow,
@@ -27,6 +28,7 @@ __all__ = [
     "word_min_prefix",
     "meta_from_words",
     "tile_state_chain_codes",
+    "select_words_tiles_q",
     "select_words_tiles",
 ]
 
@@ -85,11 +87,12 @@ def _owned_delta_masks(widx, valid_from, valid_to):
 
 def meta_from_words(vp_w, vm_w, cost_w, valid_from, valid_to, k):
     """Per-word selection metadata from the scan outputs, bit-compatible
-    with the scan kernel: ``meta`` (NW, T) int32, bit 0 = the word is owned
-    and its exact min cost is <= k, bits 1-2 = the decreasing-state code at
-    word start from owned deltas earlier in the tile (0 none, 2 last -1,
-    3 last +1); ``final`` (T,) int32, the code after the last word."""
-    NW, T = vp_w.shape
+    with the scan kernels: ``meta`` ([Q,] NW, T) int32, bit 0 = the word is
+    owned and its exact min cost is <= k, bits 1-2 = the decreasing-state
+    code at word start from owned deltas earlier in the tile (0 none, 2
+    last -1, 3 last +1); ``final`` ([Q,] T) int32, the code after the last
+    word. The tile vectors (T,) are shared by the patterns."""
+    NW, T = vp_w.shape[-2:]
     dev = vp_w.device
     widx = torch.arange(NW, dtype=torch.int64, device=dev).view(NW, 1)
     wlo = widx * WB + 1
@@ -116,10 +119,11 @@ def meta_from_words(vp_w, vm_w, cost_w, valid_from, valid_to, k):
     # code at word START = the last present code of earlier words: put the
     # word index in the high bits for cummax, then strip it
     enc = torch.where(has, ((widx + 1) << 2) | (2 | s_w), 0)
-    cm = torch.cummax(enc, dim=0).values
-    prior = torch.cat([torch.zeros_like(cm[:1]), cm[:-1]], dim=0)
+    cm = torch.cummax(enc, dim=-2).values
+    prior = torch.cat([torch.zeros_like(cm[..., :1, :]), cm[..., :-1, :]],
+                      dim=-2)
     meta = screen.to(torch.int64) | ((prior & 3) << 1)
-    return meta.to(torch.int32), (cm[-1] & 3).to(torch.int32)
+    return meta.to(torch.int32), (cm[..., -1, :] & 3).to(torch.int32)
 
 
 def tile_state_chain_codes(tl, is_start):
@@ -127,7 +131,8 @@ def tile_state_chain_codes(tl, is_start):
     codes (``tl`` (T,): 0 none, 2|sign otherwise, the kernel's ``final``),
     combined by an exclusive cummax in tile order and reset at tiles that
     own a text start (``is_start`` (T,) bool). Returns (T,) int32 in
-    {0, 1}: 1 = the last delta before this tile's owned range was +1."""
+    {0, 1}: 1 = the last delta before this tile's owned range was +1.
+    ``tl`` may have leading axes (one chain per pattern: (Q, T))."""
     T = tl.shape[-1]
     t_ids = torch.arange(T, dtype=torch.int64, device=tl.device)
     tl = tl.to(torch.int64)
@@ -140,26 +145,29 @@ def tile_state_chain_codes(tl, is_start):
     return state0.to(torch.int32)
 
 
-def select_words_tiles(vp_w, vm_w, cost_w, meta, valid_from, valid_to,
-                       islast_at, pos_base, k, state0, all_minima: bool):
-    """Word-level candidate selection (no overhang).
+def select_words_tiles_q(vp_w, vm_w, cost_w, meta, valid_from, valid_to,
+                         islast_at, pos_base, k, state0, all_minima: bool):
+    """Word-level candidate selection of Q patterns (no overhang).
 
-    vp_w/vm_w/cost_w/meta: (NW, T) int32 scan outputs; valid_from/valid_to:
-    (T,) window-local owned range (valid_from -1 = the tile owns position
-    0); islast_at: (T,) window-local last text position (-1 = none);
-    pos_base: (T,) int64 absolute position of window position 0; state0:
-    (T,) cross-tile state seeds.
+    vp_w/vm_w/cost_w/meta: (Q, NW, T) int32 scan outputs; valid_from/
+    valid_to: (T,) window-local owned range (valid_from -1 = the tile owns
+    position 0); islast_at: (T,) window-local last text position (-1 =
+    none); pos_base: (T,) int64 position of window position 0; state0:
+    (Q, T) cross-tile state seeds. The tile vectors are shared by the
+    patterns.
 
-    Only screened words are expanded to their 33 positions (the word start
-    stands for the tile's boundary candidate). Returns a (2, N) int64
-    tensor on the device, [end positions; costs], in (word, tile,
-    position) order.
+    ``torch.nonzero`` over the (Q, NW, T) screen finds the screened words;
+    only those are expanded to their 33 positions (the word start stands
+    for the tile's boundary candidate). Returns a (4, N) int64 tensor on
+    the device, [pattern; tile; end position; cost], in (pattern, word,
+    tile, position) order.
     """
-    NW, T = vp_w.shape
-    F = NW * T
+    Q, NW, T = vp_w.shape
+    F = Q * NW * T
     dev = vp_w.device
     fidx = torch.nonzero((meta.reshape(-1) & 1) != 0).reshape(-1)
-    g_w = fidx // T
+    g_q = fidx // (NW * T)
+    g_w = (fidx // T) % NW
     g_tile = fidx % T
     g_vp = u32(vp_w.reshape(-1)[fidx])
     g_vm = u32(vm_w.reshape(-1)[fidx])
@@ -182,7 +190,8 @@ def select_words_tiles(vp_w, vm_w, cost_w, meta, valid_from, valid_to,
         # decreasing-state at word start: the word's own code if an owned
         # delta came earlier in the tile, else the cross-tile seed
         code = (meta.reshape(-1)[fidx].to(torch.int64) >> 1) & 3
-        g_din = torch.where(code > 0, (code & 1) == 0, state0[g_tile] == 0)
+        g_s0 = state0.reshape(-1)[g_q * T + g_tile]
+        g_din = torch.where(code > 0, (code & 1) == 0, g_s0 == 0)
         # first delta of the NEXT word (an artificial +1 past the window)
         f2 = torch.clamp(fidx + T, max=F - 1)
         nf = (u32(vp_w.reshape(-1)[f2]) & 1) - (u32(vm_w.reshape(-1)[f2]) & 1)
@@ -203,4 +212,16 @@ def select_words_tiles(vp_w, vm_w, cost_w, meta, valid_from, valid_to,
         mask = valid & (c <= k) & next_gt & d
 
     pos = pos_base[g_tile][:, None] + lpos
-    return torch.stack([pos[mask], c[mask]])
+    row = torch.nonzero(mask)[:, 0]
+    return torch.stack([g_q[row], g_tile[row], pos[mask], c[mask]])
+
+
+def select_words_tiles(vp_w, vm_w, cost_w, meta, valid_from, valid_to,
+                       islast_at, pos_base, k, state0, all_minima: bool):
+    """``select_words_tiles_q`` of one pattern: (NW, T) scan outputs and
+    (T,) state seeds. Returns a (2, N) int64 tensor on the device, [end
+    positions; costs], in (word, tile, position) order."""
+    return select_words_tiles_q(
+        vp_w[None], vm_w[None], cost_w[None], meta[None], valid_from,
+        valid_to, islast_at, pos_base, k, state0[None], all_minima,
+    )[2:]

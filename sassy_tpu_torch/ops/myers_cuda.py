@@ -1,13 +1,20 @@
-"""The q1meta scan kernel on the H100: build, load and launch
-(``scan_meta``), and its plain PyTorch version (``scan_meta_plain``).
+"""The scan kernels on the H100: build, load and launch, each beside its
+plain PyTorch version.
 
-``csrc/scan_meta.cu`` replaces ``get_pallas_scan_meta`` of
-``sassy_tpu/ops/myers_pallas.py``. It is compiled with ``nvcc`` for
-``sm_90a`` at first use into ``build/sassy_tpu_torch/`` beside the
-package, keyed by a hash of the source and flags, and loaded with ctypes
-through a plain C entry point.
+- ``scan_meta`` (q1meta, ``csrc/scan_meta.cu``) replaces
+  ``get_pallas_scan_meta`` of ``sassy_tpu/ops/myers_pallas.py``: one
+  pattern; ``scan_meta_plain`` is its plain version.
+- ``scan_q_meta`` (q2meta, ``csrc/scan_q_meta.cu``) replaces
+  ``get_pallas_scan_q2_meta``: Q patterns over the same windows;
+  ``scan_q_meta_plain`` is its plain version.
 
-``scan_meta`` runs the plain version for tensors on the CPU and the kernel
+Both sources share the per-tile scan of ``csrc/myers_step.cuh``. They are
+compiled with one ``nvcc`` call for ``sm_90a`` at first use into one
+library in ``build/sassy_tpu_torch/`` beside the package, keyed by a hash
+of the sources and flags, and loaded with ctypes through plain C entry
+points.
+
+Each wrapper runs the plain version for tensors on the CPU and its kernel
 for tensors on a CUDA device; there is no other fallback. Its
 ``launches`` attribute counts kernel launches.
 """
@@ -25,9 +32,12 @@ import torch
 
 from . import minima, myers_torch
 
-__all__ = ["scan_meta", "scan_meta_plain", "build", "nvcc_path"]
+__all__ = ["scan_meta", "scan_meta_plain", "scan_q_meta",
+           "scan_q_meta_plain", "build", "nvcc_path"]
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "scan_meta.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu")
+HEADERS = (CSRC / "myers_step.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sassy_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,23 +66,24 @@ def nvcc_path() -> str | None:
 
 
 def build() -> Path:
-    """Compile the kernel library unless this source is built already.
+    """Compile the kernel library unless these sources are built already.
     Returns its path; ``<path>.log`` keeps the compiler's report
     (registers, spills). Raises with nvcc's stderr when the build fails."""
     key = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(f.read_bytes() for f in SOURCES + HEADERS)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    lib = BUILD_DIR / f"scan_meta_{key}.so"
+    lib = BUILD_DIR / f"scan_kernels_{key}.so"
     if lib.exists():
         return lib
     nvcc = nvcc_path()
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the scan kernel needs the CUDA "
+        raise RuntimeError("nvcc not found: the scan kernels need the CUDA "
                            "toolkit to build")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -85,37 +96,51 @@ def build() -> Path:
 
 
 def load_library(path) -> ctypes.CDLL:
-    """Load a built kernel library and declare its C entry point."""
+    """Load a built kernel library and declare its C entry points."""
     path = str(path)
     lib = _LIBS.get(path)
     if lib is None:
         lib = ctypes.CDLL(path)
-        fn = lib.sassy_scan_meta
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
+        ptr, num = ctypes.c_void_p, ctypes.c_int
+        lib.sassy_scan_meta.argtypes = [ptr] * 14 + [num] * 8 + [ptr]
+        lib.sassy_scan_q_meta.argtypes = [ptr] * 16 + [num] * 7 + [ptr]
+        lib.sassy_scan_meta.restype = num
+        lib.sassy_scan_q_meta.restype = num
         _LIBS[path] = lib
     return lib
 
 
-def scan_meta_plain(windows, tile0, valid_from, valid_to, pmasks, is_pad,
-                    h_init, m_real: int, boundary_m: int, k: int,
-                    eq_mode: str):
-    """Plain PyTorch version of the kernel: ``myers_torch.scan_core`` from
-    the tiles' initial state, then ``minima.meta_from_words``."""
-    M = pmasks.shape[0]
-    t0 = tile0.view(1, -1)
+def scan_q_meta_plain(windows, tile0, valid_from, valid_to, pmasks, is_pad,
+                      h_init, m_real, boundary_m, k: int, eq_mode: str):
+    """Plain PyTorch version of the q2meta kernel: ``myers_torch.scan_core``
+    over Q patterns from the tiles' initial state, then
+    ``minima.meta_from_words``. ``m_real``/``boundary_m`` are (Q,) int32."""
+    Q, M = pmasks.shape[:2]
     hp0 = torch.where(
-        is_pad.view(M, 1) != 0, 0, torch.where(t0, h_init.view(M, 1), 1)
+        is_pad.view(Q, M, 1) != 0, 0,
+        torch.where(tile0.view(1, 1, -1), h_init.view(Q, M, 1), 1),
     ).to(torch.int32)
     hm0 = torch.zeros_like(hp0)
-    cost0 = torch.where(tile0, boundary_m, m_real).to(torch.int32)
+    cost0 = torch.where(tile0.view(1, -1), boundary_m.view(Q, 1),
+                        m_real.view(Q, 1)).to(torch.int32)
     vp, vm, cost = myers_torch.scan_core(
         windows, pmasks, is_pad, hp0, hm0, cost0, eq_mode
     )
     meta, final = minima.meta_from_words(vp, vm, cost, valid_from, valid_to, k)
     return vp, vm, cost, meta, final
+
+
+def scan_meta_plain(windows, tile0, valid_from, valid_to, pmasks, is_pad,
+                    h_init, m_real: int, boundary_m: int, k: int,
+                    eq_mode: str):
+    """Plain PyTorch version of the q1meta kernel: ``scan_q_meta_plain`` of
+    the one pattern."""
+    scal = torch.tensor([[m_real], [boundary_m]], dtype=torch.int32,
+                        device=windows.device)
+    outs = scan_q_meta_plain(windows, tile0, valid_from, valid_to,
+                             pmasks[None], is_pad[None], h_init[None],
+                             scal[0], scal[1], k, eq_mode)
+    return tuple(o[0] for o in outs)
 
 
 def _check(name, x, dtype, shape, device):
@@ -128,10 +153,50 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
+                  h_init, eq_mode: str, lead: tuple):
+    """Device, dtype, shape and contiguity of the inputs both kernels
+    share; ``lead`` is () for one pattern, (Q,) for Q. Returns the device."""
+    if windows.device.type != "cuda":
+        raise ValueError(f"the scan kernels run on cpu or cuda, not "
+                         f"{windows.device}")
+    if eq_mode not in EQ_MODES:
+        raise ValueError(f"unknown eq_mode {eq_mode!r}")
+    NW, P, T = windows.shape
+    M = pmasks.shape[len(lead)]
+    dev = windows.device
+    if P != PLANES[eq_mode]:
+        raise ValueError(f"eq_mode {eq_mode!r} takes {PLANES[eq_mode]} "
+                         f"planes, windows have {P}")
+    PM = P - 1 if eq_mode == "ascii" else P  # no mask for the validity plane
+    if M * (PM + 2) * 4 > MAX_SMEM:
+        raise ValueError(f"{M} pattern rows exceed the kernel's shared memory")
+    _check("windows", windows, torch.int32, (NW, P, T), dev)
+    _check("tile0", tile0, torch.bool, (T,), dev)
+    _check("valid_from", valid_from, torch.int32, (T,), dev)
+    _check("valid_to", valid_to, torch.int32, (T,), dev)
+    _check("pmasks", pmasks, torch.int32, (*lead, M, PM), dev)
+    _check("is_pad", is_pad, torch.int32, (*lead, M), dev)
+    _check("h_init", h_init, torch.int32, (*lead, M), dev)
+    return dev
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _carries(Q: int, M: int, T: int, device):
+    """Device-memory row carries of patterns past the register rows."""
+    if M <= REG_ROWS:
+        return None
+    return torch.empty((Q, 2 * -(-M // 32), T), dtype=torch.int32,
+                       device=device)
+
+
 def launch(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
            m_real: int, boundary_m: int, k: int, eq_mode: str, stream):
-    """Allocate the outputs and launch the kernel of ``lib`` on ``stream``
-    (a raw stream handle); the caller has checked the inputs."""
+    """Allocate the outputs and launch the q1meta kernel of ``lib`` on
+    ``stream`` (a raw stream handle); the caller has checked the inputs."""
     NW, P, T = windows.shape
     M = pmasks.shape[0]
     out = [torch.empty((NW, T), dtype=torch.int32, device=windows.device)
@@ -139,18 +204,41 @@ def launch(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
     final = torch.empty((T,), dtype=torch.int32, device=windows.device)
     pidx = (myers_torch.pure_plane_index(pmasks).contiguous()
             if eq_mode == "pure" else None)
-    carries = (torch.empty((2 * -(-M // 32), T), dtype=torch.int32,
-                           device=windows.device)
-               if M > REG_ROWS else None)
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    carries = _carries(1, M, T, windows.device)
     err = lib.sassy_scan_meta(
-        ptr(windows), ptr(tile0), ptr(valid_from), ptr(valid_to),
-        ptr(pmasks), ptr(is_pad), ptr(h_init), ptr(pidx),
-        *(ptr(o) for o in out), ptr(final), ptr(carries),
+        _ptr(windows), _ptr(tile0), _ptr(valid_from), _ptr(valid_to),
+        _ptr(pmasks), _ptr(is_pad), _ptr(h_init), _ptr(pidx),
+        *(_ptr(o) for o in out), _ptr(final), _ptr(carries),
         T, NW, P, M, m_real, boundary_m, k, EQ_MODES[eq_mode], stream,
     )
     if err != 0:
         raise RuntimeError(f"scan_meta kernel launch failed: CUDA error {err}")
+    return (*out, final)
+
+
+def launch_q(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad,
+             h_init, m_real, boundary_m, k: int, eq_mode: str, stream):
+    """Allocate the outputs and launch the q2meta kernel of ``lib`` on
+    ``stream``; the caller has checked the inputs."""
+    NW, P, T = windows.shape
+    Q, M = pmasks.shape[:2]
+    dev = windows.device
+    out = [torch.empty((Q, NW, T), dtype=torch.int32, device=dev)
+           for _ in range(4)]
+    final = torch.empty((Q, T), dtype=torch.int32, device=dev)
+    pidx = (myers_torch.pure_plane_index(pmasks.reshape(Q * M, -1))
+            .view(Q, M).contiguous() if eq_mode == "pure" else None)
+    carries = _carries(Q, M, T, dev)
+    err = lib.sassy_scan_q_meta(
+        _ptr(windows), _ptr(tile0), _ptr(valid_from), _ptr(valid_to),
+        _ptr(pmasks), _ptr(is_pad), _ptr(h_init), _ptr(pidx), _ptr(m_real),
+        _ptr(boundary_m), *(_ptr(o) for o in out), _ptr(final),
+        _ptr(carries), T, NW, P, M, Q, k, EQ_MODES[eq_mode], stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"scan_q_meta kernel launch failed: CUDA error {err}"
+        )
     return (*out, final)
 
 
@@ -168,26 +256,8 @@ def scan_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
     if windows.device.type == "cpu":
         return scan_meta_plain(windows, tile0, valid_from, valid_to, pmasks,
                                is_pad, h_init, m_real, boundary_m, k, eq_mode)
-    if windows.device.type != "cuda":
-        raise ValueError(f"scan_meta runs on cpu or cuda, not {windows.device}")
-    if eq_mode not in EQ_MODES:
-        raise ValueError(f"unknown eq_mode {eq_mode!r}")
-    NW, P, T = windows.shape
-    M = pmasks.shape[0]
-    dev = windows.device
-    if P != PLANES[eq_mode]:
-        raise ValueError(f"eq_mode {eq_mode!r} takes {PLANES[eq_mode]} "
-                         f"planes, windows have {P}")
-    PM = P - 1 if eq_mode == "ascii" else P  # no mask for the validity plane
-    if M * (PM + 2) * 4 > MAX_SMEM:
-        raise ValueError(f"{M} pattern rows exceed the kernel's shared memory")
-    _check("windows", windows, torch.int32, (NW, P, T), dev)
-    _check("tile0", tile0, torch.bool, (T,), dev)
-    _check("valid_from", valid_from, torch.int32, (T,), dev)
-    _check("valid_to", valid_to, torch.int32, (T,), dev)
-    _check("pmasks", pmasks, torch.int32, (M, PM), dev)
-    _check("is_pad", is_pad, torch.int32, (M,), dev)
-    _check("h_init", h_init, torch.int32, (M,), dev)
+    dev = _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
+                        h_init, eq_mode, ())
     lib = load_library(build())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -198,3 +268,35 @@ def scan_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
 
 
 scan_meta.launches = 0
+
+
+def scan_q_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
+                m_real, boundary_m, k: int, eq_mode: str):
+    """Pattern-batched window scan with selection metadata.
+
+    The inputs of ``scan_meta`` with a leading pattern axis on the
+    pattern's: pmasks (Q, M, P) ((Q, M, P - 1) for ascii), is_pad and
+    h_init (Q, M), m_real and boundary_m (Q,) int32; the windows and tile
+    vectors are shared. Returns vp, vm, cost, meta, each (Q, NW, T), and
+    final (Q, T), all int32.
+    """
+    if windows.device.type == "cpu":
+        return scan_q_meta_plain(windows, tile0, valid_from, valid_to,
+                                 pmasks, is_pad, h_init, m_real, boundary_m,
+                                 k, eq_mode)
+    Q = pmasks.shape[0]
+    dev = _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
+                        h_init, eq_mode, (Q,))
+    _check("m_real", m_real, torch.int32, (Q,), dev)
+    _check("boundary_m", boundary_m, torch.int32, (Q,), dev)
+    lib = load_library(build())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        outs = launch_q(lib, windows, tile0, valid_from, valid_to, pmasks,
+                        is_pad, h_init, m_real, boundary_m, k, eq_mode,
+                        stream)
+    scan_q_meta.launches += 1
+    return outs
+
+
+scan_q_meta.launches = 0

@@ -150,25 +150,28 @@ def pure_plane_index(pmasks: torch.Tensor) -> torch.Tensor:
 
 
 def scan_core(windows, pmasks, is_pad, hp0, hm0, cost0, eq_mode: str):
-    """The bit-parallel word scan (plain PyTorch).
+    """The bit-parallel word scan of Q patterns (plain PyTorch).
 
-    windows: (NW, P, T) int32, word w of plane p for tile t; pmasks (M, P)
-    ((M, P - 1) for ascii: the validity plane has no mask), is_pad (M,),
-    hp0/hm0 (M, T) int32 bit patterns; cost0 (T,) int32.
+    windows: (NW, P, T) int32, word w of plane p for tile t, shared by the
+    patterns; pmasks (Q, M, P) ((Q, M, P - 1) for ascii: the validity plane
+    has no mask), is_pad (Q, M), hp0/hm0 (Q, M, T) int32 bit patterns;
+    cost0 (Q, T) int32.
     ``eq_mode``: "iupac" (eq = pad | OR_p plane & mask), "pure" (eq = pad |
     the row's one plane) or "ascii" (byte equality gated by the validity
-    plane). Returns (vp, vm, cost), each (NW, T) int32: the last row's
+    plane). Returns (vp, vm, cost), each (Q, NW, T) int32: the last row's
     vertical delta words and its cost at the start of each word.
     """
     NW, P, T = windows.shape
-    M = pmasks.shape[0]
-    pm = u32(pmasks).tolist()
-    pad = u32(is_pad).tolist()
-    pidx = pure_plane_index(pmasks).tolist() if eq_mode == "pure" else None
+    Q, M = pmasks.shape[:2]
+    # per-row constants as (Q, 1) columns against (Q, T) row state
+    pm = u32(pmasks).unsqueeze(-1)  # (Q, M, PM, 1)
+    pad = u32(is_pad).unsqueeze(-1)  # (Q, M, 1)
+    pidx = (pure_plane_index(pmasks.reshape(Q * M, -1)).view(Q, M).long()
+            if eq_mode == "pure" else None)
     hp = u32(hp0)
     hm = u32(hm0)
     cost = cost0.to(torch.int64)
-    vp_out = torch.empty((NW, T), dtype=torch.int32, device=windows.device)
+    vp_out = torch.empty((Q, NW, T), dtype=torch.int32, device=windows.device)
     vm_out = torch.empty_like(vp_out)
     cost_out = torch.empty_like(vp_out)
     for w in range(NW):
@@ -177,19 +180,18 @@ def scan_core(windows, pmasks, is_pad, hp0, hm0, cost0, eq_mode: str):
         vm = torch.zeros_like(cost)
         for j in range(M):
             if eq_mode == "pure":
-                eq = x[pidx[j]] | pad[j]
+                eq = x[pidx[:, j]] | pad[:, j]
             elif eq_mode == "iupac":
-                eq = torch.full_like(cost, pad[j])
+                eq = pad[:, j].expand_as(cost)
                 for p in range(P):
-                    if pm[j][p]:
-                        eq = eq | (x[p] & pm[j][p])
+                    eq = eq | (x[p] & pm[:, j, p])
             else:
                 acc = torch.zeros_like(cost)
                 for p in range(P - 1):
-                    acc = acc | (x[p] ^ pm[j][p])
-                eq = ((~acc & FULL) & x[P - 1]) | pad[j]
-            hp_j = hp[j]
-            hm_j = hm[j]
+                    acc = acc | (x[p] ^ pm[:, j, p])
+                eq = ((~acc & FULL) & x[P - 1]) | pad[:, j]
+            hp_j = hp[:, j]
+            hm_j = hm[:, j]
             # Myers step (reference bitpacking.rs:63-85), 32-bit words
             vx = eq | vm
             eqh = eq | hm_j
@@ -199,13 +201,13 @@ def scan_core(windows, pmasks, is_pad, hp0, hm0, cost0, eq_mode: str):
             hp_sh = ((hp_o << 1) & FULL) | hp_j
             hm_sh = ((hm_o << 1) & FULL) | hm_j
             # hp_j/hm_j are views of these rows: overwrite them last
-            hp[j] = hp_o >> 31
-            hm[j] = hm_o >> 31
+            hp[:, j] = hp_o >> 31
+            hm[:, j] = hm_o >> 31
             vp = hm_sh | (~(vx | hp_sh) & FULL)
             vm = hp_sh & vx
-        vp_out[w] = i32(vp)
-        vm_out[w] = i32(vm)
-        cost_out[w] = cost.to(torch.int32)
+        vp_out[:, w] = i32(vp)
+        vm_out[:, w] = i32(vm)
+        cost_out[:, w] = cost.to(torch.int32)
         cost = cost + _popcount32(vp) - _popcount32(vm)
     return vp_out, vm_out, cost_out
 

@@ -1,10 +1,12 @@
 """The port's :class:`Searcher`: the reference ``sassy_tpu.Searcher`` with
-its engine replaced by the PyTorch/CUDA single-pattern engine.
+its engines replaced by the PyTorch/CUDA single-pattern engine and the
+batched engine.
 
 Reverse-complement handling, the end-position filter, the N-fraction
-filter, only-best selection and the CIGAR traceback are inherited
-unchanged; only candidate finding runs on the device. Entry points outside
-the ported slice raise ``NotImplementedError`` naming their ROADMAP item.
+filter, only-best selection, the encoded-pattern API and the CIGAR
+traceback are inherited unchanged; only candidate finding runs on the
+device. Entry points outside the ported slices raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ from __future__ import annotations
 import torch
 
 from sassy_tpu import search as ref_search
-from sassy_tpu.profiles import Profile, get_profile
+from sassy_tpu.profiles import Profile, as_bytes_array, get_profile
 
+from .ops.batch import BatchEngine, TextSet
 from .ops.myers_torch import TorchEngine
 
 __all__ = ["Searcher"]
@@ -33,8 +36,8 @@ class Searcher(ref_search.Searcher):
         profile: ``Dna()``, ``Iupac()`` or their names.
         rc: also search the reverse-complement strand.
         alpha: overhang; not ported yet, must be None.
-        device: "cuda" runs the hand-written scan kernel (and raises
-            without a CUDA device); "cpu" runs its plain PyTorch version.
+        device: "cuda" runs the hand-written scan kernels (and raises
+            without a CUDA device); "cpu" runs their plain PyTorch versions.
         max_n_frac: N-fraction filter, as in the reference.
     """
 
@@ -53,6 +56,7 @@ class Searcher(ref_search.Searcher):
         super().__init__(profile, rc=rc, max_n_frac=max_n_frac)
         self.device = device
         self.engine = TorchEngine(device)
+        self.batch = BatchEngine(device)
 
     # the reference's builders construct the reference class
     @staticmethod
@@ -74,28 +78,51 @@ class Searcher(ref_search.Searcher):
     def with_overhang(self, alpha: float):
         _not_ported("overhang (alpha)", "Overhang on the single path")
 
-    def search_texts(self, pattern, texts, k: int):
-        _not_ported("search_texts", "Batched engine (slice 2)")
+    def _batch_engine(self):
+        return self.batch
 
-    def search_all_texts(self, pattern, texts, k: int):
-        _not_ported("search_all_texts", "Batched engine (slice 2)")
+    # The reference falls back to its pairwise loop when the batched engine
+    # raises; in the port that loop would run the single-pattern kernel per
+    # pair and hide the batched one, so an error propagates instead.
 
-    def search_patterns(self, patterns, text, k: int):
-        _not_ported("search_patterns", "Batched engine (slice 2)")
+    def _search_many_impl(self, patterns, texts, k: int, all_minima: bool,
+                          rc: bool | None = None, filter_fn=None):
+        return self._search_many_batched(
+            [as_bytes_array(p) for p in patterns],
+            [ref_search._as_rc_searchable(t) for t in texts],
+            k, all_minima, self.rc if rc is None else rc, filter_fn,
+        )
 
-    def search_many(self, patterns, texts, k: int, num_threads: int = 0,
-                    mode: str = ref_search.SearchMode.AUTO):
-        _not_ported("search_many", "Batched engine (slice 2)")
+    def search_many_with_fn_async(self, patterns, texts, k: int,
+                                  all_minima: bool, filter_fn):
+        return self._search_many_batched_async(
+            [as_bytes_array(p) for p in patterns],
+            [ref_search._as_rc_searchable(t) for t in texts],
+            k, all_minima, self.rc, filter_fn,
+        )
 
-    def search_many_with_fn(self, patterns, texts, k, all_minima, filter_fn):
-        _not_ported("search_many_with_fn", "Batched engine (slice 2)")
-
-    def search_many_with_fn_async(self, patterns, texts, k, all_minima,
-                                  filter_fn):
-        _not_ported("search_many_with_fn_async", "Batched engine (slice 2)")
-
-    def search_encoded_patterns(self, encoded, text, k: int):
-        _not_ported("search_encoded_patterns", "Batched engine (slice 2)")
-
-    def search_all_encoded_patterns(self, encoded, text, k: int):
-        _not_ported("search_all_encoded_patterns", "Batched engine (slice 2)")
+    def _search_many_batched_async(self, pats, rc_texts, k: int,
+                                   all_minima: bool, rc: bool,
+                                   filter_fn=None):
+        """The reference's, with the port's TextSet: one upload of the
+        texts serves both strands (the reference's builds
+        ``sassy_tpu.ops.batch.TextSet``, whose module imports the
+        reference engines)."""
+        prof = self.profile
+        pcodes = [prof.encode(p) for p in pats]
+        fwd_texts = [t.text() for t in rc_texts]
+        ts = TextSet(fwd_texts, self.device)
+        # both strands dispatch back to back; finish() fetches both
+        fin = self.batch.candidates_many_async(prof, pcodes, ts, k,
+                                               all_minima=all_minima)
+        rfin = comp = ccodes = None
+        if rc:
+            comp = [as_bytes_array(prof.complement(p)) for p in pats]
+            ccodes = [prof.encode(c) for c in comp]
+            rfin = self.batch.candidates_many_async(
+                prof, ccodes, ts, k, all_minima=all_minima, reverse=True
+            )
+        return lambda: self._finish_many_batched(
+            fin, rfin, pats, pcodes, comp, ccodes, rc_texts, fwd_texts,
+            k, filter_fn,
+        )

@@ -1,5 +1,7 @@
-"""The q1meta CUDA kernel against its plain PyTorch version, and the
-port's Searcher on the card against its CPU path and the numpy oracle.
+"""The q1meta and q2meta CUDA kernels against their plain PyTorch
+versions (and q2meta's pattern slices against q1meta), and the port's
+Searcher on the card, single and batched, against its CPU path and the
+numpy oracle.
 
 Marked ``cuda``: every test skips without a CUDA device. On a GPU machine
 without JAX, run them without the repository's conftest (which imports
@@ -26,9 +28,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _random_inputs(eq_mode, M, T, NW, seed):
+def _random_inputs(eq_mode, M, T, NW, seed, n_pad=None):
     """Kernel inputs with the reference's layouts: 0/all-ones masks (one
-    plane per row for pure), pad rows at the top, 0/1 h deltas."""
+    plane per row for pure), pad rows at the top (``n_pad`` of them, else
+    a random count), 0/1 h deltas."""
     g = np.random.default_rng(seed)
     P = 9 if eq_mode == "ascii" else 4
     win = g.integers(0, 2**32, (NW, P, T), dtype=np.uint64).astype(np.uint32)
@@ -39,7 +42,8 @@ def _random_inputs(eq_mode, M, T, NW, seed):
         pm[np.arange(M), g.integers(0, 4, M)] = 0xFFFFFFFF
     else:
         pm[:] = np.where(g.random(pm.shape) < 0.4, 0xFFFFFFFF, 0)
-    n_pad = int(g.integers(0, min(M, 8)))
+    n_rand = int(g.integers(0, min(M, 8)))
+    n_pad = n_rand if n_pad is None else n_pad
     pm[:n_pad] = 0
     is_pad = np.zeros(M, np.uint32)
     is_pad[:n_pad] = 0xFFFFFFFF
@@ -68,6 +72,40 @@ def test_kernel_equals_plain(cuda, eq_mode, M):
     want = myers_cuda.scan_meta_plain(*args)
     for name, a, b in zip(("vp", "vm", "cost", "meta", "final"), got, want):
         assert torch.equal(a.cpu(), b), name
+
+
+def _random_q_inputs(eq_mode, Q, M, T, NW, seed):
+    """Q patterns of one row bucket over shared windows: each pattern its
+    own masks, pad rows (pattern q has q: its own m_real) and boundary
+    cost."""
+    parts = [_random_inputs(eq_mode, M, T, NW, seed + q, n_pad=q)
+             for q in range(Q)]
+    stack = lambda i: torch.stack([p[i] for p in parts])  # noqa: E731
+    scal = lambda i: torch.tensor([p[i] for p in parts], dtype=torch.int32)  # noqa: E731
+    return (*parts[0][:4], stack(4), stack(5), stack(6), scal(7), scal(8),
+            parts[0][9], eq_mode)
+
+
+@pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
+@pytest.mark.parametrize("M", [24, 72])
+def test_q_kernel_equals_plain_and_q1meta(cuda, eq_mode, M):
+    args = _random_q_inputs(eq_mode, Q=3, M=M, T=1000, NW=7, seed=M)
+    assert len(set(args[7].tolist())) > 1, "mixed m_real in one bucket"
+    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    before = myers_cuda.scan_q_meta.launches
+    got = myers_cuda.scan_q_meta(*dev_args)
+    torch.cuda.synchronize()
+    assert myers_cuda.scan_q_meta.launches == before + 1
+    want = myers_cuda.scan_q_meta_plain(*args)
+    for name, a, b in zip(("vp", "vm", "cost", "meta", "final"), got, want):
+        assert torch.equal(a.cpu(), b), name
+    for q in range(3):
+        one = myers_cuda.scan_meta(
+            *dev_args[:4], dev_args[4][q], dev_args[5][q], dev_args[6][q],
+            int(args[7][q]), int(args[8][q]), args[9], eq_mode,
+        )
+        for name, a, b in zip(("vp", "vm", "cost", "meta", "final"), one, got):
+            assert torch.equal(a, b[q]), (q, name)
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -125,3 +163,24 @@ def test_searcher_cuda_equals_oracle(cuda, method, k):
     )
     assert want
     _same(got, want)
+
+
+def test_batched_search_cuda_equals_cpu_and_oracle(cuda):
+    rng = np.random.default_rng(5)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pats = [rng.choice(bases, 24) for _ in range(3)] + [rng.choice(bases, 20)]
+    texts = [rng.choice(bases, int(n)) for n in rng.integers(0, 3000, 12)]
+    for i, t in enumerate(texts):
+        if len(t) > 100:
+            p = pats[i % 4].copy()
+            p[5] = ord("A") if p[5] != ord("A") else ord("C")
+            t[40 : 40 + len(p)] = p
+    texts[3] = profiles.Dna().reverse_complement(pats[1])
+    gpu = Searcher("dna", rc=True, device="cuda")
+    before = myers_cuda.scan_q_meta.launches
+    got = gpu.search_many(pats, texts, 3)
+    assert myers_cuda.scan_q_meta.launches > before
+    assert got
+    _same(got, Searcher("dna", rc=True, device="cpu").search_many(pats, texts, 3))
+    _same(got, RefSearcher("dna", rc=True, engine="numpy").search_many(
+        pats, texts, 3))

@@ -120,8 +120,13 @@ def test_port_never_imports_jax():
         "from sassy_tpu_torch import Searcher, features\n"
         "s = Searcher('dna', rc=True, device='cpu')\n"
         "assert s.search(b'ATCG', b'CCCATCACCC', 1)\n"
+        "assert s.search_many([b'ATCG'], [b'CCCATCACCC', b'AT'], 1)\n"
         "features()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "engines = [m for m in sys.modules if m.startswith(\n"
+        "    ('sassy_tpu.ops.myers', 'sassy_tpu.ops.batch',\n"
+        "     'sassy_tpu.ops.minima'))]\n"
+        "assert not engines, engines\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -175,6 +180,16 @@ def test_builders_make_the_port_searcher(build):
     lambda s: s.search_texts(b"ACGT", [b"ACGTACGT"], 1),
     lambda s: s.search_encoded_patterns(s.encode_patterns([b"ACGT"]),
                                         b"ACGTACGT", 1),
+])
+def test_batched_entry_points_equal_oracle(call):
+    """The batched entry points (slice 2) run on the port's batched
+    engine; tests/test_torch_batch.py covers them on the golden corpus."""
+    got = call(Searcher("iupac", rc=True, device="cpu"))
+    assert got
+    _same(got, call(RefSearcher("iupac", rc=True, engine="numpy")))
+
+
+@pytest.mark.parametrize("call", [
     lambda s: s.with_overhang(0.5),
     lambda s: Searcher("iupac", device="cpu", alpha=0.5),
     lambda s: Searcher("ascii", device="cpu"),
