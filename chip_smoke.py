@@ -7,8 +7,8 @@ from the root of a checkout, on a machine with an sm_90a GPU (H100) and
 the CUDA toolkit. Phases:
 
 1. the card (nvidia-smi), the toolchain (features()), and the build of
-   both scan kernels (q1meta, q2meta) from sassy_tpu_torch/csrc/ with
-   one nvcc call;
+   the four scan kernels (q1meta, q2meta, q1, q2) from
+   sassy_tpu_torch/csrc/ with one nvcc call;
 2. kernel vs plain: the q1meta scan kernel against its plain PyTorch
    version on the windows of a 1 GiB text (the H100 tile plan, a 23 bp
    pattern at k=3), bit for bit on all five outputs, for the pure, iupac
@@ -44,9 +44,36 @@ the CUDA toolkit. Phases:
 7. batched vs single on the card: 4 barcodes over 200 reads, search_many
    against the per-pair Searcher.search results (q1meta), and
    search_encoded_patterns(rc_anchor="end") against per-pattern search,
-   Match for Match with CIGAR.
+   Match for Match with CIGAR;
+8. overhang, single engine, word-level path, 1 GiB:
+   Searcher("iupac", rc=True, alpha=0.5).search of a 23 bp pattern at
+   k=3 (7 overshoot steps: the q1meta scan with its tail tile), twice:
+   exact copies hanging 4 chars off the text's start and off its end, on
+   one strand each and then on the other, and a mutated interior copy;
+   each must come back as the port's CPU path finds it on a 50 kbp slice
+   holding the same end; q1meta launched, q1 never; one strand timed;
+9. q1 vs plain and the single position-level path, 1 GiB: the q1 kernel
+   against its plain version on the overlaid windows of a 120 bp IUPAC
+   pattern at k=10, alpha 0.1 (101 overshoot steps), bit for bit, both
+   timed; then Searcher("iupac", rc=True, alpha=0.1).search of it, with
+   copies hanging 10 chars off both ends, checked as in phase 8; q1
+   launched, q1meta never; the device memory peak;
+10. q2 vs plain: the q2 kernel against its plain version on the first
+   dispatch chunk of phase 11b's position-level run (8 patterns of
+   120 bp, k=10, alpha 0.1), bit for bit, each pattern's slice against
+   q1; both timed;
+11. batched overhang at the nanopore shape, 33,400 fresh random 10 kbp
+   reads: (a) search_many of 96 x 24 bp barcodes, k=3, alpha 0.5, an
+   exact barcode copy hanging 4 chars off the start or the end of every
+   16th read (q2meta, never q2, q1 or q1meta); (b) search_many of
+   8 x 120 bp patterns, k=10, alpha 0.1, copies hanging 10 chars off the
+   ends of every 64th read (q2, never q2meta); every planted copy must
+   come back with its pattern, read, strand, cost and CIGAR, and every
+   read with another match, plus 64 sampled reads, is searched again on
+   the port's CPU path, Match for Match; the phases of one strand are
+   timed.
 
-The script imports neither JAX nor the reference package's engines.
+The script imports neither JAX nor anything of the reference package.
 
 Progress goes to stdout. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Any failure exits
@@ -82,6 +109,36 @@ Q_SINGLE = 4
 READS_SINGLE = 200
 #: the planted copies' one edit: a substitution at this pattern index
 MUT_AT = 11
+#: phases 8-11: overhang. (alpha, k, pattern length, chars a planted copy
+#: hangs off a text end) of the word-level cases (7 overshoot steps) and
+#: the position-level ones (101 steps)
+OH_WORD = (0.5, 3, 23, 4)
+OH_POS = (0.1, 10, 120, 10)
+#: phase 11: planted reads of (a) and (b), reads checked on the CPU path
+OH_EVERY_A = 16
+OH_EVERY_B = 64
+OH_Q_B = 8
+OH_SAMPLE = 64
+
+#: the least time of a scan kernel (the bound_ms of the kernels line): the
+#: larger of its bytes over the H100's 3.35 TB/s and its integer ALU-pipe
+#: instructions over that pipe's rate, 132 SMs x 64 lanes x 1.98 GHz (the
+#: SXM part's boost clock; half the issue rate, while IMAD issues to the
+#: FMA pipe and the U* instructions to the uniform datapath). ROW_OPS, per
+#: (pattern row, window word): the ALU-pipe instructions of scan_rows' loop
+#: (csrc/myers_step.cuh) in the SASS nvcc 12.8 builds for sm_90a, counted by
+#: `python -m sassy_tpu_torch.tools.sass_count`, the largest over q1meta,
+#: q2meta and q2 and both carry layouts; q1's loop is within 0.75 of them
+#: (all instructions per row: pure 33.5, iupac 28.75, ascii 34.75). A
+#: count from the source, two bitwise operations on three inputs taken as
+#: one LOP3, gave pure 21, iupac 23, ascii 28. WORD_OPS, per (pattern,
+#: window word) outside the rows, from
+#: the source: the two popcounts and the cost update (4), with the
+#: selection metadata also the owned mask, state code and screen (20 more).
+MEM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+ROW_OPS = {"pure": 24.25, "iupac": 22.75, "ascii": 27.25}
+WORD_OPS = {False: 4, True: 24}
 
 
 def fail(msg: str):
@@ -115,6 +172,47 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(eq_mode: str, Q: int, M: int, windows_shape, meta: bool) -> dict:
+    """bound_ms and bound_by of one scan launch: Q patterns of M rows
+    (pad rows included: the kernel scans them) over (NW, P, T) windows.
+    Bytes: the windows read once, the outputs written once (vp, vm, cost
+    and, with meta, meta and final)."""
+    NW, P, T = windows_shape
+    ops = Q * NW * T * (M * ROW_OPS[eq_mode] + WORD_OPS[meta])
+    nbytes = 4 * (NW * P * T + Q * NW * T * (4 if meta else 3)
+                  + (Q * T if meta else 0)) + T
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def counts_zero():
+    """Set every kernel's launch count to 0."""
+    from sassy_tpu_torch.ops import myers_cuda
+
+    for fn in (myers_cuda.scan_meta, myers_cuda.scan_q_meta, myers_cuda.scan,
+               myers_cuda.scan_q):
+        fn.launches = 0
+
+
+def counts() -> dict:
+    from sassy_tpu_torch.ops import myers_cuda
+
+    return {"q1meta": myers_cuda.scan_meta.launches,
+            "q2meta": myers_cuda.scan_q_meta.launches,
+            "q1": myers_cuda.scan.launches, "q2": myers_cuda.scan_q.launches}
+
+
+def require(launched: dict, used: tuple, unused: tuple, what: str):
+    for name in used:
+        if launched[name] < 2:
+            fail(f"{what} launched {name} {launched[name]} times")
+    for name in unused:
+        if launched[name]:
+            fail(f"{what} launched {name} {launched[name]} times")
 
 
 def random_acgt(gen, n: int):
@@ -175,7 +273,9 @@ def kernel_vs_plain(gen, text_dev):
         if not same:
             fail(f"kernel != plain for {label}")
         if head is None:
-            head = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+            head = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                    **bound(inp.eq_mode, 1, inp.pmasks.shape[0],
+                            inp.windows.shape, True)}
         del got, ref
     return head
 
@@ -390,9 +490,72 @@ def q_kernel_vs_plain(reads, barcodes):
         if not (same and q1):
             fail(f"q2meta != plain or q1meta for {label}")
         if head is None:
-            head = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+            head = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                    **bound(eq_mode, pm.shape[0], pm.shape[1], win.shape,
+                            True)}
         del got
     return head
+
+
+def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha):
+    """The phases of the forward strand of a batched search: the engine's
+    own dispatch, with its window, scan and selection steps timed (each
+    ended by a synchronise); the first run pays one-time costs."""
+    import torch
+
+    from sassy_tpu_torch.ops import batch
+
+    pcodes = [prof.encode(p) for p in pats]
+    for run in ("cold", "warm"):
+        acc = dict.fromkeys(("windows", "scan", "select"), 0.0)
+
+        def timed(obj, name, key):
+            fn = getattr(obj, name)
+
+            def wrapper(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                acc[key] += time.perf_counter() - t0
+                return out
+            setattr(obj, name, wrapper)
+
+        eng = batch.BatchEngine(DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = batch.TextSet(texts, DEVICE)
+        (g,) = eng.groups(prof, pcodes, ts, k, alpha)
+        ts.planes(prof, False, g.steps)
+        torch.cuda.synchronize()
+        t_pack = time.perf_counter() - t0
+        timed(ts, "windows", "windows")
+        timed(eng, "scan", "scan")
+        timed(eng, "select", "select")
+        pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
+        found = eng.dispatch(prof, ts, g, k, False, False)
+        t0 = time.perf_counter()
+        dense = batch._decode(batch._fetch(found), len(pats), len(texts),
+                              False)
+        t_decode = time.perf_counter() - t0
+        post = "not run"  # the host traceback has no cold cost to show
+        if run == "warm":
+            t0 = time.perf_counter()
+            ms = searcher._finish_many_batched(
+                lambda: dense, None, pats, pcodes, None, None, texts, texts,
+                k, None)
+            post = (f"{(time.perf_counter() - t0) * 1e3:.1f} ms "
+                    f"({len(ms)} matches)")
+        n_chunks = len(list(eng.chunks(g, pp)))
+        log(f"{label}: forward strand, {len(pats)} x {len(pats[0])} bp over "
+            f"{len(texts)} x {READ_LEN} bp, {run}: upload+pack "
+            f"{t_pack * 1e3:.1f} ms, piece windows "
+            f"{acc['windows'] * 1e3:.1f} ms, kernel {acc['scan'] * 1e3:.1f} "
+            f"ms, selection {acc['select'] * 1e3:.1f} ms, host copy+decode "
+            f"{t_decode * 1e3:.1f} ms, traceback+dense assembly {post} "
+            f"(M={g.pmasks.shape[1]} eq={g.eq_mode} steps={g.steps} "
+            f"pieces={pp.T} NW={pp.NW} chunks={n_chunks})")
+        del ts, eng, found, dense
 
 
 def batched_end_to_end(reads, barcodes):
@@ -409,59 +572,7 @@ def batched_end_to_end(reads, barcodes):
     pcodes = [dna.encode(p) for p in pats]
     searcher = Searcher("dna", rc=True, device=DEVICE)
 
-    # the phases of the forward strand: the engine's own dispatch, with
-    # its window, scan and selection steps timed (each ended by a
-    # synchronise); the first run pays one-time costs
-    for run in ("cold", "warm"):
-        acc = dict.fromkeys(("windows", "scan", "select"), 0.0)
-
-        def timed(obj, name, key):
-            fn = getattr(obj, name)
-
-            def wrapper(*a, **kw):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*a, **kw)
-                torch.cuda.synchronize()
-                acc[key] += time.perf_counter() - t0
-                return out
-            setattr(obj, name, wrapper)
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ts = batch.TextSet(texts, DEVICE)
-        ts.planes(dna, False)
-        torch.cuda.synchronize()
-        t_pack = time.perf_counter() - t0
-        eng = batch.BatchEngine(DEVICE)
-        timed(ts, "windows", "windows")
-        timed(eng, "scan", "scan")
-        timed(eng, "select", "select")
-        (g,) = eng.groups(dna, pcodes, ts, K)
-        pp = ts.piece_plan(g.halo, g.w_chars)
-        found = eng.dispatch(dna, ts, g, K, False, False)
-        t0 = time.perf_counter()
-        dense = batch._decode(batch._fetch(found), len(pats), len(texts),
-                              False)
-        t_decode = time.perf_counter() - t0
-        post = "not run"  # the host traceback has no cold cost to show
-        if run == "warm":
-            t0 = time.perf_counter()
-            ms = searcher._finish_many_batched(
-                lambda: dense, None, pats, pcodes, None, None, texts, texts,
-                K, None)
-            post = (f"{(time.perf_counter() - t0) * 1e3:.1f} ms "
-                    f"({len(ms)} matches)")
-        n_chunks = len(list(eng.chunks(g, pp)))
-        log(f"phase 6: forward strand, {N_BARCODES} x {BARCODE_LEN} bp over "
-            f"{N_READS} x {READ_LEN} bp, {run}: upload+pack "
-            f"{t_pack * 1e3:.1f} ms, piece windows "
-            f"{acc['windows'] * 1e3:.1f} ms, kernel {acc['scan'] * 1e3:.1f} "
-            f"ms, selection {acc['select'] * 1e3:.1f} ms, host copy+decode "
-            f"{t_decode * 1e3:.1f} ms, traceback+dense assembly {post} "
-            f"(M={g.pmasks.shape[1]} eq={g.eq_mode} pieces={pp.T} "
-            f"NW={pp.NW} chunks={n_chunks})")
-        del ts, eng, found, dense
+    batched_strand_phases("phase 6", searcher, dna, pats, texts, K, None)
 
     # the async dispatch returns before its device work ends: dispatch
     # both strands, then wait for each
@@ -591,6 +702,364 @@ def batched_vs_single(reads, barcodes):
         fail("search_encoded_patterns differs from per-pattern search")
 
 
+def _rc_table():
+    import numpy as np
+
+    comp = np.arange(256, dtype=np.uint8)
+    comp[list(b"ACGTRY")] = list(b"TGCAYR")
+    return lambda seq: comp[seq[::-1]]
+
+
+def planted_end(pattern, strand: str, where: str, hang: int, n: int):
+    """An exact copy of ``pattern`` on ``strand`` hanging ``hang`` chars off
+    the ``where`` end of a text of length n. Returns (offset, bytes, the
+    Match's (text_start, text_end, pattern_start, pattern_end))."""
+    m = len(pattern)
+    seq = pattern if strand == "FWD" else _rc_table()(pattern)
+    at, part = (0, seq[hang:]) if where == "start" else (
+        n - (m - hang), seq[: m - hang])
+    # the forward copy off the start and the reverse one off the end lose
+    # the pattern's head; the others its tail
+    lost_head = (strand == "FWD") == (where == "start")
+    return at, part, (at, at + m - hang) + ((hang, m) if lost_head
+                                             else (0, m - hang))
+
+
+def single_strand_phases(label, searcher, prof, pattern, text, k):
+    """The phases of one strand of a single-pattern search, each ended by a
+    synchronise; the first run pays one-time costs."""
+    import torch
+
+    from sassy_tpu_torch import Strand
+
+    eng = searcher.engine
+    pcodes = prof.encode(pattern)
+    names = ("upload+pack", "plan+windows", "scan kernel", "selection",
+             "traceback")
+    for run in ("cold", "warm"):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        prep = eng.prepare(prof, text)
+        mark()
+        inp = eng.build_inputs(prof, pcodes, prep, k, searcher.alpha,
+                               searcher.max_overhang)
+        mark()
+        outs = eng.scan(inp)
+        mark()
+        cands = eng.select(inp, outs).cpu()
+        mark()
+        ends = sorted(zip(*cands.tolist()))
+        searcher._postprocess(pattern, pcodes, text, k, ends, None,
+                              Strand.FWD, 0, 0)
+        mark()
+        log(f"{label}: forward strand, {len(text) >> 20} MiB, {run}, "
+            f"{'word' if inp.fast else 'position'} level (T="
+            f"{inp.windows.shape[2]} NW={inp.windows.shape[0]}): "
+            + ", ".join(f"{nm} {(b - a) * 1e3:.1f} ms"
+                        for nm, a, b in zip(names, marks, marks[1:]))
+            + f" ({len(ends)} candidates)")
+        del prep, inp, outs
+
+
+def fields(mt, shift: int = 0):
+    return (mt.text_start + shift, mt.text_end + shift, mt.pattern_start,
+            mt.pattern_end, mt.cost, mt.strand.name, mt.cigar.to_string())
+
+
+def check_sites(label, matches, sites, pattern, text, k, alpha):
+    """Each planted site [(strand, where, offset, want)] comes back once,
+    as the port's CPU path finds it on a slice of SLICE chars holding the
+    same text end (or the interior copy); an exact copy off an end also
+    with its predicted span, cost floor(alpha * hang) and CIGAR."""
+    from sassy_tpu_torch import Searcher
+
+    n = len(text)
+    cpu = Searcher("iupac", rc=True, alpha=alpha, device="cpu")
+    for strand, where, at, want in sites:
+        off = {"start": 0, "end": n - SLICE}.get(where, at - SLICE // 2)
+
+        def pick(ms, n_here, shift):
+            return [fields(x, shift) for x in ms if x.strand.name == strand
+                    and {"start": x.text_start == 0,
+                         "end": x.text_end == n_here}.get(
+                             where, x.text_start + shift == at)]
+
+        got = pick(matches, n, 0)
+        ref = pick(cpu.search(pattern, text[off : off + SLICE], k), SLICE,
+                   off)
+        if len(got) != 1 or got != ref:
+            fail(f"{label}: planted {strand} copy at the {where} ({at}): "
+                 f"card {got}, CPU path on the slice {ref}")
+        if want is not None and got[0][:5] != want:
+            fail(f"{label}: planted {strand} copy at the {where}: {got[0]}, "
+                 f"want {want}")
+        log(f"{label}: planted {strand} copy at the {where} ({at}): found "
+            f"as on the CPU path: span {got[0][:2]}, pattern {got[0][2:4]}, "
+            f"cost {got[0][4]}, cigar {got[0][6]}")
+
+
+def overhang_single(gen, text):
+    """Phase 8: the word-level overhang path at 1 GiB."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import Searcher, profiles
+
+    alpha, k, m, hang = OH_WORD
+    iupac = profiles.Iupac()
+    pattern = random_acgt(gen, m).cpu().numpy()
+    n = len(text)
+    mid = n // 5
+    mutated = pattern.copy()
+    mutated[MUT_AT] = ord("A") if mutated[MUT_AT] != ord("A") else ord("C")
+    text[mid : mid + m] = mutated
+    searcher = Searcher("iupac", rc=True, alpha=alpha, device=DEVICE)
+    cost = int(np.floor(np.float32(alpha) * np.float32(hang)))
+    for variant, (s_start, s_end) in enumerate((("FWD", "RC"),
+                                                 ("RC", "FWD"))):
+        sites = [("FWD", "mid", mid, None)]
+        for strand, where in ((s_start, "start"), (s_end, "end")):
+            at, part, span = planted_end(pattern, strand, where, hang, n)
+            text[at : at + len(part)] = part
+            sites.append((strand, where, at, span + (cost,)))
+        if variant == 0:
+            single_strand_phases("phase 8", searcher, iupac, pattern, text, k)
+        counts_zero()
+        t0 = time.perf_counter()
+        matches = searcher.search(pattern, text, k)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        launched = counts()
+        log(f"phase 8: Searcher.search with alpha {alpha}, both strands, "
+            f"{n >> 20} MiB, copies {s_start} off the start and {s_end} off "
+            f"the end: {e2e:.3f} s, {len(matches)} matches, launches "
+            f"{launched}")
+        require(launched, ("q1meta",), ("q1", "q2", "q2meta"), "phase 8")
+        check_sites("phase 8", matches, sites, pattern, text, k, alpha)
+
+
+def overhang_position_level(gen, text):
+    """Phase 9: q1 against its plain version, and the position-level
+    single path at 1 GiB. Returns q1's record."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import Searcher, profiles
+    from sassy_tpu_torch.ops import myers_cuda
+
+    alpha, k, m, hang = OH_POS
+    iupac = profiles.Iupac()
+    planted = random_acgt(gen, m).cpu().numpy()
+    pattern = planted.copy()  # two IUPAC codes: the iupac eq
+    pattern[[30, 90]] = [ord("R"), ord("Y")]
+    planted[30] = ord("A") if planted[30] in b"CT" else planted[30]
+    planted[90] = ord("C") if planted[90] in b"AG" else planted[90]
+    n = len(text)
+
+    searcher = Searcher("iupac", rc=True, alpha=alpha, device=DEVICE)
+    eng = searcher.engine
+    prep = eng.prepare(iupac, text)
+    inp = eng.build_inputs(iupac, iupac.encode(pattern), prep, k, alpha)
+    if inp.fast or inp.eq_mode != "iupac":
+        fail(f"phase 9: expected the position-level iupac path, got fast="
+             f"{inp.fast} eq={inp.eq_mode}")
+    args = (inp.windows, inp.tile0, inp.pmasks, inp.is_pad, inp.h_init,
+            inp.m_real, inp.boundary_m, inp.eq_mode)
+    got = myers_cuda.scan(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = myers_cuda.scan_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()
+              for a, b in zip(got, ref))
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    del got, ref
+    ms = cuda_ms(lambda: myers_cuda.scan(*args), REPS)
+    NW, P, T = inp.windows.shape
+    log(f"phase 9: q1 vs plain: eq={inp.eq_mode} M={inp.pmasks.shape[0]} "
+        f"NW={NW} P={P} T={T} (steps {inp.max_pos - inp.n_text}) kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bit-equal={same} "
+        f"max_abs_err={err}")
+    if not same:
+        fail("q1 != plain")
+    record = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+              **bound(inp.eq_mode, 1, inp.pmasks.shape[0], inp.windows.shape,
+                      False)}
+    del prep, inp, args
+
+    mid = 2 * n // 5
+    mutated = planted.copy()
+    mutated[MUT_AT] = ord("A") if mutated[MUT_AT] != ord("A") else ord("C")
+    text[mid : mid + m] = mutated
+    cost = int(np.floor(np.float32(alpha) * np.float32(hang)))
+    sites = [("FWD", "mid", mid, None)]
+    for strand, where in (("FWD", "start"), ("RC", "end")):
+        at, part, span = planted_end(planted, strand, where, hang, n)
+        text[at : at + len(part)] = part
+        sites.append((strand, where, at, span + (cost,)))
+    single_strand_phases("phase 9", searcher, iupac, pattern, text, k)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero()
+    t0 = time.perf_counter()
+    matches = searcher.search(pattern, text, k)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 9: Searcher.search with alpha {alpha}, both strands, "
+        f"{n >> 20} MiB, position level: {e2e:.3f} s, {len(matches)} "
+        f"matches, launches {launched}, device memory peak {peak:.2f} GiB")
+    require(launched, ("q1",), ("q1meta", "q2", "q2meta"), "phase 9")
+    check_sites("phase 9", matches, sites, pattern, text, k, alpha)
+    record["launches"] = launched["q1"]
+    return record
+
+
+def overhang_reads(gen):
+    """Phase 11's read set: (N_READS, READ_LEN) uint8 random ACGT."""
+    return random_acgt(gen, N_READS * READ_LEN).cpu().numpy().reshape(
+        N_READS, READ_LEN)
+
+
+def plant_reads(reads, pats, every: int, hang: int, first: int = 0) -> dict:
+    """An exact copy hanging ``hang`` chars off the start or the end of
+    every ``every``-th read from ``first`` on, alternating the pattern,
+    strand and end.
+    Returns {(pattern, read, strand): (text_start, text_end,
+    pattern_start, pattern_end)}."""
+    want = {}
+    for j, i in enumerate(range(first, len(reads), every)):
+        q = j % len(pats)
+        strand = "FWD" if j % 2 == 0 else "RC"
+        where = "start" if (j // 2) % 2 == 0 else "end"
+        at, part, span = planted_end(pats[q], strand, where, hang,
+                                     reads.shape[1])
+        reads[i, at : at + len(part)] = part
+        want[(q, i, strand)] = span
+    return want
+
+
+def q2_vs_plain(reads, pats):
+    """Phase 10: q2 against its plain version on the first dispatch chunk
+    of phase 11b's position-level group. Returns the record."""
+    import torch
+
+    from sassy_tpu_torch import profiles
+    from sassy_tpu_torch.ops import myers_cuda
+    from sassy_tpu_torch.ops.batch import BatchEngine, TextSet
+
+    alpha, k = OH_POS[:2]
+    iupac = profiles.Iupac()
+    eng = BatchEngine(DEVICE)
+    ts = TextSet(list(reads), DEVICE)
+    (g,) = eng.groups(iupac, [iupac.encode(p) for p in pats], ts, k, alpha)
+    if g.fast:
+        fail("phase 10: expected a position-level group")
+    pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
+    q0, q1, t0, t1 = next(eng.chunks(g, pp))
+    win = ts.windows(iupac, pp, False, t0, t1)
+    args = (win, pp.true_start[t0:t1], g.pmasks[q0:q1], g.is_pad[q0:q1],
+            g.h_init[q0:q1], g.m_real[q0:q1], g.boundary_m[q0:q1], g.eq_mode)
+    got = myers_cuda.scan_q(*args)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ref = myers_cuda.scan_q_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - start) * 1e3
+    err = max((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()
+              for a, b in zip(got, ref))
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    one = all(
+        all(torch.equal(a, b[q]) for a, b in zip(myers_cuda.scan(
+            *args[:2], args[2][q], args[3][q], args[4][q], int(args[5][q]),
+            int(args[6][q]), g.eq_mode), got))
+        for q in range(q1 - q0))
+    ms = cuda_ms(lambda: myers_cuda.scan_q(*args), REPS)
+    NW, P, T = win.shape
+    log(f"phase 10: q2 vs plain on the first of {len(list(eng.chunks(g, pp)))}"
+        f" dispatch chunks: eq={g.eq_mode} Q={q1 - q0} M={g.pmasks.shape[1]} "
+        f"NW={NW} P={P} T={T} (steps {g.steps}) kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bit-equal={same} max_abs_err={err}, slices "
+        f"equal q1={one}")
+    if not (same and one):
+        fail("q2 != plain or q1")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            **bound(g.eq_mode, q1 - q0, g.pmasks.shape[1], win.shape, False)}
+
+
+def batched_overhang(label, reads, pats, case, want, used, unused):
+    """Phase 11a/b: search_many with overhang over the read set; every
+    planted copy, then the CPU path on the reads with other matches and a
+    sample. Returns the launch counts of the main-path run."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import Searcher, profiles
+
+    alpha, k, _, hang = case
+    m = len(pats[0])
+    texts = list(reads)
+    searcher = Searcher("iupac", rc=True, alpha=alpha, device=DEVICE)
+    batched_strand_phases(label, searcher, profiles.Iupac(), pats, texts, k,
+                          alpha)
+    counts_zero()
+    t0 = time.perf_counter()
+    matches = searcher.search_many(pats, texts, k)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    launched = counts()
+    log(f"{label}: Searcher.search_many with alpha {alpha}, both strands: "
+        f"{e2e:.3f} s, {len(matches)} matches, launches {launched}")
+    require(launched, used, unused, label)
+
+    cost = int(np.floor(np.float32(alpha) * np.float32(hang)))
+    cigar = f"{m - hang}="
+    found = set()
+    for x in matches:
+        key = (x.pattern_idx, x.text_idx, x.strand.name)
+        if (want.get(key) == fields(x)[:4] and x.cost == cost
+                and x.cigar.to_string() == cigar):
+            found.add(key)
+    missing = sorted(set(want) - found)
+    if missing:
+        fail(f"{label}: {len(missing)} planted copies missing, e.g. "
+             f"{missing[:3]}: "
+             f"{[x for x in matches if x.text_idx == missing[0][1]]}")
+    log(f"{label}: all {len(want)} planted copies found with their pattern, "
+        f"read, strand, span, cost {cost} and cigar {cigar}")
+
+    extra = {x.text_idx for x in matches
+             if (x.pattern_idx, x.text_idx, x.strand.name) not in found}
+    planted = sorted({i for _, i, _ in want})
+    step = max(1, len(planted) // (OH_SAMPLE // 2))
+    sample = set(planted[::step][: OH_SAMPLE // 2])
+    sample |= set(range(1, len(texts), len(texts) // (OH_SAMPLE // 2)))
+    reads_cpu = sorted(extra | sample)
+    where = {t: i for i, t in enumerate(reads_cpu)}
+    t0 = time.perf_counter()
+    cpu = Searcher("iupac", rc=True, alpha=alpha, device="cpu").search_many(
+        pats, [texts[t] for t in reads_cpu], k)
+    t_cpu = time.perf_counter() - t0
+    for x in cpu:
+        x.text_idx = reads_cpu[x.text_idx]
+    key = lambda x: (x.pattern_idx, x.text_idx) + fields(x)  # noqa: E731
+    got = sorted(key(x) for x in matches if x.text_idx in where)
+    ref = sorted(key(x) for x in cpu)
+    log(f"{label}: {len(extra)} reads with other matches and "
+        f"{len(reads_cpu)} reads in all against the CPU path ({t_cpu:.1f} "
+        f"s): {len(got)} matches, equal={got == ref}")
+    if got != ref:
+        fail(f"{label}: search_many differs from the CPU path on the checked "
+             "reads")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -622,31 +1091,54 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_q = batched_end_to_end(reads, barcodes)
     batched_vs_single(reads, barcodes)
-    engines = [m for m in sys.modules if m == "jax" or m.startswith(
-        ("jax.", "sassy_tpu.ops.myers", "sassy_tpu.ops.minima",
-         "sassy_tpu.ops.batch", "sassy_tpu.parallel"))]
-    if engines:
-        fail(f"JAX or the reference engines were imported: {engines}")
+    del reads
+    torch.cuda.empty_cache()
 
-    record = {"kernels": [{
-        "name": "scan_meta (q1meta)",
-        "route": "cuda",
-        "source": "sassy_tpu_torch/csrc/scan_meta.cu",
-        "replaces": "sassy_tpu/ops/myers_pallas.py:201",
-        "launches": launches,
-        "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-    }, {
-        "name": "scan_q_meta (q2meta)",
-        "route": "cuda",
-        "source": "sassy_tpu_torch/csrc/scan_q_meta.cu",
-        "replaces": "sassy_tpu/ops/myers_pallas.py:735",
-        "launches": launches_q,
-        "max_abs_err": head_q["max_abs_err"],
-        "ms": head_q["ms"],
-        "plain_ms": head_q["plain_ms"],
-    }]}
+    text = random_acgt(gen, N_TEXT).cpu().numpy()
+    overhang_single(gen, text)
+    head_q1 = overhang_position_level(gen, text)
+    del text
+    torch.cuda.empty_cache()
+
+    reads = overhang_reads(gen)
+    barcodes = random_acgt(gen, N_BARCODES * BARCODE_LEN).cpu().numpy()
+    barcodes = list(barcodes.reshape(N_BARCODES, BARCODE_LEN))
+    long_ = random_acgt(gen, OH_Q_B * OH_POS[2]).cpu().numpy()
+    long_ = list(long_.reshape(OH_Q_B, OH_POS[2]))
+    want_a = plant_reads(reads, barcodes, OH_EVERY_A, OH_WORD[3])
+    want_b = plant_reads(reads, long_, OH_EVERY_B, OH_POS[3],
+                         first=OH_EVERY_A // 2)
+    head_q2 = q2_vs_plain(reads, long_)
+    torch.cuda.empty_cache()
+    batched_overhang("phase 11a", reads, barcodes, OH_WORD, want_a,
+                     ("q2meta",), ("q2", "q1", "q1meta"))
+    launched_b = batched_overhang("phase 11b", reads, long_, OH_POS, want_b,
+                                  ("q2",), ("q2meta", "q1", "q1meta"))
+
+    ref = [m for m in sys.modules if m in ("jax", "sassy_tpu")
+           or m.startswith(("jax.", "sassy_tpu."))]
+    if ref:
+        fail(f"JAX or the reference package was imported: {ref}")
+
+    def entry(name, source, replaces, launched, rec):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None}
+
+    record = {"kernels": [
+        entry("scan_meta (q1meta)", "sassy_tpu_torch/csrc/scan_meta.cu",
+              "sassy_tpu/ops/myers_pallas.py:201", launches, head),
+        entry("scan_q_meta (q2meta)", "sassy_tpu_torch/csrc/scan_q_meta.cu",
+              "sassy_tpu/ops/myers_pallas.py:735", launches_q, head_q),
+        entry("scan (q1)", "sassy_tpu_torch/csrc/scan.cu",
+              "sassy_tpu/ops/myers_pallas.py:49", head_q1["launches"],
+              head_q1),
+        entry("scan_q (q2)", "sassy_tpu_torch/csrc/scan_q.cu",
+              "sassy_tpu/ops/myers_pallas.py:541", launched_b["q2"],
+              head_q2),
+    ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

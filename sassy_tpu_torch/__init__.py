@@ -1,8 +1,8 @@
 """sassy_tpu_torch: the PyTorch / CUDA port of sassy_tpu for an NVIDIA H100.
 
-Approximate search (DNA or IUPAC, both strands, no overhang) of one
-pattern in one text, or of many patterns in many texts in one batched
-pass, with the scans on the GPU in hand-written CUDA kernels:
+Approximate search (DNA or IUPAC, both strands, with or without overhang)
+of one pattern in one text, or of many patterns in many texts in one
+batched pass, with the scans on the GPU in hand-written CUDA kernels:
 
     from sassy_tpu_torch import Searcher
 
@@ -11,15 +11,15 @@ pass, with the scans on the GPU in hand-written CUDA kernels:
     matches = searcher.search_many([b"ATCG", b"GGTA"],
                                    [b"CCCATCACCC", b"TTGGTAC"], k=1)
 
-It shares the JAX-free host modules of ``sassy_tpu`` (profiles, semantics,
-match records, traceback) and never imports JAX.
+It keeps its own copies of the host modules of ``sassy_tpu`` (profiles,
+semantics, match records, traceback) and imports nothing of that package,
+nor JAX.
 """
 
-from sassy_tpu import profiles
-from sassy_tpu.cigar import Cigar
-from sassy_tpu.matchrec import UNKNOWN, Match, Strand
-
-from .search import Searcher
+from . import profiles
+from .cigar import Cigar
+from .matchrec import UNKNOWN, Match, Strand
+from .search import CachedRev, EncodedPatterns, SearchMode, Searcher
 
 
 def features() -> dict:
@@ -46,6 +46,9 @@ __all__ = [
     "Match",
     "Strand",
     "Cigar",
+    "CachedRev",
+    "EncodedPatterns",
+    "SearchMode",
     "UNKNOWN",
     "profiles",
 ]

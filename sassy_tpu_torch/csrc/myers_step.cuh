@@ -1,12 +1,13 @@
-// The Myers'99 word scan of one tile for one pattern, with selection
-// metadata: the body shared by the q1meta kernel (scan_meta.cu, one
-// pattern) and the q2meta kernel (scan_q_meta.cu, Q patterns).
+// The Myers'99 word scan of one tile for one pattern: the body shared by
+// the four scan kernels, q1meta (scan_meta.cu, one pattern) and q2meta
+// (scan_q_meta.cu, Q patterns) with selection metadata, q1 (scan.cu) and
+// q2 (scan_q.cu) without.
 //
 // One thread scans one tile: for each 32-position word of its window, the
-// last pattern row's vertical delta words (vp, vm), its cost at the word
-// start, and meta (bit 0: the word is owned and its exact minimum cost is
-// <= k; bits 1-2: the decreasing-state code at the word start); per tile,
-// `final`, the code after the last word.
+// last pattern row's vertical delta words (vp, vm) and its cost at the word
+// start; with META also meta (bit 0: the word is owned and its exact
+// minimum cost is <= k; bits 1-2: the decreasing-state code at the word
+// start) and, per tile, `final`, the code after the last word.
 
 #pragma once
 
@@ -109,8 +110,8 @@ __device__ __forceinline__ void scan_rows(
 struct Args {
   const uint32_t* win;     // (NW, P, T) text plane words
   const uint8_t* tile0;    // (T,) bool: the tile owns the text start
-  const int32_t* vfrom;    // (T,) window-local owned range (vfrom, vto]
-  const int32_t* vto;      // (T,)
+  const int32_t* vfrom;    // (T,) window-local owned range (vfrom, vto];
+  const int32_t* vto;      // (T,) META only
   const uint32_t* pmasks;  // (M, P) row masks; (M, P - 1) for ascii
   const uint32_t* is_pad;  // (M,) all-ones for pad rows
   const uint32_t* h_init;  // (M,) true-start h deltas, 0 or 1
@@ -118,8 +119,8 @@ struct Args {
   uint32_t* vp_out;        // (NW, T)
   uint32_t* vm_out;        // (NW, T)
   int32_t* cost_out;       // (NW, T)
-  int32_t* meta_out;       // (NW, T)
-  int32_t* final_out;      // (T,)
+  int32_t* meta_out;       // (NW, T), META only
+  int32_t* final_out;      // (T,), META only
   uint32_t* carries;       // (2 * ceil(M / 32), T), for M > kRegRows only
   int T, NW, M, m_real, boundary_m, k;
 };
@@ -133,8 +134,10 @@ size_t smem_bytes(int M) {
 
 // The tiles block * kThreads + threadIdx.x of one pattern. Every thread of
 // the block first stages the pattern's rows in shared memory: the row loop
-// then reads the same row in all threads at once (a broadcast).
-template <int EQ, bool REG>
+// then reads the same row in all threads at once (a broadcast). META adds
+// the selection metadata; without it vfrom, vto, k, meta and final are
+// not touched.
+template <int EQ, bool REG, bool META>
 __device__ __forceinline__ void scan_block(const Args& a, int block) {
   constexpr int P = planes_of<EQ>();
   constexpr int PM = masks_of<EQ>();
@@ -154,8 +157,8 @@ __device__ __forceinline__ void scan_block(const Args& a, int block) {
   if (t >= a.T) return;
   const size_t T = static_cast<size_t>(a.T);
   const bool lane0 = a.tile0[t] != 0;
-  const int vf = a.vfrom[t];
-  const int vt = a.vto[t];
+  const int vf = META ? a.vfrom[t] : 0;
+  const int vt = META ? a.vto[t] : 0;
   const int NC = (M + 31) >> 5;
 
   // initial carries: pad rows 0, the true start h_init, other tiles +1
@@ -207,34 +210,83 @@ __device__ __forceinline__ void scan_block(const Args& a, int block) {
       }
     }
 
-    const int w32 = 32 * w;
-    // state code: sign of the last owned delta (vp and vm are disjoint,
-    // so the larger word holds the higher bit), carried across words
-    const uint32_t om = owned_mask(w32, vf, vt);
-    const uint32_t vp_o = vp & om;
-    const uint32_t vm_o = vm & om;
-    const int new_code = (vp_o | vm_o) ? (2 | (vp_o > vm_o ? 1 : 0)) : code;
-    // screen: word 0 of a tile owning position 0 also stands for the
-    // boundary candidate (position 0, cost = the word-start cost)
-    const bool owns_0 = w == 0 && vf < 0;
-    const bool wvalid = w32 + 32 > vf && (w32 + 1 <= vt || owns_0);
+    const size_t o = static_cast<size_t>(w) * T + t;
     const int pc_p = __popc(vp);
     const int pc_m = __popc(vm);
-    int screen = 0;
-    if (wvalid && cost - pc_m <= a.k) {
-      int mp = word_min_prefix(vp, vm);
-      if (owns_0) mp = min(mp, 0);
-      screen = cost + mp <= a.k ? 1 : 0;
-    }
-    const size_t o = static_cast<size_t>(w) * T + t;
     a.vp_out[o] = vp;
     a.vm_out[o] = vm;
     a.cost_out[o] = cost;
-    a.meta_out[o] = screen | (code << 1);
+    if (META) {
+      const int w32 = 32 * w;
+      // state code: sign of the last owned delta (vp and vm are disjoint,
+      // so the larger word holds the higher bit), carried across words
+      const uint32_t om = owned_mask(w32, vf, vt);
+      const uint32_t vp_o = vp & om;
+      const uint32_t vm_o = vm & om;
+      const int new_code = (vp_o | vm_o) ? (2 | (vp_o > vm_o ? 1 : 0)) : code;
+      // screen: word 0 of a tile owning position 0 also stands for the
+      // boundary candidate (position 0, cost = the word-start cost)
+      const bool owns_0 = w == 0 && vf < 0;
+      const bool wvalid = w32 + 32 > vf && (w32 + 1 <= vt || owns_0);
+      int screen = 0;
+      if (wvalid && cost - pc_m <= a.k) {
+        int mp = word_min_prefix(vp, vm);
+        if (owns_0) mp = min(mp, 0);
+        screen = cost + mp <= a.k ? 1 : 0;
+      }
+      a.meta_out[o] = screen | (code << 1);
+      code = new_code;
+    }
     cost += pc_p - pc_m;
-    code = new_code;
   }
-  a.final_out[t] = code;
+  if (META) a.final_out[t] = code;
+}
+
+// Q patterns over the same windows: `base` holds the shared windows and
+// tile vectors, and the pointers of pattern 0.
+struct QArgs {
+  Args base;
+  const int32_t* m_real;      // (Q,) unpadded pattern lengths
+  const int32_t* boundary_m;  // (Q,) cost at the text start, row m
+  int Q;
+};
+
+// Block b of a Q-pattern grid scans pattern b % Q over the tiles of block
+// b / Q: the Q blocks of one tile range run next to each other, so a
+// window word comes from device memory once and from L2 for the other
+// Q - 1 patterns. The pointers of pattern 0 are offset to pattern q's.
+template <int EQ, bool REG, bool META>
+__device__ __forceinline__ void scan_q_block(const QArgs& qa) {
+  const int q = static_cast<int>(blockIdx.x % static_cast<unsigned>(qa.Q));
+  const int block = static_cast<int>(blockIdx.x / static_cast<unsigned>(qa.Q));
+  Args a = qa.base;
+  const size_t M = static_cast<size_t>(a.M);
+  const size_t T = static_cast<size_t>(a.T);
+  const size_t rows = static_cast<size_t>(q) * M;
+  const size_t words = static_cast<size_t>(q) * a.NW * T;
+  a.pmasks += rows * masks_of<EQ>();
+  a.is_pad += rows;
+  a.h_init += rows;
+  if (EQ == kEqPure) a.pidx += rows;
+  a.vp_out += words;
+  a.vm_out += words;
+  a.cost_out += words;
+  if (META) {
+    a.meta_out += words;
+    a.final_out += static_cast<size_t>(q) * T;
+  }
+  if (!REG) a.carries += static_cast<size_t>(q) * 2 * ((M + 31) / 32) * T;
+  a.m_real = qa.m_real[q];
+  a.boundary_m = qa.boundary_m[q];
+  scan_block<EQ, REG, META>(a, block);
+}
+
+// Blocks of a Q-pattern grid over T tiles; 0 when the grid is too large.
+inline unsigned q_blocks(int T, int Q) {
+  const long long tile_blocks =
+      (static_cast<long long>(T) + kThreads - 1) / kThreads;
+  const long long blocks = tile_blocks * Q;
+  return blocks > 0x7FFFFFFF ? 0u : static_cast<unsigned>(blocks);
 }
 
 // Launches `kernel` on `stream` with the dynamic shared memory it asks

@@ -31,9 +31,9 @@
 //   bound of the word's minimum, reaches k (rarely, on random text).
 //
 // The per-tile scan is myers_step.cuh's scan_block, shared with the
-// q2meta kernel (scan_q_meta.cu). Built by sassy_tpu_torch/ops/myers_cuda.py
-// with nvcc, together with scan_q_meta.cu, into one shared library with
-// plain C entry points, loaded with ctypes.
+// other scan kernels. Built by sassy_tpu_torch/ops/myers_cuda.py with one
+// nvcc call, together with them, into one shared library with plain C
+// entry points, loaded with ctypes.
 
 #include "myers_step.cuh"
 
@@ -41,7 +41,7 @@ namespace {
 
 template <int EQ, bool REG>
 __global__ void __launch_bounds__(kThreads) scan_meta_kernel(const Args a) {
-  scan_block<EQ, REG>(a, blockIdx.x);
+  scan_block<EQ, REG, true>(a, blockIdx.x);
 }
 
 template <int EQ>

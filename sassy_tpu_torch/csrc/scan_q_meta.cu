@@ -18,9 +18,9 @@
 //   pattern, so a warp's loads and stores are 32 adjacent tiles, and the
 //   pattern's rows sit in the block's shared memory (myers_step.cuh);
 // - the grid runs the Q blocks of one tile range next to each other
-//   (block b: pattern b % Q, tiles b / Q), so a window word comes from
-//   device memory once and from the 50 MB L2 for the other Q - 1
-//   patterns;
+//   (block b: pattern b % Q, tiles b / Q; myers_step.cuh's scan_q_block),
+//   so a window word comes from device memory once and from the 50 MB L2
+//   for the other Q - 1 patterns;
 // - carries bit-packed in registers for M <= 64, in device memory laid
 //   out [pattern][word][tile] beyond that.
 //
@@ -28,43 +28,13 @@
 // (8, 128) lane blocks, the card's parallelism comes from the Q x T
 // threads themselves.
 
-#include <climits>
-
 #include "myers_step.cuh"
 
 namespace {
 
-// Q patterns: `base` holds the shared windows and tile vectors, and the
-// pointers of pattern 0; the kernel offsets them per pattern.
-struct QArgs {
-  Args base;
-  const int32_t* m_real;      // (Q,) unpadded pattern lengths
-  const int32_t* boundary_m;  // (Q,) cost at the text start, row m
-  int Q;
-};
-
 template <int EQ, bool REG>
 __global__ void __launch_bounds__(kThreads) scan_q_meta_kernel(const QArgs qa) {
-  const int q = static_cast<int>(blockIdx.x % static_cast<unsigned>(qa.Q));
-  const int block = static_cast<int>(blockIdx.x / static_cast<unsigned>(qa.Q));
-  Args a = qa.base;
-  const size_t M = static_cast<size_t>(a.M);
-  const size_t T = static_cast<size_t>(a.T);
-  const size_t rows = static_cast<size_t>(q) * M;
-  const size_t words = static_cast<size_t>(q) * a.NW * T;
-  a.pmasks += rows * masks_of<EQ>();
-  a.is_pad += rows;
-  a.h_init += rows;
-  if (EQ == kEqPure) a.pidx += rows;
-  a.vp_out += words;
-  a.vm_out += words;
-  a.cost_out += words;
-  a.meta_out += words;
-  a.final_out += static_cast<size_t>(q) * T;
-  if (!REG) a.carries += static_cast<size_t>(q) * 2 * ((M + 31) / 32) * T;
-  a.m_real = qa.m_real[q];
-  a.boundary_m = qa.boundary_m[q];
-  scan_block<EQ, REG>(a, block);
+  scan_q_block<EQ, REG, true>(qa);
 }
 
 template <int EQ>
@@ -122,10 +92,8 @@ extern "C" int sassy_scan_q_meta(
   if (!eq_inputs_ok(eq_mode, P, pidx)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long tile_blocks = (static_cast<long long>(T) + kThreads - 1) / kThreads;
-  const long long blocks = tile_blocks * Q;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned nb = static_cast<unsigned>(blocks);
+  const unsigned nb = q_blocks(T, Q);
+  if (nb == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (eq_mode) {
     case kEqIupac:

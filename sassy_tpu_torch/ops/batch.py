@@ -1,16 +1,25 @@
 """The batched multi-pattern engine in PyTorch: Q patterns x N texts.
 
-Port of the no-overhang fast path of ``sassy_tpu/ops/batch.py``. Texts are
-cut into pieces (whole short texts, or word-aligned, halo-overlapped
-segments of long ones: ``_plan_pieces``); the pieces of all texts form the
-tile axis of one scan. A strand's texts are uploaded once and packed into
-bit-planes on the device (the reverse strand is derived there from the
-forward bytes); each dispatch chunk gathers its piece windows, NW = W + 1
-words (one word of right context past the owned range), from those planes.
-The q2meta kernel (``myers_cuda.scan_q_meta``) scans every (pattern,
-piece) pair; the cross-piece state chain and
-``minima.select_words_tiles_q`` turn its outputs into (pattern, text, end
-position, cost) columns on the device, which leave it in one copy.
+Port of ``sassy_tpu/ops/batch.py``. Texts are cut into pieces (whole short
+texts, or word-aligned, halo-overlapped segments of long ones:
+``_plan_pieces``); the pieces of all texts form the tile axis of one scan.
+A strand's texts are uploaded once and packed into bit-planes on the
+device (the reverse strand is derived there from the forward bytes; with
+overhang each text is followed by its 'N' overshoot positions); each
+dispatch chunk gathers its piece windows, NW = W + 1 words (one word of
+right context past the owned range), from those planes.
+
+Patterns are grouped by row bucket and overhang steps. A group whose
+overshoot spans at most three words (always, without overhang) takes the
+word-level path: the q2meta kernel (``myers_cuda.scan_q_meta``), the
+cross-piece state chain and ``minima.select_words_tiles_q``. A longer
+overshoot takes the position-level path: the q2 kernel
+(``myers_cuda.scan_q``) and ``minima.select_candidates_tiles``, which
+expands every (pattern, position): one scan launch per dispatch chunk, its
+selection in tile sub-ranges of at most ``minima.POSITIONS_PER_CHUNK``
+expanded pairs (the state carried across them as across chunks). Either
+way the candidates leave the device as (pattern, text, end position,
+cost) columns in one copy.
 
 ``candidates_many_async`` hands that device work to one dispatch thread
 and returns at once: each chunk's ``torch.nonzero`` makes the host wait
@@ -25,9 +34,9 @@ into the next (the JAX package truncates it to state 0 at chunk edges,
 ``sassy_tpu/ops/batch.py:672-676``).
 
 ``_Piece``, ``_plan_pieces``, ``_w_lattice`` and ``_pick_w_words``
-reproduce the numpy planner of the JAX package without its overhang
-``steps`` and TPU ``pad_mult`` (that module imports the JAX engines, this
-package must not); the tests hold them equal to the originals.
+reproduce the numpy planner of the JAX package without its TPU
+``pad_mult`` (that module imports the JAX engines, this package must not);
+the tests hold them equal to the originals.
 """
 
 from __future__ import annotations
@@ -40,18 +49,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sassy_tpu.ops.bitpack import WORD_BITS
-from sassy_tpu.profiles import Profile, as_bytes_array
-
+from .. import semantics
+from ..profiles import Profile, as_bytes_array
 from . import minima, myers_cuda, plan
+from .bitpack import WORD_BITS
+from .minima import FULL, i32
 from .myers_torch import pack, state_from_numpy
 from .plan import _bucket_words, _masks_pure_np, cdiv, pattern_inputs_np
 
 __all__ = ["BatchEngine", "TextSet", "DISPATCH_BYTES", "W_MAX_WORDS"]
 
-#: Kernel output bytes one dispatch may write (vp, vm, cost and meta: 16
-#: bytes per pattern and window word): 4 GiB of the H100's 80 GB, so the
-#: selection's temporaries and both strands' planes fit beside it.
+#: Kernel output bytes one dispatch may write (vp, vm, cost and, at the
+#: word level, meta: 12 or 16 bytes per pattern and window word): 4 GiB of
+#: the H100's 80 GB, so the selection's temporaries and both strands'
+#: planes fit beside it.
 DISPATCH_BYTES = 4 << 30
 
 #: Widest piece window in words (the JAX package's ``w_max_words``).
@@ -83,19 +94,22 @@ class _Piece:
     start_char: int  # text-local char index at piece position 0
     valid_from: int  # positions > valid_from are owned (-1: owns position 0)
     valid_to: int  # positions <= valid_to are owned
+    text_end: int  # piece-local position of the text end (overshoot anchor)
     islast_at: int  # trailing-minimum position (-1 for non-final segments)
     true_start: bool
 
 
-def _plan_pieces(lens: list[int], w_chars: int, halo: int) -> list[_Piece]:
+def _plan_pieces(lens: list[int], steps: int, w_chars: int,
+                 halo: int) -> list[_Piece]:
     """Cut texts into pieces of <= w_chars positions each.
 
-    Position space of text t is 1..n_t (+ the boundary position 0, owned by
-    the true-start piece). A continuation piece re-scans ``halo`` chars
-    before its owned range, from a word-aligned start.
+    Position space of text t is 1..n_t + steps (+ the boundary position 0,
+    owned by the true-start piece). A continuation piece re-scans ``halo``
+    chars before its owned range, from a word-aligned start.
     """
     pieces: list[_Piece] = []
-    for t, total in enumerate(lens):
+    for t, n in enumerate(lens):
+        total = n + steps
         o = 0  # first not-yet-owned position
         first = True
         while True:
@@ -109,6 +123,12 @@ def _plan_pieces(lens: list[int], w_chars: int, halo: int) -> list[_Piece]:
                 start_char = (o - halo) // WORD_BITS * WORD_BITS
                 vfrom = o - start_char
                 own = min(total - o, w_chars - vfrom)
+            if steps and o < n and n < o + own < total:
+                # never split the overshoot span (n, n + steps] across
+                # pieces: the word-level overhang path derives the final
+                # piece's cross-piece state from RAW delta codes, exact only
+                # while all prior pieces own raw (<= n) positions
+                own = n - o
             last = o + own >= total
             pieces.append(
                 _Piece(
@@ -116,6 +136,7 @@ def _plan_pieces(lens: list[int], w_chars: int, halo: int) -> list[_Piece]:
                     start_char=start_char,
                     valid_from=vfrom,
                     valid_to=vfrom + own if not first else own,
+                    text_end=n - start_char,
                     islast_at=(vfrom if not first else 0) + own if last else -1,
                     true_start=first,
                 )
@@ -140,7 +161,7 @@ def _w_lattice(cap: int) -> list[int]:
     return sorted(set(vals))
 
 
-def _pick_w_words(lens: list[int], halo: int, w_cap: int) -> int:
+def _pick_w_words(lens: list[int], steps: int, halo: int, w_cap: int) -> int:
     """Piece-window width (words) minimizing total scanned words.
 
     The kernel scans every piece's full window, so a width that divides the
@@ -150,7 +171,7 @@ def _pick_w_words(lens: list[int], halo: int, w_cap: int) -> int:
     cands = _w_lattice(w_cap)
     if w_cap not in cands:
         cands.append(w_cap)
-    ln = np.asarray(lens, np.int64)
+    ln = np.asarray(lens, np.int64) + steps
     halo_a = halo + WORD_BITS - 1  # worst-case word-aligned halo re-scan
     best_w, best_cost = None, None
     for w in cands:
@@ -159,7 +180,7 @@ def _pick_w_words(lens: list[int], halo: int, w_cap: int) -> int:
             continue
         over = np.maximum(ln - wc, 0)
         cont = -(-over // (wc - halo_a))
-        cost = int(np.sum(1 + cont)) * w
+        cost = int(np.sum(1 + cont + ((steps > 0) & (over > 0)))) * w
         if best_cost is None or cost < best_cost or (
             cost == best_cost and w > best_w
         ):
@@ -167,19 +188,21 @@ def _pick_w_words(lens: list[int], halo: int, w_cap: int) -> int:
     return best_w if best_w is not None else w_cap
 
 
-def _piece_width(lens: list[int], halo: int, n_patterns: int) -> int:
-    """Piece width in chars for one row bucket: small enough that the
-    pieces times the patterns fill the card (one thread per pair, the
-    single path's ``plan.H100_TARGET_TILES``), wide enough to amortize the
-    halo re-scan (>= 4 halos), at most the longest text."""
+def _piece_width(lens: list[int], steps: int, halo: int,
+                 n_patterns: int) -> int:
+    """Piece width in chars for one group: small enough that the pieces
+    times the patterns fill the card (one thread per pair, the single
+    path's ``plan.H100_TARGET_TILES``), wide enough to amortize the halo
+    re-scan (>= 4 halos), at most the longest text with its overshoot."""
     tiles = cdiv(plan.H100_TARGET_TILES, n_patterns)
-    target = max(4 * halo, cdiv(sum(lens), tiles), 4 * WORD_BITS)
+    target = max(4 * halo, cdiv(sum(lens) + steps * len(lens), tiles),
+                 4 * WORD_BITS)
     w_cap = min(
-        _bucket_words(max(cdiv(max(lens), WORD_BITS), 1)),
+        _bucket_words(max(cdiv(max(lens) + steps, WORD_BITS), 1)),
         _bucket_words(cdiv(target, WORD_BITS)),
         W_MAX_WORDS,
     )
-    w_chars = _pick_w_words(lens, halo, w_cap) * WORD_BITS
+    w_chars = _pick_w_words(lens, steps, halo, w_cap) * WORD_BITS
     if w_chars <= halo + WORD_BITS:
         w_chars = _bucket_words(cdiv(halo + 4 * WORD_BITS, WORD_BITS)) * WORD_BITS
     return w_chars
@@ -187,13 +210,16 @@ def _piece_width(lens: list[int], halo: int, n_patterns: int) -> int:
 
 @dataclass
 class PiecePlan:
-    """The pieces of one (halo, piece width) as device tables, (T,) each."""
+    """The pieces of one (halo, piece width, overhang steps) as device
+    tables, (T,) each."""
 
     w_chars: int
+    steps: int
     true_start: torch.Tensor  # bool
     valid_from: torch.Tensor  # int32, piece-local
     valid_to: torch.Tensor  # int32
     islast_at: torch.Tensor  # int32
+    text_end: torch.Tensor  # int64, piece-local text end
     start_char: torch.Tensor  # int64, text-local position of piece position 0
     text_idx: torch.Tensor  # int64
     word0: torch.Tensor  # int64, flat plane word of the piece start
@@ -209,12 +235,15 @@ class PiecePlan:
 
 
 class TextSet:
-    """A batch of texts on one device: piece plans per (halo, piece width)
-    and bit-planes per (profile, strand), reusable across patterns and k.
+    """A batch of texts on one device: piece plans per (halo, piece width,
+    overhang steps) and bit-planes per (profile, strand, steps), reusable
+    across patterns and k.
 
     The planes of a strand are one flat (P, GW + 1) array: text t owns
-    words [wofs[t], wofs[t] + ceil(n_t / 32)), zero past its end; the last
-    word is all-zero, the one that window words past a text end read."""
+    words [wofs[t], wofs[t] + ceil((n_t + steps) / 32)), 'N' (every plane
+    bit set) at its ``steps`` overshoot positions and zero past them; the
+    last word is all-zero, the one that window words past a text end
+    read."""
 
     def __init__(self, texts, device="cpu"):
         self.texts = [as_bytes_array(t) for t in texts]
@@ -227,33 +256,43 @@ class TextSet:
         self._planes: dict = {}
         self._fwd_bytes = None
 
-    @property
-    def words(self) -> int:
-        """Plane words of all texts, the zero word excluded."""
-        return int(self._wofs[-1])
+    def layout(self, steps: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        """(words per text, first word per text + the total) of the planes
+        with ``steps`` overshoot positions per text."""
+        if steps == 0:
+            return self._nw, self._wofs
+        nw = -(-(np.asarray(self.lens, np.int64) + steps) // WORD_BITS)
+        return nw, np.concatenate([[0], np.cumsum(nw)]).astype(np.int64)
 
-    def piece_plan(self, halo: int, w_chars: int) -> PiecePlan:
-        key = (halo, w_chars)
+    def words(self, steps: int = 0) -> int:
+        """Plane words of all texts, the zero word excluded."""
+        return int(self.layout(steps)[1][-1])
+
+    def piece_plan(self, halo: int, w_chars: int, steps: int = 0) -> PiecePlan:
+        key = (halo, w_chars, steps)
         got = self._plans.get(key)
         if got is None:
-            pieces = _plan_pieces(self.lens, w_chars, halo)
+            pieces = _plan_pieces(self.lens, steps, w_chars, halo)
             col = lambda f: np.array([getattr(p, f) for p in pieces],  # noqa: E731
                                      np.int64)
             tidx = col("text_idx")
             wstart = col("start_char") // WORD_BITS
+            nw, wofs = self.layout(steps)
             dev = self.device
             i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
             i64 = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
             got = PiecePlan(
                 w_chars=w_chars,
+                steps=steps,
                 true_start=torch.from_numpy(col("true_start") != 0).to(dev),
                 valid_from=i32(col("valid_from")),
                 valid_to=i32(col("valid_to")),
                 islast_at=i32(col("islast_at")),
+                text_end=i64(col("text_end")),
                 start_char=i64(col("start_char")),
                 text_idx=i64(tidx),
-                word0=i64(self._wofs[tidx] + wstart),
-                words_left=i64(self._nw[tidx] - wstart),
+                word0=i64(wofs[tidx] + wstart),
+                words_left=i64(nw[tidx] - wstart),
             )
             self._plans[key] = got
         return got
@@ -262,7 +301,7 @@ class TextSet:
         """The texts' bytes on the device, text t at byte 32 * wofs[t]
         (one host buffer, one upload; cached for the reverse strand)."""
         if self._fwd_bytes is None:
-            buf = np.zeros(WORD_BITS * (self.words + 1), np.uint8)
+            buf = np.zeros(WORD_BITS * (self.words() + 1), np.uint8)
             for t, w in zip(self.texts, self._wofs.tolist()):
                 buf[WORD_BITS * w : WORD_BITS * w + len(t)] = t
             self._fwd_bytes = torch.from_numpy(buf).to(self.device)
@@ -273,7 +312,7 @@ class TextSet:
         from the forward bytes: byte base_t + i = text t's n_t - 1 - i."""
         fwd = self._bytes()
         dev = self.device
-        n_all = self.words + 1
+        n_all = self.words() + 1
         # the zero word is an empty text of its own
         n = torch.tensor(self.lens + [0], dtype=torch.int64, device=dev)
         base = torch.from_numpy(self._wofs * WORD_BITS).to(dev)
@@ -292,13 +331,19 @@ class TextSet:
             out[p0 : p0 + p.numel()] = torch.where(r < n[t], fwd[src], 0)
         return out
 
-    def planes(self, profile: Profile, reverse: bool) -> torch.Tensor:
-        """(P[+1], GW + 1) int32 bit-planes of the (reversed) texts."""
-        key = (profile.name, getattr(profile, "case_sensitive", None), reverse)
+    def planes(self, profile: Profile, reverse: bool,
+               steps: int = 0) -> torch.Tensor:
+        """(P[+1], GW + 1) int32 bit-planes of the (reversed) texts, each
+        followed by ``steps`` 'N' positions."""
+        key = (profile.name, getattr(profile, "case_sensitive", None), reverse,
+               steps)
         got = self._planes.get(key)
+        if got is None and steps:
+            got = self._with_overshoot(self.planes(profile, reverse), steps)
+            self._planes[key] = got
         if got is None:
             buf = self._rev_bytes() if reverse else self._bytes()
-            gw = self.words + 1
+            gw = self.words() + 1
             got = pack(
                 buf, gw, 0, profile.planes, profile.eq_mode == "ascii",
                 profile.pack_mode, profile.pack_shift, profile.pack_mask,
@@ -318,14 +363,50 @@ class TextSet:
             self._planes[key] = got
         return got
 
+    def _with_overshoot(self, planes0: torch.Tensor,
+                        steps: int) -> torch.Tensor:
+        """The steps-0 planes regathered into the ``steps`` layout, with
+        bits [n_t, n_t + steps) of each text set in every plane: the 'N'
+        (matches everything) overhang padding of the reference's host
+        packing (``_pack_pieces_np``), applied on the device."""
+        dev = self.device
+        nw, wofs = self.layout(steps)
+        zero0 = self.words()
+        # word j of text t in the new layout: the old word, or zero
+        tid = torch.repeat_interleave(
+            torch.arange(len(self.lens), device=dev),
+            torch.from_numpy(nw).to(dev), output_size=int(wofs[-1]))
+        j = torch.arange(int(wofs[-1]), device=dev) - torch.from_numpy(
+            wofs[:-1]).to(dev)[tid]
+        old = torch.from_numpy(self._nw).to(dev)[tid]
+        src = torch.where(j < old, torch.from_numpy(self._wofs[:-1]).to(
+            dev)[tid] + j, zero0)
+        out = planes0[:, torch.cat([src, src.new_full((1,), zero0)])]
+        # the overlay: <= cdiv(steps, 32) + 1 words per text
+        n = torch.tensor(self.lens, dtype=torch.int64, device=dev)[:, None]
+        w = n // WORD_BITS + torch.arange(cdiv(steps, WORD_BITS) + 1,
+                                          device=dev)[None, :]
+
+        def below(x):  # mask of word bits below text position x
+            b = (x - w * WORD_BITS).clamp(0, WORD_BITS)
+            return torch.where(b >= WORD_BITS, FULL, (1 << b) - 1)
+
+        mask = below(n + steps) ^ below(n)
+        inside = w < torch.from_numpy(nw).to(dev)[:, None]
+        gidx = torch.where(inside, torch.from_numpy(wofs[:-1]).to(dev)[:, None]
+                           + w, int(wofs[-1]))
+        mask = torch.where(inside, mask, 0)
+        out[:, gidx.reshape(-1)] |= i32(mask.reshape(-1))
+        return out
+
     def windows(self, profile: Profile, pp: PiecePlan, reverse: bool,
                 t0: int, t1: int) -> torch.Tensor:
         """(NW, P, t1 - t0) int32 windows of pieces t0..t1: piece words
         [start, start + NW) of its text, the zero word past the text end."""
-        planes = self.planes(profile, reverse)
+        planes = self.planes(profile, reverse, pp.steps)
         j = torch.arange(pp.NW, dtype=torch.int64, device=self.device)[:, None]
         idx = torch.where(j < pp.words_left[None, t0:t1],
-                          pp.word0[None, t0:t1] + j, self.words)
+                          pp.word0[None, t0:t1] + j, self.words(pp.steps))
         return planes[:, idx].permute(1, 0, 2).contiguous()
 
 
@@ -342,10 +423,19 @@ class _Group:
     eq_mode: str  # "iupac", "pure" or "ascii"
     halo: int  # chars of left context a continuation piece re-scans
     w_chars: int  # piece width
+    steps: int = 0  # overhang positions past each text end
+    alpha: float | None = None
+    n_prev: int = 0  # overshoot strip words of the word-level path
 
     @property
     def Q(self) -> int:
         return self.qidx.shape[0]
+
+    @property
+    def fast(self) -> bool:
+        """The word-level path: no overhang, or an overshoot span of at
+        most three words; the position-level path otherwise."""
+        return self.n_prev <= 4
 
 
 class BatchEngine:
@@ -353,7 +443,8 @@ class BatchEngine:
 
     ``candidates_many`` returns ``out[q][t] = [(end_pos, cost), ...]`` with
     results identical to the single-(pattern, text) engine. On a CUDA
-    device the scan is the q2meta kernel; on the CPU, its plain version.
+    device the scans are the q2meta and q2 kernels; on the CPU, their
+    plain versions.
     """
 
     def __init__(self, device="cpu"):
@@ -367,16 +458,20 @@ class BatchEngine:
             return texts
         return TextSet(texts, self.device)
 
-    def groups(self, profile: Profile, pattern_codes, ts: TextSet,
-               k: int) -> list[_Group]:
-        """The patterns grouped by row bucket M, with their scan inputs on
-        the device and their piece width."""
-        per = [pattern_inputs_np(profile, c, None, None) for c in pattern_codes]
-        by_m: dict[int, list[int]] = {}
+    def groups(self, profile: Profile, pattern_codes, ts: TextSet, k: int,
+               alpha=None, max_overhang=None) -> list[_Group]:
+        """The patterns grouped by row bucket M and overhang steps (one
+        piece plan each: patterns of any lengths share a call), with their
+        scan inputs on the device and their piece width."""
+        per = [pattern_inputs_np(profile, c, alpha, max_overhang)
+               for c in pattern_codes]
+        by_m: dict[tuple, list[int]] = {}
         for qi, p in enumerate(per):
-            by_m.setdefault(p[0].shape[0], []).append(qi)
+            steps = semantics.overhang_steps(len(pattern_codes[qi]), k, alpha,
+                                             max_overhang)
+            by_m.setdefault((p[0].shape[0], steps), []).append(qi)
         out = []
-        for M, qidx in by_m.items():
+        for (M, steps), qidx in by_m.items():
             eq_mode = profile.eq_mode
             # ACGT-pure patterns load one plane per row; the whole launch
             # must be pure
@@ -397,16 +492,20 @@ class BatchEngine:
                 qidx=torch.tensor(qidx, dtype=torch.int64, device=self.device),
                 pmasks=pm, is_pad=pad, h_init=hi, m_real=scal[0],
                 boundary_m=scal[1], eq_mode=eq_mode, halo=M + k,
-                w_chars=_piece_width(ts.lens, M + k, len(qidx)),
+                w_chars=_piece_width(ts.lens, steps, M + k, len(qidx)),
+                steps=steps, alpha=alpha,
+                n_prev=(cdiv(steps, WORD_BITS) + 1 if alpha is not None
+                        else 0),
             ))
         return out
 
     @staticmethod
     def chunks(g: _Group, pp: PiecePlan):
-        """(q0, q1, t0, t1) dispatch chunks: kernel outputs of at most
-        ``DISPATCH_BYTES`` each, whole patterns first. The tile chunks of
-        one pattern range come in order, as the state chain needs."""
-        per_pair = 16 * pp.NW  # output bytes per (pattern, piece)
+        """(q0, q1, t0, t1) dispatch chunks, whole patterns first, each
+        one kernel launch of at most ``DISPATCH_BYTES`` of outputs. The
+        tile chunks of one pattern range come in order, as the state chain
+        needs."""
+        per_pair = (16 if g.fast else 12) * pp.NW
         q_chunk = max(1, min(g.Q, DISPATCH_BYTES // per_pair))
         t_chunk = max(1, DISPATCH_BYTES // (q_chunk * per_pair))
         for q0 in range(0, g.Q, q_chunk):
@@ -414,9 +513,30 @@ class BatchEngine:
                 yield q0, min(g.Q, q0 + q_chunk), t0, min(pp.T, t0 + t_chunk)
 
     @staticmethod
+    def select_ranges(g: _Group, pp: PiecePlan, n_q: int, t0: int, t1: int):
+        """The tile ranges, in order, that the selection of the chunk of
+        ``n_q`` patterns over tiles t0..t1 runs over: the whole chunk on
+        the word-level path (only screened words expand); sub-ranges of at
+        most ``minima.POSITIONS_PER_CHUNK`` expanded (pattern, position)
+        pairs on the position-level path, which bound its temporaries."""
+        step = t1 - t0
+        if not g.fast:
+            step = max(1, minima.POSITIONS_PER_CHUNK
+                       // (n_q * pp.NW * WORD_BITS))
+        for s0 in range(t0, t1, step):
+            yield s0, min(t1, s0 + step)
+
+    @staticmethod
     def scan(win, g: _Group, pp: PiecePlan, q0, q1, t0, t1, k: int):
-        """The kernel over one chunk's windows: (vp, vm, cost, meta) each
-        (q1 - q0, NW, t1 - t0) and final (q1 - q0, t1 - t0)."""
+        """The kernel over one chunk's windows: word level, q2meta's (vp,
+        vm, cost, meta) each (q1 - q0, NW, t1 - t0) and final (q1 - q0,
+        t1 - t0); position level, q2's (vp, vm, cost)."""
+        if not g.fast:
+            return myers_cuda.scan_q(
+                win, pp.true_start[t0:t1], g.pmasks[q0:q1], g.is_pad[q0:q1],
+                g.h_init[q0:q1], g.m_real[q0:q1], g.boundary_m[q0:q1],
+                g.eq_mode,
+            )
         return myers_cuda.scan_q_meta(
             win, pp.true_start[t0:t1], pp.valid_from[t0:t1],
             pp.valid_to[t0:t1], g.pmasks[q0:q1], g.is_pad[q0:q1],
@@ -427,11 +547,18 @@ class BatchEngine:
     @staticmethod
     def select(outs, g: _Group, pp: PiecePlan, q0, t0, t1, k: int,
                all_minima: bool, carry):
-        """One chunk's candidates as (4, N) int64 device columns [pattern;
-        text; end position; cost], and the state code carried into the
-        next tile chunk. ``carry`` (Qc, 1) int32: the code after the
-        previous tile chunk (0 at the first)."""
-        vp, vm, cost, meta, final = outs
+        """The candidates of tiles t0..t1 (one of the chunk's
+        ``select_ranges``; ``outs`` are the scan's outputs sliced to them)
+        as (4, N) int64 device columns [pattern; text; end position; cost],
+        and the state code carried into the next tile range. ``carry``
+        (Qc, 1) int32: the code after the previous tile range (0 at the
+        first)."""
+        vf, vt = pp.valid_from[t0:t1], pp.valid_to[t0:t1]
+        if g.fast:
+            vp, vm, cost, meta, final = outs
+        else:
+            vp, vm, cost = outs
+            final = minima.last_delta_codes(vp, vm, vf, vt)
         if all_minima:
             state0 = torch.zeros_like(final)
         else:
@@ -445,10 +572,22 @@ class BatchEngine:
             )
             state0 = st[:, 1:-1]
             carry = torch.where(st[:, -1:] == 1, 3, 0).to(torch.int32)
-        cols = minima.select_words_tiles_q(
-            vp, vm, cost, meta, pp.valid_from[t0:t1], pp.valid_to[t0:t1],
-            pp.islast_at[t0:t1], pp.start_char[t0:t1], k, state0, all_minima,
-        )
+        tend = pp.text_end[t0:t1]
+        if g.fast:
+            cols = minima.select_words_tiles_q(
+                vp, vm, cost, meta, vf, vt, pp.islast_at[t0:t1],
+                pp.start_char[t0:t1], k, state0, all_minima,
+                tend if g.n_prev else None, g.alpha, g.n_prev,
+            )
+        else:
+            q1 = q0 + vp.shape[0]
+            boundary0 = torch.where(pp.true_start[None, t0:t1],
+                                    g.boundary_m[q0:q1, None],
+                                    g.m_real[q0:q1, None])
+            cols = minima.select_candidates_tiles(
+                vp, vm, cost, boundary0, tend, vf, vt, pp.islast_at[t0:t1],
+                pp.start_char[t0:t1], k, g.alpha, state0, all_minima,
+            )
         cols[0] = g.qidx[q0 + cols[0]]
         cols[1] = pp.text_idx[t0 + cols[1]]
         return cols, carry
@@ -457,7 +596,7 @@ class BatchEngine:
                  all_minima: bool, reverse: bool) -> list[torch.Tensor]:
         """Scan and select every chunk of one group on the current stream;
         returns the chunks' device columns."""
-        pp = ts.piece_plan(g.halo, g.w_chars)
+        pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
         found = []
         carry = None
         for q0, q1, t0, t1 in self.chunks(g, pp):
@@ -466,9 +605,12 @@ class BatchEngine:
                                     device=self.device)
             win = ts.windows(profile, pp, reverse, t0, t1)
             outs = self.scan(win, g, pp, q0, q1, t0, t1, k)
-            cols, carry = self.select(outs, g, pp, q0, t0, t1, k, all_minima,
-                                      carry)
-            found.append(cols)
+            del win
+            for s0, s1 in self.select_ranges(g, pp, q1 - q0, t0, t1):
+                part = tuple(o[..., s0 - t0 : s1 - t0] for o in outs)
+                cols, carry = self.select(part, g, pp, q0, s0, s1, k,
+                                          all_minima, carry)
+                found.append(cols)
         return found
 
     def candidates_many(self, profile: Profile, pattern_codes, texts, k: int,
@@ -498,12 +640,6 @@ class BatchEngine:
         current stream, and return a ``finish()`` callable that waits for
         its candidates on the host and decodes them. Errors of the dispatch
         are raised by ``finish()``."""
-        del max_overhang  # bounds the overhang, which needs alpha
-        if alpha is not None:
-            raise NotImplementedError(
-                "batched overhang (alpha) is not ported yet: ROADMAP.md, "
-                "Queue 1, 'Batched overhang'"
-            )
         ts = self.textset(texts)
         Q, NT = len(pattern_codes), len(ts.lens)
         stream = (torch.cuda.current_stream(self.device)
@@ -514,7 +650,8 @@ class BatchEngine:
             with (torch.cuda.stream(stream) if stream is not None
                   else contextlib.nullcontext()):
                 if Q and NT:
-                    for g in self.groups(profile, pattern_codes, ts, k):
+                    for g in self.groups(profile, pattern_codes, ts, k,
+                                         alpha, max_overhang):
                         found += self.dispatch(profile, ts, g, k, all_minima,
                                                reverse)
                 return _fetch(found)

@@ -1,14 +1,20 @@
 """The scan kernels on the H100: build, load and launch, each beside its
-plain PyTorch version.
+plain PyTorch version. Each replaces a TPU kernel of
+``sassy_tpu/ops/myers_pallas.py``:
 
 - ``scan_meta`` (q1meta, ``csrc/scan_meta.cu``) replaces
-  ``get_pallas_scan_meta`` of ``sassy_tpu/ops/myers_pallas.py``: one
-  pattern; ``scan_meta_plain`` is its plain version.
+  ``get_pallas_scan_meta``: one pattern, with selection metadata;
+  ``scan_meta_plain`` is its plain version.
 - ``scan_q_meta`` (q2meta, ``csrc/scan_q_meta.cu``) replaces
   ``get_pallas_scan_q2_meta``: Q patterns over the same windows;
-  ``scan_q_meta_plain`` is its plain version.
+  ``scan_q_meta_plain``.
+- ``scan`` (q1, ``csrc/scan.cu``) replaces ``get_pallas_scan``: q1meta
+  without the metadata (vp, vm and cost only), for the overhang search's
+  position-level path; ``scan_plain``.
+- ``scan_q`` (q2, ``csrc/scan_q.cu``) replaces ``get_pallas_scan_q2``:
+  q1 for Q patterns; ``scan_q_plain``.
 
-Both sources share the per-tile scan of ``csrc/myers_step.cuh``. They are
+The sources share the per-tile scan of ``csrc/myers_step.cuh``. They are
 compiled with one ``nvcc`` call for ``sm_90a`` at first use into one
 library in ``build/sassy_tpu_torch/`` beside the package, keyed by a hash
 of the sources and flags, and loaded with ctypes through plain C entry
@@ -33,10 +39,12 @@ import torch
 from . import minima, myers_torch
 
 __all__ = ["scan_meta", "scan_meta_plain", "scan_q_meta",
-           "scan_q_meta_plain", "build", "nvcc_path"]
+           "scan_q_meta_plain", "scan", "scan_plain", "scan_q",
+           "scan_q_plain", "build", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu")
+SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu", CSRC / "scan.cu",
+           CSRC / "scan_q.cu")
 HEADERS = (CSRC / "myers_step.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sassy_tpu_torch"
 NVCC_FLAGS = (
@@ -104,17 +112,21 @@ def load_library(path) -> ctypes.CDLL:
         ptr, num = ctypes.c_void_p, ctypes.c_int
         lib.sassy_scan_meta.argtypes = [ptr] * 14 + [num] * 8 + [ptr]
         lib.sassy_scan_q_meta.argtypes = [ptr] * 16 + [num] * 7 + [ptr]
-        lib.sassy_scan_meta.restype = num
-        lib.sassy_scan_q_meta.restype = num
+        lib.sassy_scan.argtypes = [ptr] * 10 + [num] * 7 + [ptr]
+        lib.sassy_scan_q.argtypes = [ptr] * 12 + [num] * 6 + [ptr]
+        for fn in (lib.sassy_scan_meta, lib.sassy_scan_q_meta, lib.sassy_scan,
+                   lib.sassy_scan_q):
+            fn.restype = num
         _LIBS[path] = lib
     return lib
 
 
-def scan_q_meta_plain(windows, tile0, valid_from, valid_to, pmasks, is_pad,
-                      h_init, m_real, boundary_m, k: int, eq_mode: str):
-    """Plain PyTorch version of the q2meta kernel: ``myers_torch.scan_core``
-    over Q patterns from the tiles' initial state, then
-    ``minima.meta_from_words``. ``m_real``/``boundary_m`` are (Q,) int32."""
+def scan_q_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
+                 boundary_m, eq_mode: str):
+    """Plain PyTorch version of the q2 kernel: ``myers_torch.scan_core``
+    over Q patterns from the tiles' initial state (the true-start h deltas
+    and boundary cost where ``tile0`` is set, the plain cost-j boundary
+    elsewhere). ``m_real``/``boundary_m`` are (Q,) int32."""
     Q, M = pmasks.shape[:2]
     hp0 = torch.where(
         is_pad.view(Q, M, 1) != 0, 0,
@@ -123,9 +135,27 @@ def scan_q_meta_plain(windows, tile0, valid_from, valid_to, pmasks, is_pad,
     hm0 = torch.zeros_like(hp0)
     cost0 = torch.where(tile0.view(1, -1), boundary_m.view(Q, 1),
                         m_real.view(Q, 1)).to(torch.int32)
-    vp, vm, cost = myers_torch.scan_core(
-        windows, pmasks, is_pad, hp0, hm0, cost0, eq_mode
-    )
+    return myers_torch.scan_core(windows, pmasks, is_pad, hp0, hm0, cost0,
+                                 eq_mode)
+
+
+def scan_plain(windows, tile0, pmasks, is_pad, h_init, m_real: int,
+               boundary_m: int, eq_mode: str):
+    """Plain PyTorch version of the q1 kernel: ``scan_q_plain`` of the one
+    pattern."""
+    scal = torch.tensor([[m_real], [boundary_m]], dtype=torch.int32,
+                        device=windows.device)
+    outs = scan_q_plain(windows, tile0, pmasks[None], is_pad[None],
+                        h_init[None], scal[0], scal[1], eq_mode)
+    return tuple(o[0] for o in outs)
+
+
+def scan_q_meta_plain(windows, tile0, valid_from, valid_to, pmasks, is_pad,
+                      h_init, m_real, boundary_m, k: int, eq_mode: str):
+    """Plain PyTorch version of the q2meta kernel: ``scan_q_plain``, then
+    ``minima.meta_from_words``."""
+    vp, vm, cost = scan_q_plain(windows, tile0, pmasks, is_pad, h_init,
+                                m_real, boundary_m, eq_mode)
     meta, final = minima.meta_from_words(vp, vm, cost, valid_from, valid_to, k)
     return vp, vm, cost, meta, final
 
@@ -155,8 +185,9 @@ def _check(name, x, dtype, shape, device):
 
 def _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
                   h_init, eq_mode: str, lead: tuple):
-    """Device, dtype, shape and contiguity of the inputs both kernels
-    share; ``lead`` is () for one pattern, (Q,) for Q. Returns the device."""
+    """Device, dtype, shape and contiguity of the inputs the kernels share
+    (``valid_from``/``valid_to`` None for the kernels without metadata);
+    ``lead`` is () for one pattern, (Q,) for Q. Returns the device."""
     if windows.device.type != "cuda":
         raise ValueError(f"the scan kernels run on cpu or cuda, not "
                          f"{windows.device}")
@@ -173,8 +204,9 @@ def _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
         raise ValueError(f"{M} pattern rows exceed the kernel's shared memory")
     _check("windows", windows, torch.int32, (NW, P, T), dev)
     _check("tile0", tile0, torch.bool, (T,), dev)
-    _check("valid_from", valid_from, torch.int32, (T,), dev)
-    _check("valid_to", valid_to, torch.int32, (T,), dev)
+    if valid_from is not None:
+        _check("valid_from", valid_from, torch.int32, (T,), dev)
+        _check("valid_to", valid_to, torch.int32, (T,), dev)
     _check("pmasks", pmasks, torch.int32, (*lead, M, PM), dev)
     _check("is_pad", is_pad, torch.int32, (*lead, M), dev)
     _check("h_init", h_init, torch.int32, (*lead, M), dev)
@@ -193,6 +225,19 @@ def _carries(Q: int, M: int, T: int, device):
                        device=device)
 
 
+def _pure_index(pmasks, eq_mode: str):
+    """(..., M) int32 plane index per row for the pure eq, else None."""
+    if eq_mode != "pure":
+        return None
+    return myers_torch.pure_plane_index(
+        pmasks.reshape(-1, pmasks.shape[-1])).view(pmasks.shape[:-1]).contiguous()
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def launch(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
            m_real: int, boundary_m: int, k: int, eq_mode: str, stream):
     """Allocate the outputs and launch the q1meta kernel of ``lib`` on
@@ -202,17 +247,14 @@ def launch(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
     out = [torch.empty((NW, T), dtype=torch.int32, device=windows.device)
            for _ in range(4)]
     final = torch.empty((T,), dtype=torch.int32, device=windows.device)
-    pidx = (myers_torch.pure_plane_index(pmasks).contiguous()
-            if eq_mode == "pure" else None)
+    pidx = _pure_index(pmasks, eq_mode)
     carries = _carries(1, M, T, windows.device)
-    err = lib.sassy_scan_meta(
+    _raise_on(lib.sassy_scan_meta(
         _ptr(windows), _ptr(tile0), _ptr(valid_from), _ptr(valid_to),
         _ptr(pmasks), _ptr(is_pad), _ptr(h_init), _ptr(pidx),
         *(_ptr(o) for o in out), _ptr(final), _ptr(carries),
         T, NW, P, M, m_real, boundary_m, k, EQ_MODES[eq_mode], stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"scan_meta kernel launch failed: CUDA error {err}")
+    ), "scan_meta")
     return (*out, final)
 
 
@@ -226,20 +268,52 @@ def launch_q(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad,
     out = [torch.empty((Q, NW, T), dtype=torch.int32, device=dev)
            for _ in range(4)]
     final = torch.empty((Q, T), dtype=torch.int32, device=dev)
-    pidx = (myers_torch.pure_plane_index(pmasks.reshape(Q * M, -1))
-            .view(Q, M).contiguous() if eq_mode == "pure" else None)
+    pidx = _pure_index(pmasks, eq_mode)
     carries = _carries(Q, M, T, dev)
-    err = lib.sassy_scan_q_meta(
+    _raise_on(lib.sassy_scan_q_meta(
         _ptr(windows), _ptr(tile0), _ptr(valid_from), _ptr(valid_to),
         _ptr(pmasks), _ptr(is_pad), _ptr(h_init), _ptr(pidx), _ptr(m_real),
         _ptr(boundary_m), *(_ptr(o) for o in out), _ptr(final),
         _ptr(carries), T, NW, P, M, Q, k, EQ_MODES[eq_mode], stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"scan_q_meta kernel launch failed: CUDA error {err}"
-        )
+    ), "scan_q_meta")
     return (*out, final)
+
+
+def launch_scan(lib, windows, tile0, pmasks, is_pad, h_init, m_real: int,
+                boundary_m: int, eq_mode: str, stream):
+    """Allocate the outputs and launch the q1 kernel of ``lib`` on
+    ``stream``; the caller has checked the inputs."""
+    NW, P, T = windows.shape
+    M = pmasks.shape[0]
+    out = [torch.empty((NW, T), dtype=torch.int32, device=windows.device)
+           for _ in range(3)]
+    pidx = _pure_index(pmasks, eq_mode)
+    carries = _carries(1, M, T, windows.device)
+    _raise_on(lib.sassy_scan(
+        _ptr(windows), _ptr(tile0), _ptr(pmasks), _ptr(is_pad), _ptr(h_init),
+        _ptr(pidx), *(_ptr(o) for o in out), _ptr(carries), T, NW, P, M,
+        m_real, boundary_m, EQ_MODES[eq_mode], stream,
+    ), "scan")
+    return tuple(out)
+
+
+def launch_scan_q(lib, windows, tile0, pmasks, is_pad, h_init, m_real,
+                  boundary_m, eq_mode: str, stream):
+    """Allocate the outputs and launch the q2 kernel of ``lib`` on
+    ``stream``; the caller has checked the inputs."""
+    NW, P, T = windows.shape
+    Q, M = pmasks.shape[:2]
+    dev = windows.device
+    out = [torch.empty((Q, NW, T), dtype=torch.int32, device=dev)
+           for _ in range(3)]
+    pidx = _pure_index(pmasks, eq_mode)
+    carries = _carries(Q, M, T, dev)
+    _raise_on(lib.sassy_scan_q(
+        _ptr(windows), _ptr(tile0), _ptr(pmasks), _ptr(is_pad), _ptr(h_init),
+        _ptr(pidx), _ptr(m_real), _ptr(boundary_m), *(_ptr(o) for o in out),
+        _ptr(carries), T, NW, P, M, Q, EQ_MODES[eq_mode], stream,
+    ), "scan_q")
+    return tuple(out)
 
 
 def scan_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
@@ -300,3 +374,54 @@ def scan_q_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
 
 
 scan_q_meta.launches = 0
+
+
+def scan(windows, tile0, pmasks, is_pad, h_init, m_real: int,
+         boundary_m: int, eq_mode: str):
+    """Single-pattern window scan without metadata (q1).
+
+    The inputs of ``scan_meta`` without the owned range and k. Returns vp,
+    vm and cost, each (NW, T) int32.
+    """
+    if windows.device.type == "cpu":
+        return scan_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
+                          boundary_m, eq_mode)
+    dev = _check_inputs(windows, tile0, None, None, pmasks, is_pad, h_init,
+                        eq_mode, ())
+    lib = load_library(build())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        outs = launch_scan(lib, windows, tile0, pmasks, is_pad, h_init,
+                           m_real, boundary_m, eq_mode, stream)
+    scan.launches += 1
+    return outs
+
+
+scan.launches = 0
+
+
+def scan_q(windows, tile0, pmasks, is_pad, h_init, m_real, boundary_m,
+           eq_mode: str):
+    """Pattern-batched window scan without metadata (q2).
+
+    The inputs of ``scan_q_meta`` without the owned range and k. Returns
+    vp, vm and cost, each (Q, NW, T) int32.
+    """
+    if windows.device.type == "cpu":
+        return scan_q_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
+                            boundary_m, eq_mode)
+    Q = pmasks.shape[0]
+    dev = _check_inputs(windows, tile0, None, None, pmasks, is_pad, h_init,
+                        eq_mode, (Q,))
+    _check("m_real", m_real, torch.int32, (Q,), dev)
+    _check("boundary_m", boundary_m, torch.int32, (Q,), dev)
+    lib = load_library(build())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        outs = launch_scan_q(lib, windows, tile0, pmasks, is_pad, h_init,
+                             m_real, boundary_m, eq_mode, stream)
+    scan_q.launches += 1
+    return outs
+
+
+scan_q.launches = 0

@@ -1,12 +1,21 @@
 """The single-pattern search pipeline in PyTorch.
 
-Port of the no-overhang fast path of ``sassy_tpu/ops/myers_xla.py``: text
-bytes -> P bit-planes of 32-position words (``pack``) -> halo-tiled
-windows in the (NW, P, T) layout (``build_windows``) -> the transposed
-Myers'99 word scan with selection metadata (the CUDA kernel of
-``myers_cuda.scan_meta``; ``scan_core`` is its plain version) -> the
-cross-tile state chain and word-level selection (``minima``) -> a sorted
-host list of (end position, cost).
+Port of ``sassy_tpu/ops/myers_xla.py``: text bytes -> P bit-planes of
+32-position words (``pack``; with overhang, ``overlay_n_tail`` sets the
+'N' positions past the text end) -> halo-tiled windows in the (NW, P, T)
+layout (``build_windows``) -> the transposed Myers'99 word scan (the CUDA
+kernels of ``myers_cuda``; ``scan_core`` is their plain version) ->
+candidate selection (``minima``) -> a sorted host list of (end position,
+cost).
+
+Two paths, as in the reference engine:
+
+- word level (no overhang, or an overshoot span of at most three words):
+  the q1meta scan with selection metadata, the cross-tile state chain and
+  ``minima.select_words_tiles``; with overhang one extra tail tile owns
+  the overshoot span;
+- position level (a longer overshoot span): the q1 scan and
+  ``minima.select_candidates`` over every position.
 
 Device tensors hold uint32 bit words as int32; the plain versions compute
 on int64 values masked to 32 bits (see ``minima.u32``).
@@ -19,10 +28,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sassy_tpu.ops.bitpack import WORD_BITS
-from sassy_tpu.profiles import Profile, as_bytes_array
-
+from .. import semantics
+from ..profiles import Profile, as_bytes_array
 from . import minima, myers_cuda
+from .bitpack import WORD_BITS
 from .minima import FULL, i32, u32
 from .plan import (
     TAIL_RESERVE_WORDS,
@@ -37,6 +46,7 @@ from .plan import (
 
 __all__ = [
     "pack",
+    "overlay_n_tail",
     "build_windows",
     "scan_core",
     "pure_plane_index",
@@ -105,6 +115,24 @@ def pack(text_u8: torch.Tensor, nw: int, nb: int, planes: int,
     if with_valid:
         # the validity plane IS the n-mask
         out[planes] = nmask
+    return out
+
+
+def overlay_n_tail(planes: torch.Tensor, n: int, e: int) -> torch.Tensor:
+    """A copy of (P, GW) planes with bits [n, e) set in every plane: 'N',
+    which matches everything, for overhang positions past the text end
+    (reference search.rs:203). Only the words that hold them change."""
+    out = planes.clone()
+    w0, w1 = n // WORD_BITS, min(planes.shape[1], cdiv(e, WORD_BITS))
+    if w1 <= w0:
+        return out
+    w = torch.arange(w0, w1, dtype=torch.int64, device=planes.device)
+
+    def below(x):  # mask of bit positions < x within each word
+        b = (x - w * WORD_BITS).clamp(0, WORD_BITS)
+        return torch.where(b >= WORD_BITS, FULL, (1 << b) - 1)
+
+    out[:, w0:w1] |= i32(below(e) ^ below(n))
     return out
 
 
@@ -228,7 +256,7 @@ def _upload(text, device: torch.device) -> torch.Tensor:
 
 class PreparedText:
     """Device-resident bit-planes of one text, reusable across patterns
-    and k, with its windows cached per tile plan."""
+    and k, with its windows cached per tile plan and overhang steps."""
 
     def __init__(self, profile: Profile, text, device):
         self.profile = profile
@@ -245,14 +273,33 @@ class PreparedText:
             profile.pack_fold_case,
         )
         self._wins: dict = {}
+        self._overlay: tuple | None = None
 
-    def windows(self, T: int, W: int, halo: int) -> torch.Tensor:
-        """(NW, P, T) windows for one tile plan; the last two plans stay
-        cached (an entry is ~(1 + (halo+1)/W) x the planes' size)."""
-        key = (T, W, halo)
+    def planes_for(self, steps: int) -> torch.Tensor:
+        """The planes with an 'N' overlay on the ``steps`` overhang
+        positions past the text end (the last overlay stays cached)."""
+        if steps == 0:
+            return self.planes
+        if self._overlay is None or self._overlay[0] != steps:
+            self._overlay = (steps, overlay_n_tail(self.planes, self.n,
+                                                   self.n + steps))
+        return self._overlay[1]
+
+    def windows(self, T: int, W: int, halo: int, steps: int = 0,
+                tail_word: int | None = None) -> torch.Tensor:
+        """(NW, P, T) windows of ``planes_for(steps)`` for one tile plan;
+        with ``tail_word``, the last tile's window is instead the NW words
+        from that word on (the overhang tail tile). The last two plans
+        stay cached (an entry is ~(1 + (halo+1)/W) x the planes' size)."""
+        key = (steps, T, W, halo, tail_word)
         got = self._wins.get(key)
         if got is None:
-            got = build_windows(self.planes, T, W, halo)
+            planes = self.planes_for(steps)
+            got = build_windows(planes, T, W, halo)
+            if tail_word is not None:
+                hi = min(planes.shape[1], tail_word + W + halo + 1)
+                got[:, :, T - 1] = 0
+                got[: hi - tail_word, :, T - 1] = planes[:, tail_word:hi].T
             while len(self._wins) >= 2:
                 self._wins.pop(next(iter(self._wins)))
             self._wins[key] = got
@@ -264,10 +311,11 @@ class ScanInputs:
     """Everything one scan + selection needs, on the engine's device."""
 
     windows: torch.Tensor  # (NW, P, T) int32
-    tile0: torch.Tensor  # (T,) bool: the tile owns the text start
+    tile0: torch.Tensor  # (T,) bool: the tile starts from the true boundary
+    text_start: torch.Tensor  # (T,) bool: the tile owns the text start
     valid_from: torch.Tensor  # (T,) int32 window-local, -1 = owns position 0
     valid_to: torch.Tensor  # (T,) int32 window-local last owned position
-    islast: torch.Tensor  # (T,) int32 window-local text end, -1 = elsewhere
+    islast: torch.Tensor  # (T,) int32 window-local last position, -1 = none
     offset: torch.Tensor  # (T,) int64 absolute position of window position 0
     pmasks: torch.Tensor  # (M, P) int32
     is_pad: torch.Tensor  # (M,) int32
@@ -277,6 +325,16 @@ class ScanInputs:
     k: int
     eq_mode: str  # "iupac", "pure" or "ascii"
     all_minima: bool
+    # overhang: the word-level path's strip and tail tile, or the
+    # position-level path (fast False) over the plain tiles
+    fast: bool = True
+    alpha: float | None = None
+    n_prev: int = 0
+    text_end: torch.Tensor | None = None  # (T,) int64 window-local text end
+    n_text: int = 0
+    max_pos: int = 0
+    W: int = 0
+    halo: int = 0
 
 
 class TorchEngine:
@@ -293,21 +351,45 @@ class TorchEngine:
         return PreparedText(profile, text, self.device)
 
     def build_inputs(self, profile: Profile, pattern_codes: np.ndarray, text,
-                     k: int, all_minima: bool = False) -> ScanInputs:
+                     k: int, alpha=None, max_overhang=None,
+                     all_minima: bool = False) -> ScanInputs:
+        """The tile plan and inputs of one search (reference
+        ``XlaEngine.build_inputs``, myers_xla.py:1251-1364, on the H100
+        tile plan). With overhang, positions run to ``n + steps``; an
+        overshoot span of at most three words (``n_prev <= 4``) takes the
+        word-level path with one extra tail tile, a longer one the
+        position-level path."""
         prep = (text if isinstance(text, PreparedText)
                 else self.prepare(profile, text))
         m = len(pattern_codes)
-        max_pos = prep.n
+        n = prep.n
+        steps = semantics.overhang_steps(m, k, alpha, max_overhang)
+        if steps > TAIL_RESERVE_WORDS * WORD_BITS:
+            raise ValueError(
+                f"overhang of {steps} exceeds supported maximum "
+                f"{TAIL_RESERVE_WORDS * WORD_BITS}"
+            )
+        max_pos = n + steps
         if max_pos >= (1 << 31) - 1:
             raise ValueError(
-                f"text of {prep.n} positions exceeds the single-pattern "
+                f"text of {n} positions exceeds the single-pattern "
                 "engine's int32 position space"
             )
-        halo = halo_words(_bucket_rows(m), k)
+        M = _bucket_rows(m)
         words_needed = max(1, cdiv(max_pos, WORD_BITS))
-        T, W, halo = plan_tiles(words_needed, halo)
+        T, W, halo = plan_tiles(words_needed, halo_words(M, k))
+        n_prev = cdiv(steps, WORD_BITS) + 1 if alpha is not None else 0
+        fast = n_prev <= 4
+        tail_word = None
+        if alpha is not None and fast:
+            # the tail tile restarts from the plain cost-j boundary, so it
+            # re-scans the m + k chars before its owned overshoot span
+            W = max(W, cdiv(steps, WORD_BITS) + 1)
+            T += 1
+            rescan = max(halo * WORD_BITS, M + k)
+            tail_word = min(max((n - rescan) // WORD_BITS, 0), prep.gw)
         pmasks, is_pad, h_init, boundary_m = pattern_inputs_np(
-            profile, pattern_codes, None, None
+            profile, pattern_codes, alpha, max_overhang
         )
         eq_mode = profile.eq_mode
         if eq_mode == "iupac" and _masks_pure_np(pmasks, is_pad):
@@ -317,28 +399,53 @@ class TorchEngine:
         dev = self.device
         WB = WORD_BITS
         tile = torch.arange(T, dtype=torch.int64, device=dev)
-        tile0 = tile == 0
-        offset = torch.where(tile0, 0, tile * (W * WB) - halo * WB)
-        vfrom = torch.where(tile0, -1, halo * WB)
-        vto_raw = torch.where(tile0, W * WB, (halo + W) * WB)
-        rel_last = max_pos - offset
-        vto = torch.minimum(vto_raw, rel_last)
-        islast = torch.where(
-            (rel_last > vfrom) & (rel_last <= vto_raw), rel_last, -1
-        )
+        text_start = tile == 0
+        offset = torch.where(text_start, 0, tile * (W * WB) - halo * WB)
+        vfrom = torch.where(text_start, -1, halo * WB)
+        vto_raw = torch.where(text_start, W * WB, (halo + W) * WB)
+        tile0 = text_start
+        text_end = None
+        if tail_word is None:
+            rel_last = max_pos - offset
+            vto = torch.minimum(vto_raw, rel_last)
+            islast = torch.where(
+                (rel_last > vfrom) & (rel_last <= vto_raw), rel_last, -1
+            )
+        else:
+            # body tiles own positions <= n (their meta codes stay
+            # raw-exact); tile T-1 owns the overshoot span (n, max_pos]
+            s0 = tail_word * WB
+            tail = tile == T - 1
+            vto = torch.minimum(vto_raw, n - offset)
+            islast = torch.full_like(tile, -1)
+            tile0 = text_start | (tail & (s0 == 0))
+            offset = torch.where(tail, s0, offset)
+            vfrom = torch.where(tail, n - s0, vfrom)
+            vto = torch.where(tail, max_pos - s0, vto)
+            islast = torch.where(tail, max_pos - s0, islast)
+            text_end = n - offset
         pm_t, pad_t, hinit_t = state_from_numpy(
             pmasks, is_pad, h_init, device=dev
         )
         return ScanInputs(
-            windows=prep.windows(T, W, halo), tile0=tile0,
-            valid_from=vfrom.to(torch.int32), valid_to=vto.to(torch.int32),
-            islast=islast.to(torch.int32), offset=offset, pmasks=pm_t,
-            is_pad=pad_t, h_init=hinit_t, m_real=m, boundary_m=boundary_m,
-            k=k, eq_mode=eq_mode, all_minima=all_minima,
+            windows=prep.windows(T, W, halo, steps, tail_word), tile0=tile0,
+            text_start=text_start, valid_from=vfrom.to(torch.int32),
+            valid_to=vto.to(torch.int32), islast=islast.to(torch.int32),
+            offset=offset, pmasks=pm_t, is_pad=pad_t, h_init=hinit_t,
+            m_real=m, boundary_m=boundary_m, k=k, eq_mode=eq_mode,
+            all_minima=all_minima, fast=fast, alpha=alpha,
+            n_prev=n_prev if tail_word is not None else 0,
+            text_end=text_end, n_text=n, max_pos=max_pos, W=W, halo=halo,
         )
 
     def scan(self, inp: ScanInputs):
-        """(vp, vm, cost, meta) each (NW, T) and final (T,), int32."""
+        """Word level: (vp, vm, cost, meta) each (NW, T) and final (T,),
+        int32, from q1meta. Position level: (vp, vm, cost) from q1."""
+        if not inp.fast:
+            return myers_cuda.scan(
+                inp.windows, inp.tile0, inp.pmasks, inp.is_pad, inp.h_init,
+                inp.m_real, inp.boundary_m, inp.eq_mode,
+            )
         return myers_cuda.scan_meta(
             inp.windows, inp.tile0, inp.valid_from, inp.valid_to, inp.pmasks,
             inp.is_pad, inp.h_init, inp.m_real, inp.boundary_m, inp.k,
@@ -347,25 +454,30 @@ class TorchEngine:
 
     def select(self, inp: ScanInputs, outs) -> torch.Tensor:
         """(2, N) int64 [end positions; costs] on the device."""
+        if not inp.fast:
+            vp, vm, cost = outs
+            return minima.select_candidates(
+                vp, vm, cost, inp.W, inp.halo, inp.boundary_m, inp.n_text,
+                inp.max_pos, inp.k, inp.alpha, inp.all_minima,
+            )
         vp, vm, cost, meta, final = outs
         if inp.all_minima:
             state0 = torch.zeros_like(final)
         else:
-            state0 = minima.tile_state_chain_codes(final, inp.tile0)
+            # the chain resets at the text start only: the tail tile's
+            # window may start at the boundary, but the text does not
+            # restart there
+            state0 = minima.tile_state_chain_codes(final, inp.text_start)
         return minima.select_words_tiles(
             vp, vm, cost, meta, inp.valid_from, inp.valid_to, inp.islast,
-            inp.offset, inp.k, state0, inp.all_minima,
+            inp.offset, inp.k, state0, inp.all_minima, inp.text_end,
+            inp.alpha, inp.n_prev,
         )
 
     def candidates(self, profile: Profile, pattern_codes: np.ndarray, text,
                    k: int, alpha, max_overhang, all_minima: bool):
         """Sorted [(end position, cost)] of one pattern on one strand."""
-        del max_overhang  # bounds the overhang, which needs alpha
-        if alpha is not None:
-            raise NotImplementedError(
-                "overhang (alpha) is not ported yet: ROADMAP.md, Queue 1, "
-                "'Overhang on the single path'"
-            )
-        inp = self.build_inputs(profile, pattern_codes, text, k, all_minima)
+        inp = self.build_inputs(profile, pattern_codes, text, k, alpha,
+                                max_overhang, all_minima)
         pos, cost = self.select(inp, self.scan(inp)).cpu().tolist()
         return sorted(zip(pos, cost))

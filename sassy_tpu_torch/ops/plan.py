@@ -14,9 +14,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from sassy_tpu import semantics
-from sassy_tpu.ops.bitpack import WORD_BITS, pattern_plane_masks_np
-from sassy_tpu.profiles import Profile
+from .. import semantics
+from ..profiles import Profile
+from .bitpack import WORD_BITS, pattern_plane_masks_np
 
 __all__ = [
     "TAIL_RESERVE_WORDS",

@@ -1,7 +1,8 @@
-"""The q1meta and q2meta CUDA kernels against their plain PyTorch
-versions (and q2meta's pattern slices against q1meta), and the port's
-Searcher on the card, single and batched, against its CPU path and the
-numpy oracle.
+"""The four CUDA scan kernels against their plain PyTorch versions: q1meta
+and q2meta (and q2meta's pattern slices against q1meta), q1 and q2 (and
+q2's slices against q1); and the port's Searcher on the card, single and
+batched, with and without overhang, against its CPU path and the numpy
+oracle.
 
 Marked ``cuda``: every test skips without a CUDA device. On a GPU machine
 without JAX, run them without the repository's conftest (which imports
@@ -16,7 +17,7 @@ import torch
 
 from sassy_tpu import Searcher as RefSearcher
 from sassy_tpu_torch import Searcher, profiles
-from sassy_tpu_torch.ops import myers_cuda, plan
+from sassy_tpu_torch.ops import batch, minima, myers_cuda, plan
 
 pytestmark = pytest.mark.cuda
 
@@ -134,11 +135,14 @@ def _planted_text(n, seed):
     return pat, text
 
 
+def _key(m):
+    return m.sort_key(), m.cigar.to_string()
+
+
 def _same(got, want):
-    assert len(got) == len(want), (got, want)
-    for a, b in zip(got, want):
-        assert a.same_as(b), (a, b)
-        assert str(a.cigar) == str(b.cigar), (a, b)
+    """Equal Match lists, field for field with the CIGAR string (the two
+    packages' Match classes differ, so ``same_as`` cannot compare them)."""
+    assert [_key(m) for m in got] == [_key(m) for m in want], (got, want)
 
 
 def test_searcher_cuda_equals_cpu(cuda, monkeypatch):
@@ -184,3 +188,140 @@ def test_batched_search_cuda_equals_cpu_and_oracle(cuda):
     _same(got, Searcher("dna", rc=True, device="cpu").search_many(pats, texts, 3))
     _same(got, RefSearcher("dna", rc=True, engine="numpy").search_many(
         pats, texts, 3))
+
+
+def _scan_args(args):
+    """q1/q2's inputs from q1meta/q2meta's: without the owned range and k."""
+    return (args[0], args[1], *args[4:9], args[10])
+
+
+@pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
+@pytest.mark.parametrize("M", [24, 120, 192])
+def test_q1_kernel_equals_plain(cuda, eq_mode, M):
+    args = _scan_args(_random_inputs(eq_mode, M, T=1000, NW=7, seed=M + 3))
+    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    before = myers_cuda.scan.launches
+    got = myers_cuda.scan(*dev_args)
+    torch.cuda.synchronize()
+    assert myers_cuda.scan.launches == before + 1
+    want = myers_cuda.scan_plain(*args)
+    for name, a, b in zip(("vp", "vm", "cost"), got, want):
+        assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
+@pytest.mark.parametrize("M", [24, 120])
+def test_q2_kernel_equals_plain_and_q1(cuda, eq_mode, M):
+    Q = 3  # odd: the card takes any Q
+    args = _scan_args(_random_q_inputs(eq_mode, Q, M, T=1000, NW=7, seed=M))
+    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    before = myers_cuda.scan_q.launches
+    got = myers_cuda.scan_q(*dev_args)
+    torch.cuda.synchronize()
+    assert myers_cuda.scan_q.launches == before + 1
+    want = myers_cuda.scan_q_plain(*args)
+    for name, a, b in zip(("vp", "vm", "cost"), got, want):
+        assert torch.equal(a.cpu(), b), name
+    for q in range(Q):
+        one = myers_cuda.scan(*dev_args[:2], dev_args[2][q], dev_args[3][q],
+                              dev_args[4][q], int(args[5][q]),
+                              int(args[6][q]), eq_mode)
+        for name, a, b in zip(("vp", "vm", "cost"), one, got):
+            assert torch.equal(a, b[q]), (q, name)
+
+
+def test_q1_q2_reject_bad_inputs(cuda):
+    args = list(_scan_args(_random_inputs("iupac", 24, T=64, NW=3, seed=1)))
+    args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError):
+        myers_cuda.scan(*args[:7], "ascii")  # 4 planes, not 9
+    with pytest.raises(ValueError):
+        myers_cuda.scan_q(*args)  # one pattern's shapes, no pattern axis
+
+
+def _overhung(seed, n, pat, hang):
+    """Random ACGT text with the pattern hanging ``hang`` chars off its
+    start and off its end, and its reverse complement inside."""
+    rng = np.random.default_rng(seed)
+    text = rng.choice(np.frombuffer(b"ACGT", np.uint8), n)
+    m = len(pat)
+    text[: m - hang] = pat[hang:]
+    text[n - (m - hang) :] = pat[: m - hang]
+    rc = np.frombuffer(profiles.Iupac().reverse_complement(pat), np.uint8)
+    text[n // 2 : n // 2 + m] = rc
+    return text
+
+
+@pytest.mark.parametrize("m,k,alpha,kernel", [
+    (23, 3, 0.5, "scan_meta"),  # word level: q1meta with the tail tile
+    (120, 10, 0.1, "scan"),  # position level: q1
+])
+def test_overhang_search_cuda_equals_cpu_and_oracle(cuda, m, k, alpha,
+                                                    kernel):
+    pat = np.random.default_rng(m).choice(np.frombuffer(b"ACGT", np.uint8), m)
+    text = _overhung(m, 60_000, pat, 4)
+    gpu = Searcher("iupac", rc=True, alpha=alpha, device="cuda")
+    fn = getattr(myers_cuda, kernel)
+    before = fn.launches
+    for method in ("search", "search_all"):
+        got = getattr(gpu, method)(pat, text, k)
+        _same(got, getattr(Searcher("iupac", rc=True, alpha=alpha,
+                                    device="cpu"), method)(pat, text, k))
+        _same(got, getattr(RefSearcher("iupac", rc=True, alpha=alpha,
+                                       engine="numpy"), method)(pat, text, k))
+    assert fn.launches >= before + 4
+    assert any(mt.text_start == 0 for mt in got)
+
+
+@pytest.mark.parametrize("m,k,alpha,kernel", [
+    (24, 3, 0.5, "scan_q_meta"),
+    (104, 10, 0.1, "scan_q"),
+])
+def test_batched_overhang_cuda_equals_cpu_and_oracle(cuda, m, k, alpha,
+                                                     kernel):
+    rng = np.random.default_rng(m)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pats = [rng.choice(bases, m) for _ in range(3)]
+    texts = [_overhung(i, int(n), pats[i % 3], 3)
+             for i, n in enumerate(rng.integers(2 * m, 3000, 10))]
+    gpu = Searcher("iupac", rc=True, alpha=alpha, device="cuda")
+    fn = getattr(myers_cuda, kernel)
+    before = fn.launches
+    got = gpu.search_many(pats, texts, k)
+    assert fn.launches >= before + 2
+    assert got
+    _same(got, Searcher("iupac", rc=True, alpha=alpha,
+                        device="cpu").search_many(pats, texts, k))
+    _same(got, RefSearcher("iupac", rc=True, alpha=alpha,
+                           engine="numpy").search_many(pats, texts, k))
+
+
+def test_batched_position_level_sub_ranges_cuda(cuda, monkeypatch):
+    """On the position-level path one q2 launch covers a dispatch chunk and
+    its selection runs over tile sub-ranges; small budgets for both give
+    the CPU path's and the oracle's Match lists."""
+    rng = np.random.default_rng(5)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pats = [rng.choice(bases, 104) for _ in range(3)]
+    texts = [_overhung(i, int(n), pats[i % 3], 3)
+             for i, n in enumerate(rng.integers(300, 3000, 10))]
+    want = Searcher("iupac", rc=True, alpha=0.1, device="cpu").search_many(
+        pats, texts, 10)
+    ts = batch.TextSet(texts)
+    (g,) = batch.BatchEngine("cpu").groups(
+        profiles.Iupac(), [profiles.Iupac().encode(p) for p in pats], ts, 10,
+        0.1)
+    pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
+    # three pieces of all patterns per launch, one piece per selection
+    monkeypatch.setattr(batch, "DISPATCH_BYTES", 12 * pp.NW * g.Q * 3)
+    monkeypatch.setattr(minima, "POSITIONS_PER_CHUNK", 1)
+    n_chunks = len(list(batch.BatchEngine.chunks(g, pp)))
+    assert not g.fast and n_chunks >= 3
+    before = myers_cuda.scan_q.launches
+    got = Searcher("iupac", rc=True, alpha=0.1, device="cuda").search_many(
+        pats, texts, 10)
+    assert myers_cuda.scan_q.launches == before + 2 * n_chunks  # 2 strands
+    assert got
+    _same(got, want)
+    _same(got, RefSearcher("iupac", rc=True, alpha=0.1,
+                           engine="numpy").search_many(pats, texts, 10))

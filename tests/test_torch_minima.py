@@ -8,9 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from sassy_tpu import profiles
+from sassy_tpu import profiles as ref_profiles
 from sassy_tpu.ops import minima as ref
 from sassy_tpu.ops.myers_xla import XlaEngine
+from sassy_tpu_torch import profiles
 from sassy_tpu_torch.ops import minima, plan
 from sassy_tpu_torch.ops.myers_torch import TorchEngine
 
@@ -103,7 +104,8 @@ def test_candidates_equal_xla_engine(prof_name, m, k, tiles, all_minima,
     alphabet = b"ACGT" if prof_name == "dna" else b"ACGTNRY"
     pat, text = _planted(m * 7 + k, 6000, m, alphabet)
     codes = prof.encode(pat)
-    want = XlaEngine().candidates(prof, codes, text, k, None, None, all_minima)
+    want = XlaEngine().candidates(ref_profiles.get_profile(prof_name), codes,
+                                  text, k, None, None, all_minima)
     monkeypatch.setattr(plan, "H100_TARGET_TILES", tiles)
     got = TorchEngine("cpu").candidates(
         prof, codes, text, k, None, None, all_minima

@@ -9,15 +9,22 @@ import numpy as np
 import pytest
 import torch
 
-from sassy_tpu import profiles
+from sassy_tpu import profiles as ref_profiles
 from sassy_tpu.ops import myers_xla
+from sassy_tpu_torch import profiles
 from sassy_tpu_torch.ops import plan
 from sassy_tpu_torch.ops.myers_torch import PreparedText, pack
 
+# each package gets its own profile objects
 PROFILES = {
     "dna": profiles.Dna(),
     "iupac": profiles.Iupac(),
     "ascii": profiles.Ascii(case_sensitive=False),
+}
+REF_PROFILES = {
+    "dna": ref_profiles.Dna(),
+    "iupac": ref_profiles.Iupac(),
+    "ascii": ref_profiles.Ascii(case_sensitive=False),
 }
 
 
@@ -55,7 +62,7 @@ def test_pack_equals_reference(prof_name, n):
 def test_prepared_text_planes(prof_name):
     prof = PROFILES[prof_name]
     text = _text(np.random.default_rng(3), prof_name, 3001)
-    want = myers_xla.PreparedText(prof, text).planes
+    want = myers_xla.PreparedText(REF_PROFILES[prof_name], text).planes
     got = PreparedText(prof, text, "cpu")
     assert got.gw == want.shape[1]
     np.testing.assert_array_equal(
@@ -82,7 +89,8 @@ def test_bucket_helpers_equal_reference():
 def test_pattern_inputs_equal_reference(pattern, prof_name):
     prof = PROFILES[prof_name]
     codes = prof.encode(pattern)
-    want = myers_xla.pattern_inputs_np(prof, codes, None, None)
+    want = myers_xla.pattern_inputs_np(REF_PROFILES[prof_name], codes, None,
+                                       None)
     got = plan.pattern_inputs_np(prof, codes, None, None)
     for a, b in zip(want[:3], got[:3]):
         np.testing.assert_array_equal(a, b)
