@@ -7,8 +7,8 @@ from the root of a checkout, on a machine with an sm_90a GPU (H100) and
 the CUDA toolkit. Phases:
 
 1. the card (nvidia-smi), the toolchain (features()), and the build of
-   the four scan kernels (q1meta, q2meta, q1, q2) from
-   sassy_tpu_torch/csrc/ with one nvcc call;
+   the six kernel sources (q1meta, q2meta, q1, q2, the qN family, the
+   row-step ablations) from sassy_tpu_torch/csrc/ with one nvcc call;
 2. kernel vs plain: the q1meta scan kernel against its plain PyTorch
    version on the windows of a 1 GiB text (the H100 tile plan, a 23 bp
    pattern at k=3), bit for bit on all five outputs, for the pure, iupac
@@ -71,7 +71,41 @@ the CUDA toolkit. Phases:
    come back with its pattern, read, strand, cost and CIGAR, and every
    read with another match, plus 64 sampled reads, is searched again on
    the port's CPU path, Match for Match; the phases of one strand are
-   timed.
+   timed;
+12. the kernel-design family (scan_qn: U patterns per thread, the row
+   loop kept or unrolled, WU words per iteration) at the nanopore
+   dispatch chunk of the tool's own inputs (96 x 24 bp, 8,710 pieces of
+   320 words, iupac eq): every member the tool runs against the plain
+   version and against q2 (scan_q), bit for bit, and timed beside its
+   bound and registers; the one-pattern-per-thread member also with the
+   pure and the ascii eq; then the entry point itself,
+   sassy_tpu_torch.tools.kernel_qn's run() in all three modes at the
+   nanopore shape and at 8 x 64 bp, which must launch every member;
+13. the row-step ablations (scan_variant: full, noeq, nomem, nostore) at
+   the windows of 1 GiB for a 24 bp pattern: each against its plain
+   version, full's vp against q1's, timed; then
+   sassy_tpu_torch.tools.kernel_variants' run(), which must launch all
+   four;
+14. ascii end to end at full width: 1 GiB of random printable bytes with
+   a few bytes outside that range, a 28 byte pattern, case-insensitive,
+   k=3, copies planted with known edits (case swapped, one substitution,
+   one byte above 127, one deletion, one insertion);
+   Searcher(Ascii(case_sensitive=False), device="cuda").search and
+   search_all must return each with its cost and CIGAR, as the port's CPU
+   path finds it on a 50 kbp slice, through q1meta with the ascii eq; the
+   strand's phases timed, the device memory peak logged; then search_many
+   of four ascii patterns over 2,000 texts of 10 kB against the CPU path
+   on the planted texts and a sample (q2meta);
+15. the hierarchical suffix prefilter: the single path at 1 GiB with an
+   80 bp pattern at k=3 (32 suffix rows) and planted copies on both
+   strands, with the prefilter forced on and forced off (its gate, the
+   work the suffix scan must save, set to 0 and to a value no plan
+   reaches): equal Match lists, the flagged tiles counted, one strand's
+   device path with and without the prefilter and the prefilter's steps
+   timed in turns, also for a 160 bp pattern; the batched path at the
+   nanopore shape with 8 x 72 bp at k=2 (32 suffix rows), on and off,
+   equal Match lists, one strand's phases timed, and its dispatch with
+   and without the prefilter in turns, also over fewer reads.
 
 The script imports neither JAX nor anything of the reference package.
 
@@ -104,7 +138,7 @@ PLANT_AT = 5_000
 #: phase 5's pattern batch, phase 6's reads checked on the CPU path, and
 #: phase 7's pairs
 Q_KERNEL = 8
-READS_CPU = 512
+READS_CPU = 256
 Q_SINGLE = 4
 READS_SINGLE = 200
 #: the planted copies' one edit: a substitution at this pattern index
@@ -120,6 +154,26 @@ OH_EVERY_B = 64
 OH_Q_B = 8
 OH_SAMPLE = 64
 
+#: phase 12-13: the seed of the tools' numpy generator
+TOOL_SEED = 0
+#: phase 14: ascii. Pattern, texts of search_many and those checked on the
+#: CPU path besides the planted ones
+ASCII_PATTERN = b"The Quick Brown Fox: 42 dogs"
+ASCII_TEXTS = 2_000
+ASCII_SAMPLE = 64
+#: phase 15: (pattern length, k) of the single and the batched prefilter
+#: runs (32 suffix rows each), and the batched pattern count
+HIER_SINGLE = (80, 3)
+HIER_BATCH = (72, 2)
+HIER_Q = 8
+#: smaller read sets the batched prefilter is also timed at, and the
+#: turns and launches per turn of phase 15's timings
+HIER_FEWER_READS = (8192, 2048, 256)
+HIER_TURNS = 3
+HIER_REPS = 5
+#: a gate that no plan reaches: the prefilter forced off
+NEVER = 1 << 62
+
 #: the least time of a scan kernel (the bound_ms of the kernels line): the
 #: larger of its bytes over the H100's 3.35 TB/s and its integer ALU-pipe
 #: instructions over that pipe's rate, 132 SMs x 64 lanes x 1.98 GHz (the
@@ -134,7 +188,8 @@ OH_SAMPLE = 64
 #: one LOP3, gave pure 21, iupac 23, ascii 28. WORD_OPS, per (pattern,
 #: window word) outside the rows, from
 #: the source: the two popcounts and the cost update (4), with the
-#: selection metadata also the owned mask, state code and screen (20 more).
+#: selection metadata also the owned mask, state code and screen (20 more);
+#: the ablations keep one popcount and one add (2).
 MEM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 ROW_OPS = {"pure": 24.25, "iupac": 22.75, "ascii": 27.25}
@@ -174,15 +229,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(eq_mode: str, Q: int, M: int, windows_shape, meta: bool) -> dict:
+def bound(eq_mode: str, Q: int, M: int, windows_shape, meta: bool,
+          vp_only: bool = False) -> dict:
     """bound_ms and bound_by of one scan launch: Q patterns of M rows
     (pad rows included: the kernel scans them) over (NW, P, T) windows.
     Bytes: the windows read once, the outputs written once (vp, vm, cost
-    and, with meta, meta and final)."""
+    and, with meta, meta and final; ``vp_only``: the ablations' one word
+    per window word, and no text-start flags)."""
     NW, P, T = windows_shape
-    ops = Q * NW * T * (M * ROW_OPS[eq_mode] + WORD_OPS[meta])
-    nbytes = 4 * (NW * P * T + Q * NW * T * (4 if meta else 3)
-                  + (Q * T if meta else 0)) + T
+    word_ops = 2 if vp_only else WORD_OPS[meta]
+    n_out = 1 if vp_only else 4 if meta else 3
+    ops = Q * NW * T * (M * ROW_OPS[eq_mode] + word_ops)
+    nbytes = 4 * (NW * P * T + Q * NW * T * n_out
+                  + (Q * T if meta else 0)) + (0 if vp_only else T)
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -194,8 +253,11 @@ def counts_zero():
     from sassy_tpu_torch.ops import myers_cuda
 
     for fn in (myers_cuda.scan_meta, myers_cuda.scan_q_meta, myers_cuda.scan,
-               myers_cuda.scan_q):
+               myers_cuda.scan_q, myers_cuda.scan_qn,
+               myers_cuda.scan_variant):
         fn.launches = 0
+    myers_cuda.scan_qn.members = {}
+    myers_cuda.scan_variant.members = {}
 
 
 def counts() -> dict:
@@ -203,12 +265,15 @@ def counts() -> dict:
 
     return {"q1meta": myers_cuda.scan_meta.launches,
             "q2meta": myers_cuda.scan_q_meta.launches,
-            "q1": myers_cuda.scan.launches, "q2": myers_cuda.scan_q.launches}
+            "q1": myers_cuda.scan.launches, "q2": myers_cuda.scan_q.launches,
+            "qn": myers_cuda.scan_qn.launches,
+            "variants": myers_cuda.scan_variant.launches}
 
 
-def require(launched: dict, used: tuple, unused: tuple, what: str):
+def require(launched: dict, used: tuple, unused: tuple, what: str,
+            least: int = 2):
     for name in used:
-        if launched[name] < 2:
+        if launched[name] < least:
             fail(f"{what} launched {name} {launched[name]} times")
     for name in unused:
         if launched[name]:
@@ -507,7 +572,7 @@ def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha):
 
     pcodes = [prof.encode(p) for p in pats]
     for run in ("cold", "warm"):
-        acc = dict.fromkeys(("windows", "scan", "select"), 0.0)
+        acc = dict.fromkeys(("windows", "prefilter", "scan", "select"), 0.0)
 
         def timed(obj, name, key):
             fn = getattr(obj, name)
@@ -530,6 +595,7 @@ def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha):
         torch.cuda.synchronize()
         t_pack = time.perf_counter() - t0
         timed(ts, "windows", "windows")
+        timed(eng, "flagged_pieces", "prefilter")
         timed(eng, "scan", "scan")
         timed(eng, "select", "select")
         pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
@@ -550,8 +616,9 @@ def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha):
         log(f"{label}: forward strand, {len(pats)} x {len(pats[0])} bp over "
             f"{len(texts)} x {READ_LEN} bp, {run}: upload+pack "
             f"{t_pack * 1e3:.1f} ms, piece windows "
-            f"{acc['windows'] * 1e3:.1f} ms, kernel {acc['scan'] * 1e3:.1f} "
-            f"ms, selection {acc['select'] * 1e3:.1f} ms, host copy+decode "
+            f"{acc['windows'] * 1e3:.1f} ms, suffix prefilter "
+            f"{acc['prefilter'] * 1e3:.1f} ms, kernel "
+            f"{acc['scan'] * 1e3:.1f} ms, selection {acc['select'] * 1e3:.1f} ms, host copy+decode "
             f"{t_decode * 1e3:.1f} ms, traceback+dense assembly {post} "
             f"(M={g.pmasks.shape[1]} eq={g.eq_mode} steps={g.steps} "
             f"pieces={pp.T} NW={pp.NW} chunks={n_chunks})")
@@ -1060,6 +1127,479 @@ def batched_overhang(label, reads, pats, case, want, used, unused):
     return launched
 
 
+def _equal_all(got, ref) -> tuple[bool, int]:
+    """Bit equality and the largest absolute difference of two tuples of
+    int32 tensors."""
+    import torch
+
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = max((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()
+              for a, b in zip(got, ref))
+    return same, err
+
+
+def qn_family():
+    """Phase 12. Returns {row: record} for the kernels line: "q" (U = 1,
+    loop), "qn" (U > 1, loop), "unroll" (rows unrolled, WU = 1) and
+    "unroll_w" (WU > 1), each with the launches of the tool's own run."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch.ops import myers_cuda
+    from sassy_tpu_torch.tools import kernel_qn, timing
+
+    inputs = kernel_qn.read_inputs(np.random.default_rng(TOOL_SEED), DEVICE,
+                                   kernel_qn.N_BARCODES,
+                                   kernel_qn.BARCODE_LEN, None, None)
+    res = timing.built_resources()
+    members = []
+    for mode in ("main", "unroll", "wunroll"):
+        members += [m for m in kernel_qn.MODES[mode] if m[1:] not in
+                    [x[1:] for x in members]]
+    rows = {}
+    for eq in ("iupac", "pure", "ascii"):
+        args = inputs[eq]
+        Q, M = args[2].shape[:2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = myers_cuda.scan_qn_plain(*args, eq)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        yard = myers_cuda.scan_q(*args, eq)
+        ms_q2 = cuda_ms(lambda: myers_cuda.scan_q(*args, eq), REPS)
+        b = bound(eq, Q, M, args[0].shape, False)
+        log(f"phase 12: eq={eq} Q={Q} M={M} NW={args[0].shape[0]} "
+            f"P={args[0].shape[1]} T={args[0].shape[2]}: plain "
+            f"{plain_ms:.1f} ms, scan_q (q2) {ms_q2:.3f} ms, bound "
+            f"{b['bound_ms']:.3f} ms by {b['bound_by']}")
+        for name, U, unroll, WU in members:
+            if eq != "iupac" and (U, unroll, WU) != (1, False, 1):
+                continue
+            got = myers_cuda.scan_qn(*args, eq, U, unroll, WU)
+            torch.cuda.synchronize()
+            same, err = _equal_all(got, ref)
+            same_q2, _ = _equal_all(got, yard)
+            del got
+            ms = cuda_ms(lambda: myers_cuda.scan_qn(*args, eq, U, unroll, WU),
+                         REPS)
+            regs = timing.registers(res, "scan_qn_kernel",
+                                    kernel_qn.EQ_INDEX[eq], U,
+                                    M if unroll else 0, WU)
+            log(f"phase 12: {name} eq={eq} U={U} unroll={unroll} WU={WU}: "
+                f"kernel {ms:.3f} ms ({ms / ms_q2:.3f} of q2), registers "
+                f"{regs}, bit-equal to plain={same} to q2={same_q2} "
+                f"max_abs_err={err}")
+            if not (same and same_q2):
+                fail(f"scan_qn {name} eq={eq} != plain or q2")
+            row = ("q" if (U, unroll, WU) == (1, False, 1) else "qn"
+                   if not unroll else "unroll" if WU == 1 else "unroll_w")
+            # the kernels line takes each row's iupac member with U = 2
+            # (U = 1 for "q"): the designs the reference scripts compare
+            if eq == "iupac" and U == (1 if row == "q" else 2) and (
+                    row not in rows):
+                rows[row] = {"ms": ms, "plain_ms": plain_ms,
+                             "max_abs_err": err, **b}
+        del ref, yard
+    del inputs
+    torch.cuda.empty_cache()
+
+    # the main path of these kernels: the tool's own entry point
+    counts_zero()
+    t0 = time.perf_counter()
+    for shape in ("nanopore", "long"):
+        kernel_qn.run(shape, ("main", "unroll", "wunroll"), DEVICE,
+                      TOOL_SEED, log=lambda msg: log(f"phase 12: tool: {msg}"))
+    launched = dict(myers_cuda.scan_qn.members)
+    log(f"phase 12: tools.kernel_qn.run at both shapes in "
+        f"{time.perf_counter() - t0:.1f} s, launches per (U, unroll, WU): "
+        f"{ {str(k): v for k, v in sorted(launched.items())} }")
+    for _, U, unroll, WU in members:
+        if not launched.get((U, unroll, WU)):
+            fail(f"the tool never launched scan_qn U={U} unroll={unroll} "
+                 f"WU={WU}")
+    pick = {"q": lambda m: m == (1, False, 1),
+            "qn": lambda m: not m[1] and m[0] > 1,
+            "unroll": lambda m: m[1] and m[2] == 1,
+            "unroll_w": lambda m: m[1] and m[2] > 1}
+    for row, rec in rows.items():
+        rec["launches"] = sum(v for m, v in launched.items() if pick[row](m))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def row_step_ablations():
+    """Phase 13. Returns the record of the ``full`` variant."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch.ops import myers_cuda
+    from sassy_tpu_torch.tools import kernel_variants, timing
+
+    win, pm = kernel_variants.single_inputs(
+        np.random.default_rng(TOOL_SEED), DEVICE, N_TEXT >> 20, None, None)
+    NW, P, T = win.shape
+    M = pm.shape[0]
+    res = timing.built_resources()
+    zeros = torch.zeros(M, dtype=torch.int32, device=DEVICE)
+    q1_args = (win, torch.zeros(T, dtype=torch.bool, device=DEVICE), pm,
+               zeros, torch.ones_like(zeros), M, M, "iupac")
+    vp_q1 = myers_cuda.scan(*q1_args)[0]
+    b = bound("iupac", 1, M, win.shape, False, vp_only=True)
+    log(f"phase 13: M={M} NW={NW} P={P} T={T}: the ablations' bound "
+        f"{b['bound_ms']:.3f} ms by {b['bound_by']}")
+    errs = {}
+    for v in myers_cuda.VARIANTS:
+        got = myers_cuda.scan_variant(win, pm, v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = myers_cuda.scan_variant_plain(win, pm, v)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same, err = _equal_all((got,), (ref,))
+        if v == "full":
+            same = same and torch.equal(got, vp_q1)
+        del got, ref
+        log(f"phase 13: {v}: plain {plain_ms:.1f} ms, bit-equal={same} "
+            f"max_abs_err={err}" + (" (vp equal to q1's)" if v == "full"
+                                    else ""))
+        if not same:
+            fail(f"scan_variant {v} != plain")
+        errs[v] = (plain_ms, err)
+    # timed after the comparisons, in turns: the first launches after the
+    # plain versions' allocations run slow
+    record = None
+    for turn in range(2):
+        ms_q1 = cuda_ms(lambda: myers_cuda.scan(*q1_args), REPS)
+        times = {v: cuda_ms(lambda: myers_cuda.scan_variant(win, pm, v), REPS)
+                 for v in myers_cuda.VARIANTS}
+        log(f"phase 13: turn {turn}: scan (q1) {ms_q1:.3f} ms, " + ", ".join(
+            f"{v} {ms:.3f} ms" for v, ms in times.items()))
+        if record is None or times["full"] < record["ms"]:
+            record = {"ms": times["full"], "plain_ms": errs["full"][0],
+                      "max_abs_err": errs["full"][1], **b}
+    log("phase 13: registers: " + ", ".join(
+        f"{v} {timing.registers(res, 'scan_variant_kernel', i)}"
+        for v, i in myers_cuda.VARIANTS.items()))
+    del win, pm, vp_q1, q1_args
+    torch.cuda.empty_cache()
+
+    counts_zero()
+    t0 = time.perf_counter()
+    kernel_variants.run("single", DEVICE, TOOL_SEED, N_TEXT >> 20,
+                        log=lambda msg: log(f"phase 13: tool: {msg}"))
+    launched = dict(myers_cuda.scan_variant.members)
+    log(f"phase 13: tools.kernel_variants.run in "
+        f"{time.perf_counter() - t0:.1f} s, launches {launched}")
+    for v in myers_cuda.VARIANTS:
+        if not launched.get(v):
+            fail(f"the tool never launched scan_variant {v}")
+    record["launches"] = sum(launched.values())
+    torch.cuda.empty_cache()
+    return record
+
+
+def _same_matches(got, want) -> bool:
+    key = lambda m: (m.pattern_idx, m.text_idx) + fields(m)  # noqa: E731
+    return sorted(map(key, got)) == sorted(map(key, want))
+
+
+def ascii_end_to_end(gen):
+    """Phase 14: the ascii Searcher on both engines."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import Searcher, profiles
+
+    prof = profiles.Ascii(case_sensitive=False)
+    n = N_TEXT
+    text = (torch.randint(32, 127, (n,), generator=gen, device=DEVICE,
+                          dtype=torch.int16).to(torch.uint8).cpu().numpy())
+    # bytes outside the printable range, none of them in the pattern
+    odd = torch.randint(0, n, (4096,), generator=gen, device=DEVICE).cpu()
+    text[odd.numpy()] = np.resize(np.array([0, 255, 128, 10], np.uint8), 4096)
+    pat = np.frombuffer(ASCII_PATTERN, np.uint8).copy()
+    m = len(pat)
+    swap = np.frombuffer(ASCII_PATTERN.swapcase(), np.uint8)
+    sub = swap.copy()
+    sub[MUT_AT] = ord("#")
+    high = pat.copy()
+    high[MUT_AT] = 0xE9
+    # (offset, bytes, cost, cigar or None where only the CPU path says)
+    sites = [
+        (0, swap, 0, f"{m}="),
+        (n // 7, sub, 1, f"{MUT_AT}=1X{m - MUT_AT - 1}="),
+        (n // 3, high, 1, f"{MUT_AT}=1X{m - MUT_AT - 1}="),
+        (n // 2, np.delete(pat, 9), 1, None),
+        (3 * (n // 4), np.insert(swap, 20, ord("~")), 1, None),
+        (n - m, pat, 0, f"{m}="),
+    ]
+    for off, seq, _, _ in sites:
+        text[off : off + len(seq)] = seq
+    searcher = Searcher(prof, rc=False, device=DEVICE)
+    if searcher.engine.build_inputs(prof, prof.encode(pat), text[:SLICE],
+                                    K).eq_mode != "ascii":
+        fail("phase 14: the ascii search does not run the ascii eq")
+    single_strand_phases("phase 14", searcher, prof, pat, text, K)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cpu = Searcher(prof, rc=False, device="cpu")
+    for fn in ("search", "search_all"):
+        counts_zero()
+        t0 = time.perf_counter()
+        matches = getattr(searcher, fn)(pat, text, K)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"phase 14: Searcher(Ascii(case_sensitive=False)).{fn}, "
+            f"{n >> 20} MiB: {e2e:.3f} s, {len(matches)} matches, launches "
+            f"{launched}, device memory peak {peak:.2f} GiB")
+        require(launched, ("q1meta",), ("q1", "q2", "q2meta", "qn",
+                                        "variants"), "phase 14", least=1)
+        for off, seq, cost, cigar in sites:
+            lo = min(max(off - SLICE // 2, 0), n - SLICE)
+            near = lambda x, base: (  # noqa: E731
+                off - K <= x.text_start + base <= off + K)
+            got = sorted(fields(x) for x in matches if near(x, 0))
+            ref = sorted(fields(x, lo) for x in getattr(cpu, fn)(
+                pat, text[lo : lo + SLICE], K) if near(x, lo))
+            best = min(got, key=lambda f: f[4], default=None)
+            if not got or got != ref or best[4] != cost or (
+                    cigar is not None and best[6] != cigar):
+                fail(f"phase 14: {fn}: planted copy at {off}: card {got}, "
+                     f"CPU path on the slice {ref}, want cost {cost} cigar "
+                     f"{cigar}")
+            if fn == "search":
+                log(f"phase 14: planted copy at {off}: found as on the CPU "
+                    f"path: span {best[:2]}, cost {best[4]}, cigar {best[6]}")
+
+    # batched: four patterns over 10 kB texts cut from the big text
+    texts = list(text[: ASCII_TEXTS * READ_LEN].reshape(ASCII_TEXTS, READ_LEN)
+                 .copy())
+    pats = [pat, np.frombuffer(b"jumps over the lazy dog.", np.uint8),
+            np.frombuffer(b"SASSY approximate search", np.uint8),
+            np.frombuffer(b"0123456789 abcdefghijklm", np.uint8)]
+    planted = list(range(0, ASCII_TEXTS, 97))
+    for j, t in enumerate(planted):
+        p = pats[j % len(pats)].copy()
+        if j % 2:
+            p[5] = ord("_")
+        at = (j * 997) % (READ_LEN - len(p))
+        texts[t][at : at + len(p)] = np.frombuffer(
+            bytes(p).upper() if j % 3 == 0 else bytes(p), np.uint8)
+    counts_zero()
+    t0 = time.perf_counter()
+    matches = searcher.search_many(pats, texts, K)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    launched = counts()
+    log(f"phase 14: search_many of {len(pats)} ascii patterns over "
+        f"{ASCII_TEXTS} x {READ_LEN} bytes: {e2e:.3f} s, {len(matches)} "
+        f"matches, launches {launched}")
+    require(launched, ("q2meta",), ("q1", "q2", "q1meta", "qn", "variants"),
+            "phase 14", least=1)
+    hit = {x.text_idx for x in matches}
+    if not set(planted) <= hit:
+        fail(f"phase 14: planted texts without a match: "
+             f"{sorted(set(planted) - hit)[:5]}")
+    check = sorted(hit | set(range(1, ASCII_TEXTS, ASCII_TEXTS // ASCII_SAMPLE)))
+    ref = cpu.search_many(pats, [texts[t] for t in check], K)
+    for x in ref:
+        x.text_idx = check[x.text_idx]
+    checked = set(check)
+    same = _same_matches([x for x in matches if x.text_idx in checked], ref)
+    log(f"phase 14: {len(check)} texts against the CPU path: {len(ref)} "
+        f"matches, equal={same}")
+    if not same:
+        fail("phase 14: ascii search_many differs from the CPU path")
+
+
+def suffix_inputs(inp):
+    """``inp`` with the pattern cut to its last ``hier_s`` rows, as the
+    prefilter scans it (to time that launch alone)."""
+    import dataclasses
+
+    import torch
+
+    S = inp.hier_s
+    zeros = torch.zeros(S, dtype=torch.int32, device=inp.windows.device)
+    return dataclasses.replace(
+        inp, pmasks=inp.pmasks[-S:].contiguous(), is_pad=zeros,
+        h_init=torch.ones_like(zeros), m_real=S, boundary_m=S,
+        tile0=torch.zeros_like(inp.tile0), hier_s=0)
+
+
+def hier_single(gen, text):
+    """Phase 15a: the single engine's suffix prefilter at 1 GiB."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import Searcher, profiles
+    from sassy_tpu_torch.ops import plan
+
+    m, k = HIER_SINGLE
+    iupac = profiles.Iupac()
+    pattern = random_acgt(gen, m).cpu().numpy()
+    n = len(text)
+    mutated = pattern.copy()
+    mutated[MUT_AT] = ord("A") if mutated[MUT_AT] != ord("A") else ord("C")
+    rc = _rc_table()
+    sites = [(1000, pattern), (n // 6, mutated), (n // 2 + 77, rc(mutated)),
+             (n - 3 * m, rc(pattern)), (n - m, mutated)]
+    for off, seq in sites:
+        text[off : off + m] = seq
+    # a pattern of twice the length with the same 32 suffix rows
+    longer = np.concatenate([random_acgt(gen, m).cpu().numpy(), pattern])
+    text[n // 4 : n // 4 + 2 * m] = longer
+    searcher = Searcher("iupac", rc=True, device=DEVICE)
+    eng = searcher.engine
+    default = plan.HIER_MIN_SAVED_PAIRS
+
+    # the device path of the forward strand (scan, chain, selection) with
+    # the prefilter and without, in turns, and the prefilter's steps
+    prep = eng.prepare(iupac, text)
+    plan.HIER_MIN_SAVED_PAIRS = 0
+    for pat in (pattern, longer):
+        inp = eng.build_inputs(iupac, iupac.encode(pat), prep, k)
+        if inp.hier_s != plan.suffix_rows(m, k) or not inp.hier_s:
+            fail(f"phase 15: expected a {plan.suffix_rows(m, k)}-row suffix, "
+                 f"got {inp.hier_s}")
+        ids = eng.flagged_tiles(inp)
+        sub = eng.gather_tiles(inp, ids)
+        suffix = suffix_inputs(inp)
+        NW, _, T = inp.windows.shape
+        M, S = inp.pmasks.shape[0], inp.hier_s
+
+        def with_prefilter():
+            flagged = eng.gather_tiles(inp, eng.flagged_tiles(inp))
+            return eng.select(flagged, eng.scan(flagged))
+
+        steps = {
+            "prefilter on": with_prefilter,
+            "prefilter off": lambda: eng.select(inp, eng.scan(inp)),
+            "suffix scan + flags": lambda: eng.flagged_tiles(inp),
+            "suffix kernel": lambda: eng.scan(suffix),
+            "gather": lambda: eng.gather_tiles(inp, ids),
+            "kernel, flagged tiles": lambda: eng.scan(sub),
+            "kernel, all tiles": lambda: eng.scan(inp),
+        }
+        for turn in range(HIER_TURNS):
+            log(f"phase 15: single, forward strand, {len(pat)} bp, turn "
+                f"{turn}: M={M} S={S} eq={inp.eq_mode} T={T} NW={NW}, "
+                f"{ids.numel()} flagged tiles, {(M - S) * NW * T} (row, "
+                "word) pairs saved: " + ", ".join(
+                    f"{name} {cuda_ms(fn, HIER_REPS):.3f} ms"
+                    for name, fn in steps.items()))
+        del inp, sub, suffix, steps
+    del prep
+    torch.cuda.empty_cache()
+
+    results = {}
+    for label, gate in (("on", 0), ("off", NEVER), ("on", 0), ("off", NEVER)):
+        plan.HIER_MIN_SAVED_PAIRS = gate
+        counts_zero()
+        t0 = time.perf_counter()
+        ms = searcher.search(pattern, text, k)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        launched = counts()
+        log(f"phase 15: Searcher.search, {m} bp, k={k}, both strands, "
+            f"{n >> 20} MiB, prefilter {label}: {e2e:.3f} s, {len(ms)} "
+            f"matches, launches {launched}")
+        if launched["q1meta"] != (4 if label == "on" else 2):
+            fail(f"phase 15: prefilter {label} launched q1meta "
+                 f"{launched['q1meta']} times")
+        require(launched, ("q1meta",), ("q1", "q2", "q2meta", "qn",
+                                        "variants"), "phase 15")
+        results.setdefault(label, ms)
+    plan.HIER_MIN_SAVED_PAIRS = default
+    if not _same_matches(results["on"], results["off"]):
+        fail("phase 15: the single prefilter changes the matches")
+    starts = {x.text_start for x in results["on"]}
+    if not {off for off, _ in sites} <= starts:
+        fail(f"phase 15: planted copies missing: "
+             f"{sorted({off for off, _ in sites} - starts)}")
+    log(f"phase 15: single: prefilter on and off return the same "
+        f"{len(results['on'])} matches, all {len(sites)} planted copies "
+        f"among them; the gate is {default} saved pairs")
+
+
+def hier_batched(gen, reads):
+    """Phase 15b: the batched engine's suffix prefilter at the nanopore
+    shape, and at smaller read sets."""
+    import torch
+
+    from sassy_tpu_torch import Searcher, profiles
+    from sassy_tpu_torch.ops import batch, plan
+
+    m, k = HIER_BATCH
+    iupac = profiles.Iupac()
+    pats = list(random_acgt(gen, HIER_Q * m).cpu().numpy().reshape(HIER_Q, m))
+    rc = _rc_table()
+    planted = range(5, len(reads), 501)
+    for j, i in enumerate(planted):
+        p = pats[j % HIER_Q].copy()
+        if j % 3:
+            p[MUT_AT] = ord("A") if p[MUT_AT] != ord("A") else ord("C")
+        at = (j * 1009) % (READ_LEN - m)
+        reads[i, at : at + m] = p if j % 2 == 0 else rc(p)
+    texts = list(reads)
+    searcher = Searcher("iupac", rc=True, device=DEVICE)
+    default = plan.HIER_MIN_SAVED_PAIRS
+    results = {}
+    for label, gate in (("on", 0), ("off", NEVER)):
+        plan.HIER_MIN_SAVED_PAIRS = gate
+        batched_strand_phases(f"phase 15: batched, prefilter {label}",
+                              searcher, iupac, pats, texts, k, None)
+        counts_zero()
+        t0 = time.perf_counter()
+        results[label] = searcher.search_many(pats, texts, k)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        launched = counts()
+        log(f"phase 15: Searcher.search_many, {HIER_Q} x {m} bp, k={k}, both "
+            f"strands, prefilter {label}: {e2e:.3f} s, "
+            f"{len(results[label])} matches, launches {launched}")
+        require(launched, ("q2meta",), ("q1", "q2", "q1meta", "qn",
+                                        "variants"), "phase 15")
+    if not _same_matches(results["on"], results["off"]):
+        fail("phase 15: the batched prefilter changes the matches")
+    hit = {x.text_idx for x in results["on"]}
+    if not set(planted) <= hit:
+        fail(f"phase 15: planted reads without a match: "
+             f"{sorted(set(planted) - hit)[:5]}")
+    log(f"phase 15: batched: prefilter on and off return the same "
+        f"{len(results['on'])} matches, every one of the {len(planted)} "
+        f"planted reads among them; the gate is {default} saved pairs")
+
+    # where the gate belongs: the forward strand's dispatch (windows, scans,
+    # chain, selection) with the prefilter and without, in turns, for the
+    # whole read set and for smaller ones
+    eng = batch.BatchEngine(DEVICE)
+    pcodes = [iupac.encode(p) for p in pats]
+    for n_reads in (len(texts),) + HIER_FEWER_READS:
+        ts = batch.TextSet(texts[:n_reads], DEVICE)
+        (g,) = eng.groups(iupac, pcodes, ts, k)
+        ts.planes(iupac, False)
+        pp = ts.piece_plan(g.halo, g.w_chars)
+        saved = sum((q1 - q0) * (g.pmasks.shape[1] - g.hier_s) * pp.NW
+                    * (t1 - t0) for q0, q1, t0, t1 in eng.chunks(g, pp))
+
+        def dispatch(gate):
+            plan.HIER_MIN_SAVED_PAIRS = gate
+            return eng.dispatch(iupac, ts, g, k, False, False)
+
+        for turn in range(HIER_TURNS):
+            on = cuda_ms(lambda: dispatch(0), HIER_REPS)
+            off = cuda_ms(lambda: dispatch(NEVER), HIER_REPS)
+            log(f"phase 15: batched dispatch, forward strand, {n_reads} "
+                f"reads, turn {turn}: M={g.pmasks.shape[1]} S={g.hier_s} "
+                f"pieces={pp.T} NW={pp.NW}, {saved} (row, word) pairs "
+                f"saved: prefilter on {on:.3f} ms, off {off:.3f} ms")
+        del ts
+    plan.HIER_MIN_SAVED_PAIRS = default
+
+
 def main() -> int:
     import torch
 
@@ -1114,6 +1654,18 @@ def main() -> int:
                      ("q2meta",), ("q2", "q1", "q1meta"))
     launched_b = batched_overhang("phase 11b", reads, long_, OH_POS, want_b,
                                   ("q2",), ("q2meta", "q1", "q1meta"))
+    del reads
+    torch.cuda.empty_cache()
+
+    rows_qn = qn_family()
+    head_variants = row_step_ablations()
+    ascii_end_to_end(gen)
+    torch.cuda.empty_cache()
+    text = random_acgt(gen, N_TEXT).cpu().numpy()
+    hier_single(gen, text)
+    del text
+    torch.cuda.empty_cache()
+    hier_batched(gen, overhang_reads(gen))
 
     ref = [m for m in sys.modules if m in ("jax", "sassy_tpu")
            or m.startswith(("jax.", "sassy_tpu."))]
@@ -1138,6 +1690,21 @@ def main() -> int:
         entry("scan_q (q2)", "sassy_tpu_torch/csrc/scan_q.cu",
               "sassy_tpu/ops/myers_pallas.py:541", launched_b["q2"],
               head_q2),
+        entry("scan_qn U=1 loop WU=1 (q)", "sassy_tpu_torch/csrc/scan_qn.cu",
+              "sassy_tpu/ops/myers_pallas.py:400", rows_qn["q"]["launches"],
+              rows_qn["q"]),
+        entry("scan_qn U=2 loop WU=1 (qN)", "sassy_tpu_torch/csrc/scan_qn.cu",
+              "scripts/kernel_qn.py:17", rows_qn["qn"]["launches"],
+              rows_qn["qn"]),
+        entry("scan_qn U=2 unroll WU=1", "sassy_tpu_torch/csrc/scan_qn.cu",
+              "scripts/kernel_qn.py:183", rows_qn["unroll"]["launches"],
+              rows_qn["unroll"]),
+        entry("scan_qn U=2 unroll WU=2", "sassy_tpu_torch/csrc/scan_qn.cu",
+              "scripts/kernel_qn.py:345", rows_qn["unroll_w"]["launches"],
+              rows_qn["unroll_w"]),
+        entry("scan_variant full", "sassy_tpu_torch/csrc/scan_variants.cu",
+              "scripts/kernel_variants.py:29", head_variants["launches"],
+              head_variants),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

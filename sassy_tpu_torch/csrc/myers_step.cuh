@@ -1,7 +1,8 @@
 // The Myers'99 word scan of one tile for one pattern: the body shared by
-// the four scan kernels, q1meta (scan_meta.cu, one pattern) and q2meta
+// the scan kernels, q1meta (scan_meta.cu, one pattern) and q2meta
 // (scan_q_meta.cu, Q patterns) with selection metadata, q1 (scan.cu) and
-// q2 (scan_q.cu) without.
+// q2 (scan_q.cu) without; the row step also by the kernel-design family
+// (scan_qn.cu) and the row-step ablations (scan_variants.cu).
 //
 // One thread scans one tile: for each 32-position word of its window, the
 // last pattern row's vertical delta words (vp, vm) and its cost at the word
@@ -59,8 +60,63 @@ __device__ __forceinline__ uint32_t owned_mask(int w32, int vf, int vt) {
   return m_lo & m_hi;
 }
 
-// Rows j0 .. j0 + rows - 1 (rows <= 32) of one word: the Myers step of
-// reference bitpacking.rs:63-85 on 32 text positions. hpw/hmw carry the
+// eq of pattern row j against the 32 text positions of one word.
+template <int EQ>
+__device__ __forceinline__ uint32_t row_eq(
+    const uint32_t (&x)[planes_of<EQ>()], const uint32_t* s_pm,
+    const uint32_t* s_pad, const int32_t* s_pidx, int j) {
+  constexpr int P = planes_of<EQ>();
+  constexpr int PM = masks_of<EQ>();
+  uint32_t eq = s_pad[j];  // pad rows match everything
+  if (EQ == kEqPure) {
+    const int pi = s_pidx[j];
+    eq |= pi == 0 ? x[0] : pi == 1 ? x[1] : pi == 2 ? x[2] : x[3];
+  } else if (EQ == kEqIupac) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) eq |= x[p] & s_pm[j * PM + p];
+  } else {
+    uint32_t acc = 0u;
+#pragma unroll
+    for (int p = 0; p < PM; ++p) acc |= x[p] ^ s_pm[j * PM + p];
+    eq |= ~acc & x[P - 1];
+  }
+  return eq;
+}
+
+// The Myers step of one pattern row on 32 text positions (reference
+// bitpacking.rs:63-85): hp_j/hm_j are the row's horizontal deltas entering
+// the word, hp_o/hm_o its horizontal delta words (bit 31 leaves the word);
+// vp/vm flow down the rows.
+__device__ __forceinline__ void myers_step(
+    uint32_t eq, uint32_t hp_j, uint32_t hm_j, uint32_t& vp, uint32_t& vm,
+    uint32_t& hp_o, uint32_t& hm_o) {
+  const uint32_t vx = eq | vm;
+  const uint32_t eqh = eq | hm_j;
+  const uint32_t hx = (((eqh & vp) + vp) ^ vp) | eqh;
+  hp_o = vm | ~(hx | vp);
+  hm_o = vp & hx;
+  const uint32_t hp_sh = (hp_o << 1) | hp_j;
+  const uint32_t hm_sh = (hm_o << 1) | hm_j;
+  vp = hm_sh | ~(vx | hp_sh);
+  vm = hp_sh & vx;
+}
+
+// Row j of one word with bit-packed carries: bit b of hpw/hmw holds the
+// row's horizontal deltas from the previous word, bit b of nhp/nhm gets
+// those for the next.
+template <int EQ>
+__device__ __forceinline__ void row_step(
+    const uint32_t (&x)[planes_of<EQ>()], const uint32_t* s_pm,
+    const uint32_t* s_pad, const int32_t* s_pidx, int j, int b, uint32_t hpw,
+    uint32_t hmw, uint32_t& nhp, uint32_t& nhm, uint32_t& vp, uint32_t& vm) {
+  const uint32_t eq = row_eq<EQ>(x, s_pm, s_pad, s_pidx, j);
+  uint32_t hp_o, hm_o;
+  myers_step(eq, (hpw >> b) & 1u, (hmw >> b) & 1u, vp, vm, hp_o, hm_o);
+  nhp |= (hp_o >> 31) << b;
+  nhm |= (hm_o >> 31) << b;
+}
+
+// Rows j0 .. j0 + rows - 1 (rows <= 32) of one word. hpw/hmw carry the
 // rows' horizontal deltas from the previous word (bit b = row j0 + b) and
 // return those for the next; vp/vm flow down the rows.
 template <int EQ>
@@ -68,39 +124,12 @@ __device__ __forceinline__ void scan_rows(
     const uint32_t (&x)[planes_of<EQ>()], const uint32_t* s_pm,
     const uint32_t* s_pad, const int32_t* s_pidx, int j0, int rows,
     uint32_t& hpw, uint32_t& hmw, uint32_t& vp, uint32_t& vm) {
-  constexpr int P = planes_of<EQ>();
-  constexpr int PM = masks_of<EQ>();
   uint32_t nhp = 0u;
   uint32_t nhm = 0u;
 #pragma unroll 4
   for (int b = 0; b < rows; ++b) {
-    const int j = j0 + b;
-    uint32_t eq = s_pad[j];  // pad rows match everything
-    if (EQ == kEqPure) {
-      const int pi = s_pidx[j];
-      eq |= pi == 0 ? x[0] : pi == 1 ? x[1] : pi == 2 ? x[2] : x[3];
-    } else if (EQ == kEqIupac) {
-#pragma unroll
-      for (int p = 0; p < P; ++p) eq |= x[p] & s_pm[j * PM + p];
-    } else {
-      uint32_t acc = 0u;
-#pragma unroll
-      for (int p = 0; p < PM; ++p) acc |= x[p] ^ s_pm[j * PM + p];
-      eq |= ~acc & x[P - 1];
-    }
-    const uint32_t hp_j = (hpw >> b) & 1u;
-    const uint32_t hm_j = (hmw >> b) & 1u;
-    const uint32_t vx = eq | vm;
-    const uint32_t eqh = eq | hm_j;
-    const uint32_t hx = (((eqh & vp) + vp) ^ vp) | eqh;
-    const uint32_t hp_o = vm | ~(hx | vp);
-    const uint32_t hm_o = vp & hx;
-    nhp |= (hp_o >> 31) << b;
-    nhm |= (hm_o >> 31) << b;
-    const uint32_t hp_sh = (hp_o << 1) | hp_j;
-    const uint32_t hm_sh = (hm_o << 1) | hm_j;
-    vp = hm_sh | ~(vx | hp_sh);
-    vm = hp_sh & vx;
+    row_step<EQ>(x, s_pm, s_pad, s_pidx, j0 + b, b, hpw, hmw, nhp, nhm, vp,
+                 vm);
   }
   hpw = nhp;
   hmw = nhm;

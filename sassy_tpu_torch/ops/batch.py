@@ -21,6 +21,13 @@ expanded pairs (the state carried across them as across chunks). Either
 way the candidates leave the device as (pattern, text, end position,
 cost) columns in one copy.
 
+Without overhang, a group whose shortest pattern has
+``plan.suffix_rows`` > 0 runs the hierarchical suffix prefilter on every
+dispatch chunk where the suffix scan saves at least
+``plan.HIER_MIN_SAVED_PAIRS`` (row, word) pairs: q2meta
+with each pattern's last rows flags the pieces that can hold a match of
+any pattern, and the full scan and selection run on those pieces only.
+
 ``candidates_many_async`` hands that device work to one dispatch thread
 and returns at once: each chunk's ``torch.nonzero`` makes the host wait
 for the chunk's scan, and on the caller's thread that wait would hold up
@@ -44,7 +51,7 @@ from __future__ import annotations
 import contextlib
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -228,6 +235,13 @@ class PiecePlan:
     @property
     def T(self) -> int:
         return self.true_start.shape[0]
+
+    def take(self, ids: torch.Tensor) -> "PiecePlan":
+        """The plan of the pieces ``ids`` alone, in that order."""
+        return PiecePlan(**{
+            f.name: (v[ids] if isinstance(v, torch.Tensor) else v)
+            for f in fields(self) for v in (getattr(self, f.name),)
+        })
 
     @property
     def NW(self) -> int:
@@ -426,6 +440,7 @@ class _Group:
     steps: int = 0  # overhang positions past each text end
     alpha: float | None = None
     n_prev: int = 0  # overshoot strip words of the word-level path
+    hier_s: int = 0  # rows of the suffix prefilter; 0 = off
 
     @property
     def Q(self) -> int:
@@ -496,8 +511,18 @@ class BatchEngine:
                 steps=steps, alpha=alpha,
                 n_prev=(cdiv(steps, WORD_BITS) + 1 if alpha is not None
                         else 0),
+                hier_s=self._hier_rows(
+                    min(len(pattern_codes[q]) for q in qidx), M, k, alpha),
             ))
         return out
+
+    @staticmethod
+    def _hier_rows(m_min: int, M: int, k: int, alpha) -> int:
+        """Rows of the group's suffix prefilter (reference gate:
+        batch.py:1046-1050, 623): from the shortest pattern, so that every
+        pattern's last rows are real ones; off with overhang."""
+        s = plan.suffix_rows(m_min, k) if alpha is None else 0
+        return s if s < M else 0
 
     @staticmethod
     def chunks(g: _Group, pp: PiecePlan):
@@ -543,6 +568,27 @@ class BatchEngine:
             g.h_init[q0:q1], g.m_real[q0:q1], g.boundary_m[q0:q1], k,
             g.eq_mode,
         )
+
+    @staticmethod
+    def flagged_pieces(win, g: _Group, pp: PiecePlan, q0, q1, t0, t1,
+                       k: int) -> torch.Tensor:
+        """The suffix prefilter over one chunk's windows (reference
+        batch.py:623-641): the chunk-local ids of the pieces where the
+        last ``g.hier_s`` rows of any pattern q0..q1 alone reach a cost
+        <= k at an owned position, from q2meta's screen bit. Exact: a row
+        suffix never costs more than the whole pattern at the same end.
+        Every piece scans from the plain boundary."""
+        S, n_q = g.hier_s, q1 - q0
+        dev = win.device
+        zeros = torch.zeros((n_q, S), dtype=torch.int32, device=dev)
+        s_vec = torch.full((n_q,), S, dtype=torch.int32, device=dev)
+        meta = myers_cuda.scan_q_meta(
+            win, torch.zeros(t1 - t0, dtype=torch.bool, device=dev),
+            pp.valid_from[t0:t1], pp.valid_to[t0:t1],
+            g.pmasks[q0:q1, -S:].contiguous(), zeros, torch.ones_like(zeros),
+            s_vec, s_vec, k, g.eq_mode,
+        )[3]
+        return torch.nonzero(((meta & 1) != 0).any(dim=1).any(dim=0)).view(-1)
 
     @staticmethod
     def select(outs, g: _Group, pp: PiecePlan, q0, t0, t1, k: int,
@@ -604,6 +650,14 @@ class BatchEngine:
                 carry = torch.zeros((q1 - q0, 1), dtype=torch.int32,
                                     device=self.device)
             win = ts.windows(profile, pp, reverse, t0, t1)
+            saved = ((q1 - q0) * (g.pmasks.shape[1] - g.hier_s) * pp.NW
+                     * (t1 - t0))
+            if g.hier_s and saved >= plan.HIER_MIN_SAVED_PAIRS:
+                cols, carry = self._scan_flagged(win, g, pp, q0, q1, t0, t1,
+                                                 k, all_minima, carry)
+                if cols is not None:
+                    found.append(cols)
+                continue
             outs = self.scan(win, g, pp, q0, q1, t0, t1, k)
             del win
             for s0, s1 in self.select_ranges(g, pp, q1 - q0, t0, t1):
@@ -612,6 +666,31 @@ class BatchEngine:
                                           all_minima, carry)
                 found.append(cols)
         return found
+
+    def _scan_flagged(self, win, g: _Group, pp: PiecePlan, q0, q1, t0, t1,
+                      k: int, all_minima: bool, carry):
+        """One chunk through the suffix prefilter: the full scan and the
+        selection over the flagged pieces only, whose state chain runs
+        over them as neighbours (every owned position of a piece left out
+        costs > k, so no plateau of candidates reaches across it;
+        reference batch.py:643-662). Returns the candidates' columns
+        (None without a flagged piece) and the state carried on: that
+        after the chunk's last piece if it was flagged, else 0, as the
+        state carried in counts only if the chunk's first piece is."""
+        ids = self.flagged_pieces(win, g, pp, q0, q1, t0, t1, k)
+        if ids.numel() == 0:
+            return None, torch.zeros_like(carry)
+        first, last = ids[[0, -1]].tolist()
+        if first != 0:
+            carry = torch.zeros_like(carry)
+        sub = pp.take(t0 + ids)
+        outs = self.scan(win[:, :, ids].contiguous(), g, sub, q0, q1, 0,
+                         sub.T, k)
+        cols, carry = self.select(outs, g, sub, q0, 0, sub.T, k, all_minima,
+                                  carry)
+        if last != t1 - t0 - 1:
+            carry = torch.zeros_like(carry)
+        return cols, carry
 
     def candidates_many(self, profile: Profile, pattern_codes, texts, k: int,
                         alpha=None, max_overhang=None, all_minima=False,

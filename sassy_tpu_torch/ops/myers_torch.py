@@ -17,20 +17,25 @@ Two paths, as in the reference engine:
 - position level (a longer overshoot span): the q1 scan and
   ``minima.select_candidates`` over every position.
 
+Without overhang, a pattern with ``plan.suffix_rows`` > 0 whose suffix
+scan saves at least ``plan.HIER_MIN_SAVED_PAIRS`` (row, word) pairs first
+runs the hierarchical suffix prefilter: q1meta with the pattern's last rows flags the tiles that can
+hold a match, and the word-level path runs on those tiles only.
+
 Device tensors hold uint32 bit words as int32; the plain versions compute
 on int64 values masked to 32 bits (see ``minima.u32``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from .. import semantics
 from ..profiles import Profile, as_bytes_array
-from . import minima, myers_cuda
+from . import minima, myers_cuda, plan
 from .bitpack import WORD_BITS
 from .minima import FULL, i32, u32
 from .plan import (
@@ -335,6 +340,7 @@ class ScanInputs:
     max_pos: int = 0
     W: int = 0
     halo: int = 0
+    hier_s: int = 0  # rows of the suffix prefilter; 0 = off
 
 
 class TorchEngine:
@@ -358,7 +364,8 @@ class TorchEngine:
         tile plan). With overhang, positions run to ``n + steps``; an
         overshoot span of at most three words (``n_prev <= 4``) takes the
         word-level path with one extra tail tile, a longer one the
-        position-level path."""
+        position-level path. Without overhang, ``hier_s`` > 0 asks for
+        the suffix prefilter (reference gate: myers_xla.py:1350-1354)."""
         prep = (text if isinstance(text, PreparedText)
                 else self.prepare(profile, text))
         m = len(pattern_codes)
@@ -395,6 +402,13 @@ class TorchEngine:
         if eq_mode == "iupac" and _masks_pure_np(pmasks, is_pad):
             # ACGT-pure pattern: one plane per row, on every device
             eq_mode = "pure"
+
+        hier_s = 0
+        if alpha is None and profile.eq_mode == "iupac":
+            hier_s = plan.suffix_rows(m, k)
+            saved = (M - hier_s) * (W + halo + 1) * T
+            if not 0 < hier_s < M or saved < plan.HIER_MIN_SAVED_PAIRS:
+                hier_s = 0
 
         dev = self.device
         WB = WORD_BITS
@@ -436,6 +450,38 @@ class TorchEngine:
             all_minima=all_minima, fast=fast, alpha=alpha,
             n_prev=n_prev if tail_word is not None else 0,
             text_end=text_end, n_text=n, max_pos=max_pos, W=W, halo=halo,
+            hier_s=hier_s,
+        )
+
+    def flagged_tiles(self, inp: ScanInputs) -> torch.Tensor:
+        """The suffix prefilter (reference myers_xla.py:779-793): the ids
+        of the tiles where the pattern's last ``hier_s`` rows alone reach
+        a cost <= k at an owned position, from q1meta's screen bit. Exact:
+        a row suffix never costs more than the whole pattern at the same
+        end. Every tile scans from the plain boundary (no text-start
+        state, no pad rows)."""
+        S = inp.hier_s
+        T = inp.windows.shape[2]
+        dev = inp.windows.device
+        zeros = torch.zeros(S, dtype=torch.int32, device=dev)
+        meta = myers_cuda.scan_meta(
+            inp.windows, torch.zeros(T, dtype=torch.bool, device=dev),
+            inp.valid_from, inp.valid_to, inp.pmasks[-S:].contiguous(), zeros,
+            torch.ones_like(zeros), S, S, inp.k, inp.eq_mode,
+        )[3]
+        return torch.nonzero(((meta & 1) != 0).any(dim=0)).view(-1)
+
+    @staticmethod
+    def gather_tiles(inp: ScanInputs, ids: torch.Tensor) -> ScanInputs:
+        """The inputs of the tiles ``ids`` alone, in order, prefilter off.
+        The state chain then runs over these tiles as neighbours: every
+        owned position of a tile left out costs > k, so no plateau of
+        candidates reaches across it (reference myers_xla.py:821-830)."""
+        return replace(
+            inp, windows=inp.windows[:, :, ids].contiguous(),
+            tile0=inp.tile0[ids], text_start=inp.text_start[ids],
+            valid_from=inp.valid_from[ids], valid_to=inp.valid_to[ids],
+            islast=inp.islast[ids], offset=inp.offset[ids], hier_s=0,
         )
 
     def scan(self, inp: ScanInputs):
@@ -479,5 +525,10 @@ class TorchEngine:
         """Sorted [(end position, cost)] of one pattern on one strand."""
         inp = self.build_inputs(profile, pattern_codes, text, k, alpha,
                                 max_overhang, all_minima)
+        if inp.hier_s:
+            ids = self.flagged_tiles(inp)
+            if ids.numel() == 0:
+                return []
+            inp = self.gather_tiles(inp, ids)
         pos, cost = self.select(inp, self.scan(inp)).cpu().tolist()
         return sorted(zip(pos, cost))

@@ -1,8 +1,8 @@
 """Host-side planning: shape bucketing, per-pattern DP inputs, and the
 H100 tile plan.
 
-``_bucket_words``, ``_bucket_rows``, ``_masks_pure_np`` and
-``pattern_inputs_np`` reproduce the numpy helpers of
+``_bucket_words``, ``_bucket_rows``, ``suffix_rows``, ``_masks_pure_np``
+and ``pattern_inputs_np`` reproduce the numpy helpers of
 ``sassy_tpu/ops/myers_xla.py`` (that module imports JAX, this package must
 not); the tests hold them equal to the originals.
 ``plan_tiles`` replaces the TPU planners (``myers_xla._plan`` and
@@ -21,6 +21,8 @@ from .bitpack import WORD_BITS, pattern_plane_masks_np
 __all__ = [
     "TAIL_RESERVE_WORDS",
     "H100_TARGET_TILES",
+    "HIER_MIN_SAVED_PAIRS",
+    "suffix_rows",
     "cdiv",
     "next_pow2",
     "halo_words",
@@ -35,6 +37,21 @@ TAIL_RESERVE_WORDS = 64
 #: One thread scans one tile. 132 SMs x 2048 resident threads, twice over:
 #: enough tiles in flight to fill the card, with a short last wave.
 H100_TARGET_TILES = 2 * 132 * 2048
+
+
+#: The hierarchical suffix prefilter (``suffix_rows`` > 0) runs where the
+#: suffix scan saves the full scan at least this many (pattern row, window
+#: word) pairs: patterns x (rows - suffix rows) x window words of the
+#: single engine's tile plan or of one batched dispatch chunk. Below it the
+#: saving is less than what the prefilter adds: a second launch, the flag
+#: reduction and its host wait, the gather, and a scan of few tiles that
+#: runs at one thread's latency. Measured on an NVIDIA H100 80GB HBM3 at
+#: 700 W (chip_smoke.py, phase 15): one strand's scan and selection took
+#: 10-14 ms with the prefilter against 19-20 ms without at 6.1e9 pairs
+#: saved (160 bp, k=3, 1 GiB), 17-22 against 18-23 ms at 3.4e9 (8 x 72 bp,
+#: k=2, 33,400 reads of 10 kbp), 10-17 against 13-14 ms at 1.7e9 (80 bp,
+#: k=3, 1 GiB), and lost below 1e9.
+HIER_MIN_SAVED_PAIRS = 1 << 32
 
 
 def cdiv(a: int, b: int) -> int:
@@ -55,6 +72,17 @@ def _bucket_words(x: int) -> int:
         if cand >= x:
             return cand
     return p
+
+
+def suffix_rows(m_min: int, k: int) -> int:
+    """Rows of the hierarchical prefilter's pattern suffix; 0 = no
+    prefilter. The suffix must be selective enough that few tiles flag on
+    random text (s >= 8 + 6k, from 8, 16 or 32 rows), and short enough to
+    save at least half the full scan's rows (m >= 2s)."""
+    s = next((c for c in (8, 16, 32) if c >= 8 + 6 * k), 0)
+    if s == 0 or m_min < 2 * s:
+        return 0
+    return s
 
 
 def _bucket_rows(m: int) -> int:

@@ -97,7 +97,8 @@ class Searcher:
     """Approximate string searcher on a PyTorch device.
 
     Args:
-        profile: ``Dna()``, ``Iupac()`` or their names.
+        profile: ``Dna()``, ``Iupac()``, ``Ascii()`` or their names (the
+            name "ascii" also turns ``rc`` off).
         rc: also search the reverse-complement strand.
         alpha: overhang cost per char, in [0, 1] (a profile with
             ``supports_overhang``: Iupac).
@@ -110,12 +111,12 @@ class Searcher:
                  alpha: float | None = None, device="cuda",
                  max_n_frac: float | None = None):
         if isinstance(profile, str):
+            # string alphabets as in the reference Python binding
+            # (python.rs:27-63); ascii has no reverse complement, so rc is
+            # forced off (python.rs:41)
             profile = get_profile(profile)
-        if profile.eq_mode == "ascii":
-            raise NotImplementedError(
-                "the ascii profile is not ported to sassy_tpu_torch yet: "
-                "ROADMAP.md, Queue 1, 'ascii profile'"
-            )
+            if profile.name == "ascii":
+                rc = False
         if alpha is not None:
             self._overhang_check(profile, alpha)
         device = torch.device(device)

@@ -1,8 +1,10 @@
-"""The four CUDA scan kernels against their plain PyTorch versions: q1meta
-and q2meta (and q2meta's pattern slices against q1meta), q1 and q2 (and
-q2's slices against q1); and the port's Searcher on the card, single and
-batched, with and without overhang, against its CPU path and the numpy
-oracle.
+"""The CUDA scan kernels against their plain PyTorch versions: q1meta and
+q2meta (and q2meta's pattern slices against q1meta), q1 and q2 (and q2's
+slices against q1), every built member of the kernel-design family
+(scan_qn, also against q2) and the four row-step ablations (full's vp
+against q1's); and the port's Searcher on the card, single and batched,
+with and without overhang, ascii, and with the suffix prefilter forced
+on, against its CPU path and the numpy oracle.
 
 Marked ``cuda``: every test skips without a CUDA device. On a GPU machine
 without JAX, run them without the repository's conftest (which imports
@@ -325,3 +327,166 @@ def test_batched_position_level_sub_ranges_cuda(cuda, monkeypatch):
     _same(got, want)
     _same(got, RefSearcher("iupac", rc=True, alpha=0.1,
                            engine="numpy").search_many(pats, texts, 10))
+
+
+def _qn_members(M):
+    members = [(U, False, 1) for U in myers_cuda.QN_LOOP_U]
+    if M in myers_cuda.QN_UNROLL_ROWS:
+        members += [(U, True, WU) for U, WU in myers_cuda.QN_UNROLL]
+    return members
+
+
+@pytest.mark.parametrize("M", [24, 64, 40])
+def test_qn_family_equals_plain_and_q2(cuda, M):
+    """Every built iupac member: the rows kept for U = 1, 2, 4, 8 at any
+    M <= 64, unrolled at the built row counts."""
+    Q, NW = 8, 8
+    args = _scan_args(_random_q_inputs("iupac", Q, M, T=1000, NW=NW, seed=M))
+    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    want = myers_cuda.scan_qn_plain(*args)
+    q2 = myers_cuda.scan_q(*dev_args)
+    for U, unroll, WU in _qn_members(M):
+        before = myers_cuda.scan_qn.launches
+        got = myers_cuda.scan_qn(*dev_args, U, unroll, WU)
+        torch.cuda.synchronize()
+        assert myers_cuda.scan_qn.launches == before + 1
+        for name, a, b, c in zip(("vp", "vm", "cost"), got, want, q2):
+            assert torch.equal(a.cpu(), b), (U, unroll, WU, name)
+            assert torch.equal(a, c), (U, unroll, WU, name)
+
+
+@pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
+def test_qn_one_pattern_per_thread_takes_every_eq(cuda, eq_mode):
+    args = _scan_args(_random_q_inputs(eq_mode, 3, 56, T=700, NW=5, seed=9))
+    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    got = myers_cuda.scan_qn(*dev_args)
+    for name, a, b in zip(("vp", "vm", "cost"), got,
+                          myers_cuda.scan_qn_plain(*args)):
+        assert torch.equal(a.cpu(), b), name
+
+
+def test_qn_rejects_what_is_not_built(cuda):
+    args = _scan_args(_random_q_inputs("ascii", 4, 24, T=64, NW=4, seed=1))
+    args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError, match="not built"):
+        myers_cuda.scan_qn(*args, U=2)  # ascii: one pattern per thread only
+    args = _scan_args(_random_q_inputs("iupac", 4, 32, T=64, NW=4, seed=1))
+    args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError, match="not built"):
+        myers_cuda.scan_qn(*args, U=2, unroll=True)  # rows 24 and 64 only
+    with pytest.raises(ValueError, match="WU = 3"):
+        myers_cuda.scan_qn(*args, WU=3)
+
+
+@pytest.mark.parametrize("variant", ["full", "noeq", "nomem", "nostore"])
+@pytest.mark.parametrize("M", [24, 64, 7])
+def test_variant_equals_plain(cuda, variant, M):
+    g = np.random.default_rng(M)
+    as_t = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32))  # noqa: E731
+    win = as_t(g.integers(0, 2**32, (9, 4, 1000), dtype=np.uint64))
+    pm = as_t(g.integers(0, 2**32, (M, 4), dtype=np.uint64))
+    before = myers_cuda.scan_variant.launches
+    got = myers_cuda.scan_variant(win.to(cuda), pm.to(cuda), variant)
+    torch.cuda.synchronize()
+    assert myers_cuda.scan_variant.launches == before + 1
+    assert torch.equal(got.cpu(), myers_cuda.scan_variant_plain(win, pm,
+                                                               variant))
+    if variant == "full":
+        zeros = torch.zeros(M, dtype=torch.int32, device=cuda)
+        vp = myers_cuda.scan(
+            win.to(cuda), torch.zeros(1000, dtype=torch.bool, device=cuda),
+            pm.to(cuda), zeros, torch.ones_like(zeros), M, M, "iupac")[0]
+        assert torch.equal(got, vp)
+
+
+@pytest.mark.parametrize("case_sensitive", [True, False])
+def test_ascii_search_cuda_equals_cpu_and_oracle(cuda, case_sensitive):
+    from sassy_tpu import profiles as ref_profiles
+
+    rng = np.random.default_rng(3)
+    text = rng.integers(32, 127, 40_000).astype(np.uint8)
+    text[rng.integers(0, len(text), 50)] = 0xFF
+    pat = np.frombuffer(b"Needle in a Haystack", np.uint8)
+    text[100:120] = pat
+    text[20_000:20_020] = np.frombuffer(b"needle in a haystack", np.uint8)
+    text[39_980:] = np.frombuffer(b"Needle in\xffa Haystack", np.uint8)
+    prof = profiles.Ascii(case_sensitive=case_sensitive)
+    ref = RefSearcher(ref_profiles.Ascii(case_sensitive=case_sensitive),
+                      engine="numpy")
+    gpu, cpu = Searcher(prof, device="cuda"), Searcher(prof, device="cpu")
+    before = myers_cuda.scan_meta.launches
+    on_card = {fn: getattr(gpu, fn)(pat, text, 2)
+               for fn in ("search", "search_all")}
+    assert myers_cuda.scan_meta.launches == before + 2
+    for method, got in on_card.items():
+        assert len(got) >= 2 + (not case_sensitive)
+        _same(got, getattr(cpu, method)(pat, text, 2))
+        _same(got, getattr(ref, method)(pat, text, 2))
+    texts = [text[:3000], text[19_000:23_000], text[39_000:], b"needle"]
+    pats = [pat, np.frombuffer(b"HAYSTACK", np.uint8)]
+    before = myers_cuda.scan_q_meta.launches
+    got = gpu.search_many(pats, texts, 2)
+    # one launch per row bucket (20 and 8 bytes)
+    assert myers_cuda.scan_q_meta.launches == before + 2 and got
+    _same(got, cpu.search_many(pats, texts, 2))
+    _same(got, ref.search_many(pats, texts, 2))
+
+
+def test_single_prefilter_cuda_equals_cpu_and_oracle(cuda, monkeypatch):
+    rng = np.random.default_rng(8)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    text = rng.choice(bases, 120_000)
+    pat = rng.choice(bases, 80)
+    mut = pat.copy()
+    mut[30] = ord("A") if mut[30] != ord("A") else ord("C")
+    rc = np.frombuffer(profiles.Iupac().reverse_complement(pat), np.uint8)
+    for off, seq in ((0, pat), (511 * 2, mut), (60_000, rc), (119_920, mut)):
+        text[off : off + 80] = seq
+    gpu = Searcher("iupac", rc=True, device="cuda")
+    off_ = gpu.search(pat, text, 3)
+    monkeypatch.setattr(plan, "HIER_MIN_SAVED_PAIRS", 0)
+    before = myers_cuda.scan_meta.launches
+    on_card = {fn: getattr(gpu, fn)(pat, text, 3)
+               for fn in ("search", "search_all")}
+    assert myers_cuda.scan_meta.launches == before + 8  # suffix + flagged
+    _same(on_card["search"], off_)
+    monkeypatch.setattr(plan, "HIER_MIN_SAVED_PAIRS", 1 << 62)
+    for method, on in on_card.items():
+        assert len(on) >= 4
+        _same(on, getattr(Searcher("iupac", rc=True, device="cpu"), method)(
+            pat, text, 3))
+        _same(on, getattr(RefSearcher("iupac", rc=True, engine="numpy"),
+                          method)(pat, text, 3))
+    monkeypatch.setattr(plan, "HIER_MIN_SAVED_PAIRS", 0)
+    # no flagged tile: no second launch
+    before = myers_cuda.scan_meta.launches
+    assert gpu.search(pat, rng.choice(bases, 30_000), 3) == []
+    assert myers_cuda.scan_meta.launches == before + 2
+
+
+def test_batched_prefilter_cuda_equals_cpu_and_oracle(cuda, monkeypatch):
+    rng = np.random.default_rng(12)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pats = [rng.choice(bases, 72 - q) for q in range(3)]
+    texts = [rng.choice(bases, int(n)) for n in rng.integers(50, 6000, 14)]
+    rc = lambda p: np.frombuffer(  # noqa: E731
+        profiles.Iupac().reverse_complement(p), np.uint8)
+    for i, t in enumerate(texts):
+        if len(t) > 200 and i % 3:
+            p = pats[i % 3].copy()
+            p[9] = ord("A") if p[9] != ord("A") else ord("C")
+            t[len(t) - 100 - len(p) : len(t) - 100] = p if i % 2 else rc(p)
+    gpu = Searcher("iupac", rc=True, device="cuda")
+    off_ = gpu.search_many(pats, texts, 2)
+    monkeypatch.setattr(plan, "HIER_MIN_SAVED_PAIRS", 0)
+    monkeypatch.setattr(plan, "H100_TARGET_TILES", 3 * 200)
+    before = myers_cuda.scan_q_meta.launches
+    on = gpu.search_many(pats, texts, 2)
+    assert myers_cuda.scan_q_meta.launches == before + 4  # suffix + flagged
+    assert len(on) >= 4
+    _same(on, off_)
+    monkeypatch.setattr(plan, "HIER_MIN_SAVED_PAIRS", 1 << 62)
+    _same(on, Searcher("iupac", rc=True, device="cpu").search_many(
+        pats, texts, 2))
+    _same(on, RefSearcher("iupac", rc=True, engine="numpy").search_many(
+        pats, texts, 2))

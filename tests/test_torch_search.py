@@ -196,11 +196,3 @@ def test_batched_entry_points_equal_oracle(call):
     got = call(Searcher("iupac", rc=True, device="cpu"))
     assert got
     _same(got, call(RefSearcher("iupac", rc=True, engine="numpy")))
-
-
-@pytest.mark.parametrize("call", [
-    lambda s: Searcher("ascii", device="cpu"),
-])
-def test_unported_entry_points_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(Searcher("iupac", rc=True, device="cpu"))
