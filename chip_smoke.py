@@ -105,7 +105,39 @@ the CUDA toolkit. Phases:
    timed in turns, also for a 160 bp pattern; the batched path at the
    nanopore shape with 8 x 72 bp at k=2 (32 suffix rows), on and off,
    equal Match lists, one strand's phases timed, and its dispatch with
-   and without the prefilter in turns, also over fewer reads.
+   and without the prefilter in turns, also over fewer reads;
+16. bench.py's loop on the port: 1 GiB of random ACGT on the card with a
+   23 bp pattern planted three times with one substitution,
+   TorchEngine.prepare, a warm candidates, the best of 5 sequential
+   candidates and 8 depth-2 pipelined candidates_async calls (sequential
+   and pipelined GB/s); every list holds the planted ends and the
+   pipelined lists equal the sequential one; candidates_async returns
+   before its dispatch ends; q1meta only;
+17. the command line on the card, in subprocesses (`cli_child`: a command
+   as `python -m sassy_tpu_torch ...` runs it, or several through
+   `sassy_tpu_torch.cli.main`, each with the kernels' launch counts read
+   and a check that neither JAX nor the reference package was imported):
+   (a) crispr at evals/configs/off_targets.toml's
+   shape, 32 guides of 20 random bases + NGG at k=3 over a 128 Mbp FASTA
+   of 4 contigs (each with a run of 10,000 N), one guide copy with one
+   substitution every 1 Mbp on alternating strands, every 4th with its PAM
+   broken: every intact copy in the TSV with its cost and CIGAR and no
+   broken one, then with --allow-pam-edits the broken ones too; (b)
+   search at evals/configs/nanopore.toml's shape, 96 barcodes of 24 bp at
+   k=3 over 6,400 reads of 10 kbp with one copy planted per read, every
+   copy in the TSV; the runs of (a) and (b) with their wall split into
+   dispatch, waits for the device, filters and traceback, and the
+   device's busy share; (c) search, search --sam, search --overhang 0.5,
+   grep, filter -v and agrep on a 32-read subset (and 1 MB of printable
+   text), --device cuda and --device cpu equal byte for byte on stdout
+   and stderr; (d) (b) with --resume, killed after
+   its fourth unit (exit 130) and rerun: the TSV equals an uninterrupted
+   run's; (e) test;
+18. GenomeScan over (a)'s genome with one guide, 2^24-char segments with
+   an m + k halo, checkpointed: its rows equal Searcher.search over each
+   whole contig, and with the Searcher kept alive the device memory after
+   the scan is within 64 MiB of its value before (each segment is a fresh
+   array, and its prepared texts go with it).
 
 The script imports neither JAX nor anything of the reference package.
 
@@ -116,10 +148,18 @@ non-zero without that line.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+#: bound_ms and bound_by of one scan launch (the kernels line): the H100
+#: bound of PERF.md section 6, kept in the package beside cost_model
+from sassy_tpu_torch.diagnostics import scan_bound as bound
 
 DEVICE = "cuda"
 SEED = 0
@@ -138,7 +178,7 @@ PLANT_AT = 5_000
 #: phase 5's pattern batch, phase 6's reads checked on the CPU path, and
 #: phase 7's pairs
 Q_KERNEL = 8
-READS_CPU = 256
+READS_CPU = 64
 Q_SINGLE = 4
 READS_SINGLE = 200
 #: the planted copies' one edit: a substitution at this pattern index
@@ -173,27 +213,37 @@ HIER_TURNS = 3
 HIER_REPS = 5
 #: a gate that no plan reaches: the prefilter forced off
 NEVER = 1 << 62
+#: phase 16: bench.py's sequential runs and pipelined calls
+BENCH_SEQ = 5
+BENCH_PIPE = 8
+#: phase 17a: crispr at evals/configs/off_targets.toml's shape: guides,
+#: contigs of the genome, a guide copy every CRISPR_EVERY bp, a run of
+#: CRISPR_N_RUN 'N' per contig, k
+CRISPR_GUIDES = 32
+CRISPR_CONTIGS = 4
+CRISPR_CONTIG_BP = 32_000_000
+CRISPR_EVERY = 1_000_000
+CRISPR_N_RUN = 10_000
+CRISPR_K = 3
+#: phase 17b-d: the reads of evals/configs/nanopore.toml (64 Mbp), the
+#: subset run on both devices, the bytes of printable text for agrep, and
+#: the resume run's batch bytes and the unit it is killed after
+CLI_READS = 6_400
+CLI_SUBSET = 32
+AGREP_BYTES = 1 << 20
+RESUME_BATCH = 4 << 20
+RESUME_CRASH = 3
+#: phase 18: GenomeScan's segment, and how far the device memory after the
+#: scan may lie from its value before
+SEGMENT = 1 << 24
+SCAN_MEM_SLACK = 64 << 20
 
-#: the least time of a scan kernel (the bound_ms of the kernels line): the
-#: larger of its bytes over the H100's 3.35 TB/s and its integer ALU-pipe
-#: instructions over that pipe's rate, 132 SMs x 64 lanes x 1.98 GHz (the
-#: SXM part's boost clock; half the issue rate, while IMAD issues to the
-#: FMA pipe and the U* instructions to the uniform datapath). ROW_OPS, per
-#: (pattern row, window word): the ALU-pipe instructions of scan_rows' loop
-#: (csrc/myers_step.cuh) in the SASS nvcc 12.8 builds for sm_90a, counted by
-#: `python -m sassy_tpu_torch.tools.sass_count`, the largest over q1meta,
-#: q2meta and q2 and both carry layouts; q1's loop is within 0.75 of them
-#: (all instructions per row: pure 33.5, iupac 28.75, ascii 34.75). A
-#: count from the source, two bitwise operations on three inputs taken as
-#: one LOP3, gave pure 21, iupac 23, ascii 28. WORD_OPS, per (pattern,
-#: window word) outside the rows, from
-#: the source: the two popcounts and the cost update (4), with the
-#: selection metadata also the owned mask, state code and screen (20 more);
-#: the ablations keep one popcount and one add (2).
-MEM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-ROW_OPS = {"pure": 24.25, "iupac": 22.75, "ascii": 27.25}
-WORD_OPS = {False: 4, True: 24}
+ROOT = Path(__file__).resolve().parent
+#: phase 17-18's files (build/ is not committed)
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+#: the subprocess of run_cli
+_CLI_CHILD = ("import sys, chip_smoke; "
+              "sys.exit(chip_smoke.cli_child(sys.argv[1]))")
 
 
 def fail(msg: str):
@@ -227,25 +277,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound(eq_mode: str, Q: int, M: int, windows_shape, meta: bool,
-          vp_only: bool = False) -> dict:
-    """bound_ms and bound_by of one scan launch: Q patterns of M rows
-    (pad rows included: the kernel scans them) over (NW, P, T) windows.
-    Bytes: the windows read once, the outputs written once (vp, vm, cost
-    and, with meta, meta and final; ``vp_only``: the ablations' one word
-    per window word, and no text-start flags)."""
-    NW, P, T = windows_shape
-    word_ops = 2 if vp_only else WORD_OPS[meta]
-    n_out = 1 if vp_only else 4 if meta else 3
-    ops = Q * NW * T * (M * ROW_OPS[eq_mode] + word_ops)
-    nbytes = 4 * (NW * P * T + Q * NW * T * n_out
-                  + (Q * T if meta else 0)) + (0 if vp_only else T)
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def counts_zero():
@@ -459,13 +490,13 @@ def against_cpu(text, pattern):
                 fail(f"{fn} k={k} differs from the CPU path")
 
 
-def nanopore_reads(gen):
-    """Phase 6's read set: (N_READS, READ_LEN) uint8 random ACGT, the
+def nanopore_reads(gen, n_reads: int = N_READS):
+    """Phase 6's read set: (n_reads, READ_LEN) uint8 random ACGT, the
     barcodes, and one mutated barcode copy planted in every read."""
     import numpy as np
 
-    reads = random_acgt(gen, N_READS * READ_LEN).cpu().numpy().reshape(
-        N_READS, READ_LEN)
+    reads = random_acgt(gen, n_reads * READ_LEN).cpu().numpy().reshape(
+        n_reads, READ_LEN)
     barcodes = random_acgt(gen, N_BARCODES * BARCODE_LEN).cpu().numpy()
     barcodes = barcodes.reshape(N_BARCODES, BARCODE_LEN)
     mutated = barcodes.copy()
@@ -474,7 +505,7 @@ def nanopore_reads(gen):
     comp = np.arange(256, dtype=np.uint8)
     comp[list(b"ACGT")] = list(b"TGCA")
     rc_mutated = comp[mutated[:, ::-1]]
-    i = np.arange(N_READS)
+    i = np.arange(n_reads)
     site = slice(PLANT_AT, PLANT_AT + BARCODE_LEN)
     reads[0::2, site] = mutated[i[0::2] % N_BARCODES]
     reads[1::2, site] = rc_mutated[i[1::2] % N_BARCODES]
@@ -1600,6 +1631,577 @@ def hier_batched(gen, reads):
     plan.HIER_MIN_SAVED_PAIRS = default
 
 
+def bench_loop(gen):
+    """Phase 16: bench.py's loop (bench.py:104-159) on the port."""
+    import torch
+
+    from sassy_tpu_torch import profiles
+    from sassy_tpu_torch.ops.myers_torch import TorchEngine
+
+    n = N_TEXT
+    text = random_acgt(gen, n)
+    pattern = random_acgt(gen, PATTERN_LEN).cpu().numpy()
+    planted = pattern.copy()
+    planted[MUT_AT] = ord("A") if planted[MUT_AT] != ord("A") else ord("C")
+    ends = [off + PATTERN_LEN for off in (12345, n // 2, n - 5000)]
+    for end in ends:
+        text[end - PATTERN_LEN : end] = torch.from_numpy(planted).to(DEVICE)
+    iupac = profiles.Iupac()
+    pcodes = iupac.encode(pattern)
+    eng = TorchEngine(DEVICE)
+
+    def run():
+        return eng.candidates(iupac, pcodes, prep, K, None, None, False)
+
+    counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prep = eng.prepare(iupac, text)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cands = run()
+    warm = time.perf_counter() - t0
+    if not set(ends) <= {e for e, _ in cands}:
+        fail(f"phase 16: planted ends {ends} not all among {cands[:10]}")
+    best = float("inf")
+    for _ in range(BENCH_SEQ):
+        t0 = time.perf_counter()
+        got = run()
+        best = min(best, time.perf_counter() - t0)
+        if got != cands:
+            fail("phase 16: a sequential candidates list differs")
+
+    def start():
+        return eng.candidates_async(iupac, pcodes, prep, K, None, None, False)
+
+    results = []
+    t0 = time.perf_counter()
+    prev = start()
+    t_return = time.perf_counter() - t0
+    # finish() is the dispatch's Future.result: not done yet at the return
+    pending = not prev.__self__.done()
+    for _ in range(BENCH_PIPE - 1):
+        nxt = start()
+        results.append(prev())
+        prev = nxt
+    results.append(prev())
+    pipe = (time.perf_counter() - t0) / BENCH_PIPE
+    launched = counts()
+    log(f"phase 16: TorchEngine({DEVICE!r}) over {n >> 20} MiB, "
+        f"{PATTERN_LEN} bp at k={K}: prepare {t_prep:.3f} s, warm "
+        f"candidates {warm:.3f} s "
+        f"({len(cands)} candidates), best of {BENCH_SEQ} sequential "
+        f"{best * 1e3:.2f} ms = {n / best / 1e9:.2f} GB/s, {BENCH_PIPE} "
+        f"depth-2 pipelined calls {pipe * 1e3:.2f} ms each = "
+        f"{n / pipe / 1e9:.2f} GB/s; candidates_async returned in "
+        f"{t_return * 1e3:.3f} ms, its dispatch then pending={pending}; "
+        f"launches {launched}")
+    if any(r != cands for r in results):
+        fail("phase 16: a pipelined candidates list differs from the "
+             "sequential one")
+    if not pending:
+        fail("phase 16: candidates_async returned after its dispatch ended")
+    if launched["q1meta"] != 1 + BENCH_SEQ + BENCH_PIPE:
+        fail(f"phase 16: q1meta launched {launched['q1meta']} times")
+    require(launched, ("q1meta",), ("q1", "q2", "q2meta", "qn", "variants"),
+            "phase 16")
+    return launched["q1meta"]
+
+
+def write_fasta(path: Path, names, seqs, width: int = 0) -> None:
+    """FASTA of uint8 rows (or bytes), lines of ``width`` chars (0: one)."""
+    import numpy as np
+
+    with open(path, "wb") as fh:
+        for name, seq in zip(names, seqs):
+            fh.write(b">" + name.encode() + b"\n")
+            seq = np.frombuffer(bytes(seq), np.uint8)
+            if width and len(seq) % width == 0:
+                lines = np.concatenate(
+                    [seq.reshape(-1, width),
+                     np.full((len(seq) // width, 1), 10, np.uint8)], axis=1)
+                fh.write(lines.tobytes())
+            else:
+                fh.write(seq.tobytes() + b"\n")
+
+
+@contextlib.contextmanager
+def split_times(acc: dict):
+    """Time one CLI run's parts into ``acc``: the TextSet and dispatch
+    calls, the host's waits for the dispatch thread (the engines'
+    finish()), ``Searcher._postprocess`` (the end-position and N filters
+    and the traceback) and the candidates it was given, the traceback
+    alone, the wall, and the device's busy time (the CUDA kernels
+    torch.profiler sees)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sassy_tpu_torch import search
+    from sassy_tpu_torch.ops import batch
+
+    acc.update(dict.fromkeys(("dispatch", "wait", "postprocess",
+                              "traceback"), 0.0), candidates=0)
+    restore = []
+
+    def timed(owner, name, key, on_result=None, count=None):
+        fn = getattr(owner, name)
+        restore.append((owner, name, fn))
+
+        def wrapper(*a, **kw):
+            if count:
+                acc["candidates"] += count(*a)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            acc[key] += time.perf_counter() - t0
+            return on_result(out) if on_result else out
+        setattr(owner, name, wrapper)
+
+    def timed_finish(finish):
+        def waited():
+            t0 = time.perf_counter()
+            out = finish()
+            acc["wait"] += time.perf_counter() - t0
+            return out
+        return waited
+
+    timed(batch.TextSet, "__init__", "dispatch")
+    timed(batch.BatchEngine, "candidates_many_async", "dispatch",
+          timed_finish)
+    timed(search.Searcher, "_postprocess", "postprocess",
+          count=lambda _self, _pat, _codes, _text, _k, cands, *a: len(cands))
+    timed(search, "trace_candidates_batch", "traceback")
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        with prof:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                torch.cuda.synchronize()
+                acc["wall"] = time.perf_counter() - t0
+    finally:  # the run ends in SystemExit, as python -m does
+        for owner, name, fn in restore:
+            setattr(owner, name, fn)
+        acc["busy"] = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation) / 1e6
+
+
+def run_main(commands, split: bool = False) -> list[dict]:
+    """Each command through ``sassy_tpu_torch.cli.main`` in this process,
+    its stdout and stderr captured: exit code, launch counts, output and,
+    with ``split``, its ``split_times``."""
+    import io
+
+    from sassy_tpu_torch import cli
+
+    runs = []
+    for argv in commands:
+        out, err, times = io.StringIO(), io.StringIO(), {}
+        counts_zero()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                with (split_times(times) if split
+                      else contextlib.nullcontext()):
+                    code = cli.main([str(a) for a in argv])
+            except SystemExit as e:
+                code = e.code
+        runs.append({"rc": code, "launched": counts(),
+                     "stdout": out.getvalue(), "stderr": err.getvalue(),
+                     "split": times})
+    return runs
+
+
+def cli_child(spec_path: str):
+    """The subprocess side of ``run_cli``. Mode "module": the one command
+    as ``python -m sassy_tpu_torch`` runs it (runpy.run_module), on this
+    process's stdout and stderr; mode "main": ``run_main``. Either with
+    ``split_times`` if the spec asks. Writes each run's record, and any
+    module of JAX or the reference package, to the spec's result file;
+    returns the last exit code."""
+    import runpy
+
+    spec = json.loads(Path(spec_path).read_text())
+    result = {"runs": []}
+    code = 0
+    try:
+        if spec["mode"] == "module":
+            (argv,) = spec["commands"]
+            sys.argv = ["sassy_tpu_torch", *argv]
+            counts_zero()
+            times = {}
+            try:
+                with (split_times(times) if spec["split"]
+                      else contextlib.nullcontext()):
+                    runpy.run_module("sassy_tpu_torch", run_name="__main__",
+                                     alter_sys=True)
+            except SystemExit as e:
+                code = e.code
+            result["runs"].append({"rc": code, "launched": counts(),
+                                   "split": times})
+        else:
+            result["runs"] = run_main(spec["commands"], spec["split"])
+    finally:
+        result["imported"] = sorted(
+            m for m in sys.modules if m in ("jax", "sassy_tpu")
+            or m.startswith(("jax.", "sassy_tpu.")))
+        Path(spec["result"]).write_text(json.dumps(result))
+    return code
+
+
+def run_cli(what: str, commands, mode: str = "module", expect: int = 0,
+            env=None, split: bool = False):
+    """Run ``commands`` (argument lists of ``python -m sassy_tpu_torch``)
+    in one subprocess through ``cli_child``. Returns the process, its
+    result record and its wall seconds; fails on another exit code, a
+    command of mode "main" that did not exit 0, or an import of JAX or the
+    reference package."""
+    spec, result = CLI_DIR / "spec.json", CLI_DIR / "result.json"
+    result.unlink(missing_ok=True)
+    spec.write_text(json.dumps({
+        "mode": mode, "split": split, "result": str(result),
+        "commands": [[str(a) for a in c] for c in commands]}))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_CHILD, str(spec)], cwd=ROOT,
+        env=dict(os.environ, **(env or {})), capture_output=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != expect:
+        fail(f"{what}: exit {proc.returncode} (want {expect}): "
+             f"{proc.stderr.decode(errors='replace')[-3000:]}")
+    got = json.loads(result.read_text())
+    if got["imported"]:
+        fail(f"{what}: JAX or the reference package was imported: "
+             f"{got['imported']}")
+    bad = [r["rc"] for r in got["runs"] if mode == "main" and r["rc"]]
+    if bad:
+        fail(f"{what}: a command exited {bad}")
+    return proc, got, seconds
+
+
+def require_cli(what: str, launched: dict, used: tuple) -> None:
+    require(launched, used, tuple(k for k in launched if k not in used),
+            what, least=1)
+
+
+def parse_time(fasta: Path) -> tuple[int, float]:
+    """Records in ``fasta`` and the seconds to parse them alone."""
+    from sassy_tpu_torch.io import fastx
+
+    t0 = time.perf_counter()
+    n_recs = sum(1 for _ in fastx.read_fastx(str(fasta)))
+    return n_recs, time.perf_counter() - t0
+
+
+def log_split(what: str, s: dict, parsed: tuple[int, float]) -> None:
+    """Log a run's ``split_times``, beside the parse of its input alone."""
+    wall, busy = s["wall"], s["busy"]
+    share = (f"device busy {busy:.3f} s = {busy / wall:.2%} of the wall, "
+             f"idle {1 - busy / wall:.2%}" if busy else
+             "device busy time not measured (the profiler saw no kernel)")
+    log(f"{what}: split (profiled): wall {wall:.3f} s from the CLI's start; "
+        f"the parse of the {parsed[0]} records alone {parsed[1]:.3f} s (on "
+        f"the reader thread in the run); TextSet and dispatch calls "
+        f"{s['dispatch']:.3f} s, host waits for the dispatch thread "
+        f"{s['wait']:.3f} s, filters and traceback {s['postprocess']:.3f} s "
+        f"over {s['candidates']} candidates (the traceback "
+        f"{s['traceback']:.3f} s), the rest (waits for the "
+        f"reader, formatting, writing) "
+        f"{wall - s['dispatch'] - s['wait'] - s['postprocess']:.3f} s; "
+        f"{share}")
+
+
+def crispr_genome(gen):
+    """Phase 17a's guides and genome; returns (guides, genome path,
+    plants): a plant is (guide index, contig name, start, strand, intact)."""
+    import numpy as np
+
+    spacers = random_acgt(gen, CRISPR_GUIDES * 20).cpu().numpy().reshape(
+        CRISPR_GUIDES, 20)
+    guides = [bytes(s) + b"NGG" for s in spacers]
+    genome = random_acgt(gen, CRISPR_CONTIGS * CRISPR_CONTIG_BP).cpu()
+    genome = genome.numpy().reshape(CRISPR_CONTIGS, CRISPR_CONTIG_BP)
+    names = [f"chr{c + 1}" for c in range(CRISPR_CONTIGS)]
+    plants = []
+    rc = _rc_table()
+    sites = [(j, off // CRISPR_CONTIG_BP, off % CRISPR_CONTIG_BP)
+             for j, off in enumerate(range(CRISPR_EVERY // 2,
+                                           genome.size, CRISPR_EVERY))]
+    # and one copy across GenomeScan's first segment boundary
+    sites.append((len(sites) * 2, 0, SEGMENT - 11))
+    for j, c, at in sites:
+        g = j % CRISPR_GUIDES
+        spacer = bytearray(spacers[g].tobytes())
+        spacer[MUT_AT] = ord("A") if spacer[MUT_AT] != ord("A") else ord("C")
+        intact = j % 4 != 3
+        seq = np.frombuffer(bytes(spacer) + (b"TGG" if intact else b"TCA"),
+                            np.uint8)
+        strand = "+" if j % 2 == 0 else "-"
+        genome[c, at : at + 23] = seq if strand == "+" else rc(seq)
+        plants.append((g, names[c], at, strand, intact))
+    for c in range(CRISPR_CONTIGS):  # between two copies
+        at = (c + 1) * CRISPR_CONTIG_BP // 6 + CRISPR_EVERY // 4
+        genome[c, at : at + CRISPR_N_RUN] = ord("N")
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    path = CLI_DIR / "genome.fa"
+    write_fasta(path, names, genome, width=80)
+    (CLI_DIR / "guides.txt").write_bytes(b"\n".join(guides) + b"\n")
+    return guides, path, plants
+
+
+def tsv_rows(text: bytes) -> list[list[str]]:
+    return [r.split("\t") for r in text.decode().splitlines()
+            if "\t" in r][1:]
+
+
+def cli_crispr(gen):
+    """Phase 17a. Returns (guides, genome path, plants) for phase 18."""
+    guides, genome, plants = crispr_genome(gen)
+    want_cigar = f"{MUT_AT}=1X{22 - MUT_AT}="
+    args = ["crispr", "-g", CLI_DIR / "guides.txt", "-k", CRISPR_K,
+            "--max-n-frac", "0.2"]
+    out = {e: CLI_DIR / f"crispr_{e}.tsv" for e in (False, True)}
+    _, got, wall = run_cli("phase 17a", [
+        args + ["-o", out[False], genome],
+        args + ["--allow-pam-edits", "-o", out[True], genome]],
+        mode="main", split=True)
+    parsed = parse_time(genome)
+    log(f"phase 17a: both crispr runs in one process: {wall:.3f} s")
+    for edits, run in zip((False, True), got["runs"]):
+        launched = run["launched"]
+        took = [ln for ln in run["stdout"].splitlines() if "Time taken" in ln]
+        rows = tsv_rows(out[edits].read_bytes())
+        log(f"phase 17a: crispr, {CRISPR_GUIDES} guides, "
+            f"{CRISPR_CONTIGS} x {CRISPR_CONTIG_BP} bp, k={CRISPR_K}, "
+            f"allow-pam-edits={edits}: {len(rows)} rows, "
+            f"{took[0].strip() if took else 'no Time taken line'}, "
+            f"launches {launched}")
+        log_split(f"phase 17a: crispr, allow-pam-edits={edits}",
+                  run["split"], parsed)
+        require_cli("phase 17a", launched, ("q2meta",))
+        by_site, shifted = {}, 0
+        for r in rows:
+            by_site.setdefault((r[0], r[1]), []).append(r)
+        for g, contig, at, strand, intact in plants:
+            gs = guides[g].decode()
+            near = [r for r in by_site.get((gs, contig), [])
+                    if int(r[4]) < at + 23 and int(r[5]) > at
+                    and r[3] == strand]
+            if intact:
+                exact = [r for r in near if r[2:6] == [
+                    "1", strand, str(at), str(at + 23)]
+                    and r[7] == want_cigar]
+                if len(exact) != 1:
+                    fail(f"phase 17a: intact copy of guide {g} at {contig}:"
+                         f"{at} ({strand}): rows {near}")
+                continue
+            if edits:
+                if not near:
+                    fail(f"phase 17a: broken-PAM copy of guide {g} at "
+                         f"{contig}:{at} missing with --allow-pam-edits")
+                continue
+            # the copy's own end is its broken PAM; an alignment that
+            # reaches past it to a 'GG' in the flank is a genuine site
+            at_pam = [r for r in near
+                      if int(r[5] if strand == "+" else r[4])
+                      == (at + 23 if strand == "+" else at)]
+            shifted += len(near) - len(at_pam)
+            if at_pam:
+                fail(f"phase 17a: broken-PAM copy of guide {g} at {contig}:"
+                     f"{at} reported: {at_pam}")
+        n_intact = sum(p[4] for p in plants)
+        log(f"phase 17a: all {n_intact} intact copies found with cost 1 and "
+            f"cigar {want_cigar}; the {len(plants) - n_intact} broken-PAM "
+            + ("copies found too" if edits else "copies absent")
+            + ("" if edits else f" ({shifted} rows over a broken copy end "
+               "past its PAM)"))
+    return guides, genome, plants
+
+
+def agrep_text(path: Path) -> bytes:
+    """Phase 17c's 1 MB of printable text in lines of 100, with copies of a
+    phrase (one substitution; every third also one deletion); returns the
+    phrase."""
+    import numpy as np
+
+    text = np.random.default_rng(SEED).integers(32, 127, AGREP_BYTES,
+                                                 dtype=np.uint8)
+    text[99::100] = ord("\n")
+    phrase = b"approximate string matching"
+    for j, at in enumerate(range(5_000, AGREP_BYTES - 100, 97_003)):
+        seq = bytearray(phrase)
+        seq[j % len(seq)] = ord("#")
+        if j % 3 == 1:
+            del seq[3]
+        text[at : at + len(seq)] = np.frombuffer(bytes(seq), np.uint8)
+    path.write_bytes(text.tobytes())
+    return phrase
+
+
+def cli_search(gen):
+    """Phase 17b-e."""
+    reads, barcodes = nanopore_reads(gen, CLI_READS)
+    names = [f"read{i}" for i in range(CLI_READS)]
+    fa = CLI_DIR / "reads.fa"
+    write_fasta(fa, names, reads)
+    write_fasta(CLI_DIR / "barcodes.fa",
+                [f"bc{q}" for q in range(N_BARCODES)], barcodes)
+    search = ["search", "-f", CLI_DIR / "barcodes.fa", "-k", K]
+
+    # (b) every planted copy, at the default batch bytes
+    out_b = CLI_DIR / "b.tsv"
+    _, got, wall = run_cli("phase 17b", [search + ["-o", out_b, fa]],
+                           split=True)
+    launched = got["runs"][0]["launched"]
+    rows = {tuple(r) for r in tsv_rows(out_b.read_bytes())}
+    log(f"phase 17b: search, {N_BARCODES} x {BARCODE_LEN} bp over "
+        f"{CLI_READS} x {READ_LEN} bp, k={K}: {len(rows)} rows, process "
+        f"wall {wall:.3f} s, launches {launched}")
+    log_split("phase 17b: search", got["runs"][0]["split"], parse_time(fa))
+    require_cli("phase 17b", launched, ("q2meta",))
+    want_cigar = f"{MUT_AT}=1X{BARCODE_LEN - MUT_AT - 1}="
+    for i in range(CLI_READS):
+        mutated = bytearray(barcodes[i % N_BARCODES].tobytes())
+        mutated[MUT_AT] = ord("A") if mutated[MUT_AT] != ord("A") else ord("C")
+        row = (f"bc{i % N_BARCODES}", names[i], "1", "+-"[i % 2],
+               str(PLANT_AT), str(PLANT_AT + BARCODE_LEN), mutated.decode(),
+               want_cigar)
+        if row not in rows:
+            fail(f"phase 17b: planted copy missing: {row}")
+    log(f"phase 17b: all {CLI_READS} planted copies in the TSV with cost 1 "
+        f"and cigar {want_cigar}")
+
+    # (c) the card against the CPU, byte for byte: the six commands, then
+    # (e) test and (d)'s run without interruption, in one process on the
+    # card, through sassy_tpu_torch.cli.main; the six on the CPU in this
+    # process
+    sub = CLI_DIR / "subset.fa"
+    write_fasta(sub, names[:CLI_SUBSET], reads[:CLI_SUBSET])
+    phrase = agrep_text(CLI_DIR / "text.txt")
+    cases = {
+        "search": search + [sub],
+        "search --sam": search + ["--sam", sub],
+        "search --overhang 0.5": search + ["--overhang", "0.5", sub],
+        "grep": ["grep", "-f", CLI_DIR / "barcodes.fa", "-k", K, sub],
+        "filter -v": ["filter", "-v", "-p", barcodes[0].tobytes().decode(),
+                      "-k", K, sub],
+        "agrep": ["agrep", phrase.decode(), "3", CLI_DIR / "text.txt"],
+    }
+    flags = search + ["--batch-bytes", RESUME_BATCH]
+    full = CLI_DIR / "d_full.tsv"
+    _, card, t_card = run_cli(
+        "phase 17c (card)", [["--device", "cuda"] + a for a in cases.values()]
+        + [["test"], flags + ["-o", full, fa]], mode="main")
+    t0 = time.perf_counter()
+    cpu = run_main([["--device", "cpu"] + a for a in cases.values()])
+    t_cpu = time.perf_counter() - t0
+    log(f"phase 17c: the six commands, test and (d)'s run in one process on "
+        f"the card {t_card:.3f} s; the six on the CPU {t_cpu:.3f} s")
+    for name, a, b in zip(cases, card["runs"], cpu):
+        require_cli(f"phase 17c {name} (card)", a["launched"], ("q2meta",))
+        require_cli(f"phase 17c {name} (cpu)", b["launched"], ())
+        same = (a["stdout"], a["stderr"], a["rc"]) == (
+            b["stdout"], b["stderr"], b["rc"])
+        log(f"phase 17c: {name}: stdout {len(a['stdout'])} chars, stderr "
+            f"{len(a['stderr'])} chars, card and cpu equal={same}")
+        if not same or len(a["stdout"]) + len(a["stderr"]) < 200:
+            fail(f"phase 17c: {name}: the card and the CPU differ "
+                 f"(stdout equal {a['stdout'] == b['stdout']}, stderr equal "
+                 f"{a['stderr'] == b['stderr']}) or print nothing")
+
+    # (e) test
+    test = card["runs"][len(cases)]
+    lines = test["stdout"].splitlines()
+    log("phase 17e: test: " + " | ".join(lines)
+        + f" (launches {test['launched']})")
+    if not any(ln.startswith("engine:") and "cuda kernels" in ln
+               for ln in lines):
+        fail("phase 17e: test did not run the cuda kernels")
+    require_cli("phase 17e", test["launched"], ("q1meta",))
+
+    # (d) --resume: killed after unit RESUME_CRASH, rerun as a new process,
+    # equal to the run without interruption (and to (b)'s, whose batches
+    # were smaller)
+    out, ck = CLI_DIR / "d.tsv", CLI_DIR / "d.json"
+    resume = flags + ["-o", out, "--resume", ck, fa]
+    _, _, t_crash = run_cli(
+        "phase 17d", [resume], expect=130,
+        env={"SASSY_CRASH_AFTER_UNIT": str(RESUME_CRASH)})
+    done = json.loads(ck.read_text())["unit"]
+    _, got, t_resume = run_cli("phase 17d", [resume])
+    launched = got["runs"][0]["launched"]
+    same = out.read_bytes() == full.read_bytes()
+    log(f"phase 17d: --batch-bytes {RESUME_BATCH}: killed after unit "
+        f"{RESUME_CRASH} (exit 130, checkpoint at unit {done}) in "
+        f"{t_crash:.3f} s; resumed in {t_resume:.3f} s (launches "
+        f"{launched}); TSV equal to the uninterrupted run's: {same}")
+    require_cli("phase 17d", launched, ("q2meta",))
+    if not same or done != RESUME_CRASH:
+        fail("phase 17d: the resumed TSV differs from the uninterrupted one")
+    if full.read_bytes() != out_b.read_bytes():
+        fail("phase 17d: the TSV at 4 MiB batches differs from (b)'s")
+
+
+def genome_scan(guides, genome: Path, plants):
+    """Phase 18: GenomeScan on the card over phase 17a's genome."""
+    import torch
+
+    from sassy_tpu_torch import Searcher
+    from sassy_tpu_torch.io import fastx
+    from sassy_tpu_torch.scan import GenomeScan
+
+    guide = guides[0]
+    searcher = Searcher("iupac", rc=True, device=DEVICE).with_max_n_frac(0.2)
+    searcher.search(guide, guide * 4, CRISPR_K)
+    out, ck = CLI_DIR / "scan.tsv", CLI_DIR / "scan.json"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero()
+    t0 = time.perf_counter()
+    total = GenomeScan(searcher, SEGMENT, str(ck)).scan(
+        str(genome), [guide], CRISPR_K, str(out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    after = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    units = json.loads(ck.read_text())["unit"]
+    log(f"phase 18: GenomeScan, one guide, k={CRISPR_K}, segments of "
+        f"{SEGMENT} chars: {units} units, {total} rows in {wall:.3f} s; "
+        f"device memory allocated {before} before, {after} after "
+        f"({(after - before) / 2**20:+.1f} MiB; peak during the scan "
+        f"{(peak - before) / 2**20:.1f} MiB above), prepared texts cached "
+        f"{len(searcher.engine._prep_cache)}; launches {launched}")
+    require(launched, ("q1meta",), ("q1", "q2", "q2meta", "qn", "variants"),
+            "phase 18")
+    if abs(after - before) > SCAN_MEM_SLACK:
+        fail("phase 18: the scan left the dead segments' prepared texts on "
+             "the card")
+    rows = set(out.read_text().splitlines()[1:])
+    want = set()
+    t0 = time.perf_counter()
+    for rec in fastx.read_fastx(str(genome)):
+        for m in searcher.search(guide, rec.seq, CRISPR_K):
+            want.add(f"0\t{rec.rid}\t{m.cost}\t{m.strand}\t{m.text_start}"
+                     f"\t{m.text_end}")
+    t_whole = time.perf_counter() - t0
+    planted = {f"0\t{c}\t1\t{s}\t{at}\t{at + 23}"
+               for g, c, at, s, intact in plants if g == 0 and intact}
+    log(f"phase 18: Searcher.search over each whole contig: {len(want)} "
+        f"rows in {t_whole:.3f} s; equal={rows == want}; the "
+        f"{len(planted)} intact copies of the guide (one across a segment "
+        f"boundary) among them: {planted <= rows}")
+    if rows != want or len(rows) != total:
+        fail(f"phase 18: GenomeScan rows differ from whole-contig search: "
+             f"{sorted(rows ^ want)[:6]}")
+    if not planted <= rows:
+        fail(f"phase 18: planted copies missing: {sorted(planted - rows)}")
+
+
 def main() -> int:
     import torch
 
@@ -1666,6 +2268,16 @@ def main() -> int:
     del text
     torch.cuda.empty_cache()
     hier_batched(gen, overhang_reads(gen))
+    torch.cuda.empty_cache()
+
+    launches_bench = bench_loop(gen)
+    torch.cuda.empty_cache()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    guides, genome, plants = cli_crispr(gen)
+    cli_search(gen)
+    genome_scan(guides, genome, plants)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    log(f"phases 16-18: q1meta launched {launches_bench} times by phase 16")
 
     ref = [m for m in sys.modules if m in ("jax", "sassy_tpu")
            or m.startswith(("jax.", "sassy_tpu."))]

@@ -1,0 +1,139 @@
+"""Diagnostics and profiling on the port's device: the reference's
+`sassy test` (features and a throughput smoke, lib.rs:187-281), a
+profiler trace, and the least time the H100 could take for a scan.
+
+The port's counterpart of ``sassy_tpu/diagnostics.py``: ``self_test``
+runs the port's ``Searcher`` on ``device``, ``trace`` records a
+``torch.profiler`` Chrome trace, and ``cost_model`` is the H100 bound of
+``PERF.md`` section 6 (the reference's is a TPU's).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import numpy as np
+
+from .ops.bitpack import WORD_BITS
+from .ops.plan import _bucket_rows, cdiv, halo_words, plan_tiles
+
+__all__ = ["self_test", "trace", "cost_model", "scan_bound",
+           "MEM_BYTES_PER_S", "INT32_OPS_PER_S", "ROW_OPS", "WORD_OPS"]
+
+#: The least time of a scan kernel: the larger of its bytes over the
+#: H100's 3.35 TB/s and its integer ALU-pipe instructions over that pipe's
+#: rate, 132 SMs x 64 lanes x 1.98 GHz (the SXM part's boost clock; half
+#: the issue rate, while IMAD issues to the FMA pipe and the U*
+#: instructions to the uniform datapath). ROW_OPS, per (pattern row,
+#: window word): the ALU-pipe instructions of scan_rows' loop
+#: (csrc/myers_step.cuh) in the SASS nvcc 12.8 builds for sm_90a, counted
+#: by `python -m sassy_tpu_torch.tools.sass_count`, the largest over q1meta,
+#: q2meta and q2 and both carry layouts; q1's loop is within 0.75 of them
+#: (all instructions per row: pure 33.5, iupac 28.75, ascii 34.75). A count
+#: from the source, two bitwise operations on three inputs taken as one
+#: LOP3, gave pure 21, iupac 23, ascii 28. WORD_OPS, per (pattern, window
+#: word) outside the rows, from the source: the two popcounts and the cost
+#: update (4), with the selection metadata also the owned mask, state code
+#: and screen (20 more); the ablations keep one popcount and one add (2).
+MEM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+ROW_OPS = {"pure": 24.25, "iupac": 22.75, "ascii": 27.25}
+WORD_OPS = {False: 4, True: 24}
+
+
+def scan_bound(eq_mode: str, Q: int, M: int, windows_shape, meta: bool,
+               vp_only: bool = False) -> dict:
+    """bound_ms and bound_by of one scan launch: Q patterns of M rows
+    (pad rows included: the kernel scans them) over (NW, P, T) windows.
+    Bytes: the windows read once, the outputs written once (vp, vm, cost
+    and, with meta, meta and final; ``vp_only``: the ablations' one word
+    per window word, and no text-start flags)."""
+    NW, P, T = windows_shape
+    word_ops = 2 if vp_only else WORD_OPS[meta]
+    n_out = 1 if vp_only else 4 if meta else 3
+    ops = Q * NW * T * (M * ROW_OPS[eq_mode] + word_ops)
+    nbytes = 4 * (NW * P * T + Q * NW * T * n_out
+                  + (Q * T if meta else 0)) + (0 if vp_only else T)
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def cost_model(m: int, n: int, k: int, num_patterns: int = 1,
+               eq_mode: str = "pure") -> dict:
+    """The H100 bound of the word-level scan (q1meta; q2meta's work for
+    ``num_patterns`` > 1) of ``num_patterns`` patterns of length m at k
+    over a text of n chars, on the single engine's tile plan: the windows
+    ``TorchEngine.build_inputs`` makes for that text, without overhang."""
+    M = _bucket_rows(m)
+    T, W, halo = plan_tiles(max(1, cdiv(n, WORD_BITS)), halo_words(M, k))
+    shape = (W + halo + 1, 9 if eq_mode == "ascii" else 4, T)
+    b = scan_bound(eq_mode, num_patterns, M, shape, True)
+    sol_seconds = b["bound_ms"] / 1e3
+    return {
+        "dp_cells": n * m * num_patterns,
+        "windows": shape,
+        "rows": M,
+        **b,
+        "sol_seconds": sol_seconds,
+        "sol_gbps": n * num_patterns / sol_seconds / 1e9,
+    }
+
+
+def self_test(text_bytes: int = 100_000, verbose: bool = True,
+              device="cuda") -> dict:
+    """The port's features and a 23 bp, k=1 throughput smoke on
+    ``device`` (reference lib.rs:259-281)."""
+    from . import features
+    from .profiles import Iupac
+    from .search import Searcher
+
+    info = features()
+    rng = np.random.default_rng(0)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    text = rng.choice(bases, size=text_bytes)
+    text.flags.writeable = False  # read-only: the engine caches its planes
+    pattern = rng.choice(bases, size=23)
+    s = Searcher(Iupac(), rc=False, device=device)
+    s.search(pattern, text, 1)  # first launch; the text's planes stay cached
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        s.search(pattern, text, 1)
+    dt = (time.perf_counter() - t0) / reps
+    info["engine"] = ("cuda kernels" if s.device.type == "cuda"
+                      else "plain PyTorch")
+    info["search_device"] = str(s.device)
+    info["throughput_gbps"] = text_bytes / dt / 1e9
+    if verbose:
+        for key, val in info.items():
+            print(f"{key}: {val}")
+    return info
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Record a ``torch.profiler`` trace of the block (CPU activity, and
+    CUDA where there is a device) and write it to
+    ``log_dir/trace.json`` (Chrome trace format). Yields the profiler, for
+    ``key_averages()``. The engines' device work runs on their dispatch
+    thread, so every thread is recorded where this torch can; an older
+    one records the CPU operators of the calling thread only."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        config = None
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, experimental_config=config) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -28,8 +28,9 @@ dispatch chunk where the suffix scan saves at least
 with each pattern's last rows flags the pieces that can hold a match of
 any pattern, and the full scan and selection run on those pieces only.
 
-``candidates_many_async`` hands that device work to one dispatch thread
-and returns at once: each chunk's ``torch.nonzero`` makes the host wait
+``candidates_many_async`` hands that device work to the dispatch thread
+it shares with the single engine (``myers_torch.dispatch_async``) and
+returns at once: each chunk's ``torch.nonzero`` makes the host wait
 for the chunk's scan, and on the caller's thread that wait would hold up
 whatever the caller does next (the reverse strand's dispatch, the previous
 record batch's traceback). ``finish()`` waits for the thread's copy and
@@ -48,9 +49,6 @@ the tests hold them equal to the originals.
 
 from __future__ import annotations
 
-import contextlib
-import threading
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -61,7 +59,7 @@ from ..profiles import Profile, as_bytes_array
 from . import minima, myers_cuda, plan
 from .bitpack import WORD_BITS
 from .minima import FULL, i32
-from .myers_torch import pack, state_from_numpy
+from .myers_torch import dispatch_async, engine_device, pack, state_from_numpy
 from .plan import _bucket_words, _masks_pure_np, cdiv, pattern_inputs_np
 
 __all__ = ["BatchEngine", "TextSet", "DISPATCH_BYTES", "W_MAX_WORDS"]
@@ -77,21 +75,6 @@ W_MAX_WORDS = 1 << 13
 
 #: Bytes the reverse-strand gather indexes per pass (int64 indices: 128 MiB).
 _REV_CHUNK = 1 << 24
-
-_WORKER: ThreadPoolExecutor | None = None
-_WORKER_LOCK = threading.Lock()
-
-
-def _worker() -> ThreadPoolExecutor:
-    """The one dispatch thread: dispatches run in the order submitted, one
-    at a time, so a text set's caches are touched by one thread at once."""
-    global _WORKER
-    with _WORKER_LOCK:
-        if _WORKER is None:
-            _WORKER = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="sassy_tpu_torch-dispatch")
-        return _WORKER
-
 
 @dataclass
 class _Piece:
@@ -257,12 +240,12 @@ class TextSet:
     words [wofs[t], wofs[t] + ceil((n_t + steps) / 32)), 'N' (every plane
     bit set) at its ``steps`` overshoot positions and zero past them; the
     last word is all-zero, the one that window words past a text end
-    read."""
+    read. "cuda" without a CUDA device raises."""
 
-    def __init__(self, texts, device="cpu"):
+    def __init__(self, texts, device="cuda"):
         self.texts = [as_bytes_array(t) for t in texts]
         self.lens = [len(t) for t in self.texts]
-        self.device = torch.device(device)
+        self.device = engine_device(device, "TextSet")
         n = np.asarray(self.lens, np.int64)
         self._nw = -(-n // WORD_BITS)
         self._wofs = np.concatenate([[0], np.cumsum(self._nw)]).astype(np.int64)
@@ -458,12 +441,12 @@ class BatchEngine:
 
     ``candidates_many`` returns ``out[q][t] = [(end_pos, cost), ...]`` with
     results identical to the single-(pattern, text) engine. On a CUDA
-    device the scans are the q2meta and q2 kernels; on the CPU, their
-    plain versions.
+    device the scans are the q2meta and q2 kernels (and "cuda" without one
+    raises); on the CPU, their plain versions.
     """
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device="cuda"):
+        self.device = engine_device(device, "BatchEngine")
 
     def textset(self, texts) -> TextSet:
         if isinstance(texts, TextSet):
@@ -721,21 +704,17 @@ class BatchEngine:
         are raised by ``finish()``."""
         ts = self.textset(texts)
         Q, NT = len(pattern_codes), len(ts.lens)
-        stream = (torch.cuda.current_stream(self.device)
-                  if self.device.type == "cuda" else None)
 
         def run() -> np.ndarray:
             found: list[torch.Tensor] = []
-            with (torch.cuda.stream(stream) if stream is not None
-                  else contextlib.nullcontext()):
-                if Q and NT:
-                    for g in self.groups(profile, pattern_codes, ts, k,
-                                         alpha, max_overhang):
-                        found += self.dispatch(profile, ts, g, k, all_minima,
-                                               reverse)
-                return _fetch(found)
+            if Q and NT:
+                for g in self.groups(profile, pattern_codes, ts, k, alpha,
+                                     max_overhang):
+                    found += self.dispatch(profile, ts, g, k, all_minima,
+                                           reverse)
+            return _fetch(found)
 
-        job = _worker().submit(run)
+        job = dispatch_async(self.device, run)
         return lambda: _decode(job.result(), Q, NT, _flat)
 
 

@@ -22,12 +22,23 @@ scan saves at least ``plan.HIER_MIN_SAVED_PAIRS`` (row, word) pairs first
 runs the hierarchical suffix prefilter: q1meta with the pattern's last rows flags the tiles that can
 hold a match, and the word-level path runs on those tiles only.
 
+``TorchEngine.candidates_async`` runs that device work on the one dispatch
+thread that both engines share (``dispatch_async``), on the caller's
+current CUDA stream, and returns a ``finish()`` that waits for the sorted
+candidate list; ``prepare`` keeps the prepared texts of live read-only
+source arrays (``_IdCache``), so a second search over the same array
+reuses its planes and windows.
+
 Device tensors hold uint32 bit words as int32; the plain versions compute
 on int64 values masked to 32 bits (see ``minima.u32``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import weakref
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -59,11 +70,53 @@ __all__ = [
     "ScanInputs",
     "TorchEngine",
     "state_from_numpy",
+    "engine_device",
+    "dispatch_async",
 ]
 
 #: Words packed per pass: the per-char expansion of a chunk takes
 #: 4 bytes per char, so 2^20 words keep it at 128 MiB for any text size.
 PACK_CHUNK_WORDS = 1 << 20
+
+_WORKER: ThreadPoolExecutor | None = None
+_WORKER_LOCK = threading.Lock()
+
+
+def _worker() -> ThreadPoolExecutor:
+    """The one dispatch thread of both engines: dispatches run in the order
+    submitted, one at a time, so a text's caches (a ``PreparedText``'s
+    windows, a ``TextSet``'s planes) are touched by one thread at once."""
+    global _WORKER
+    with _WORKER_LOCK:
+        if _WORKER is None:
+            _WORKER = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="sassy_tpu_torch-dispatch")
+        return _WORKER
+
+
+def dispatch_async(device: torch.device, fn) -> Future:
+    """Run ``fn()`` on the dispatch thread, on the caller's current CUDA
+    stream (on the CPU, as it is). The host waits inside ``fn`` (each
+    ``torch.nonzero`` waits for the scan before it), so the caller's
+    thread is free meanwhile; the future raises ``fn``'s errors."""
+    stream = (torch.cuda.current_stream(device) if device.type == "cuda"
+              else None)
+
+    def run():
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            return fn()
+
+    return _worker().submit(run)
+
+
+def engine_device(device, owner: str) -> torch.device:
+    """``device`` as a torch.device; "cuda" without a CUDA device raises
+    (no engine runs on the CPU in its place)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{owner}(device='cuda'): no CUDA device")
+    return device
 
 
 def state_from_numpy(*arrays: np.ndarray, device) -> tuple[torch.Tensor, ...]:
@@ -311,6 +364,78 @@ class PreparedText:
         return got
 
 
+class _IdCache:
+    """Prepared texts keyed by their source's identity and profile, at most
+    ``max_items`` of them (reference ``_IdCache``, myers_xla.py:1188-1214).
+
+    Each entry holds a weakref to its source whose callback drops the entry
+    when the source dies: on the card an entry holds a text's planes and up
+    to two window plans (~1.5 GiB for 1 GiB of DNA), and the reverse strand
+    is a fresh view on every search, so only live sources may keep one. The
+    key takes the profile's name and case sensitivity, which set the
+    packing.
+
+    Only sources that cannot change are cached: numpy arrays that are
+    read-only down to an immutable base (``bytes``, or memory the array
+    owns), such as ``np.frombuffer`` over a record's bytes and views of
+    it. The reference keys any array, so an array changed in place after a
+    search would get the old text's candidates."""
+
+    def __init__(self, max_items: int = 8):
+        self.max_items = max_items
+        self._items: dict[tuple, tuple[weakref.ref, PreparedText]] = {}
+        # the callbacks run on whichever thread drops a source's last
+        # reference, possibly inside a method of this cache
+        self._lock = threading.RLock()
+
+    @staticmethod
+    def _key(profile: Profile, src) -> tuple:
+        return id(src), profile.name, getattr(profile, "case_sensitive", None)
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def get(self, profile: Profile, src) -> PreparedText | None:
+        with self._lock:
+            got = self._items.get(self._key(profile, src))
+        if got is None or got[0]() is not src:
+            return None
+        return got[1]
+
+    @staticmethod
+    def frozen(src) -> bool:
+        """Whether ``src`` is a numpy array that cannot change: no array on
+        its chain of bases is writeable, and the last base is ``bytes`` or
+        none (the array owns its memory)."""
+        if not isinstance(src, np.ndarray):
+            return False
+        while isinstance(src, np.ndarray):
+            if src.flags.writeable:
+                return False
+            src = src.base
+        return src is None or isinstance(src, bytes)
+
+    def put(self, profile: Profile, src, prep: PreparedText) -> None:
+        if not self.frozen(src):
+            return
+        key = self._key(profile, src)
+        cache = weakref.ref(self)  # an entry must not keep its cache alive
+
+        def drop(ref):
+            me = cache()
+            if me is None:
+                return
+            with me._lock:
+                if me._items.get(key, (None,))[0] is ref:
+                    del me._items[key]
+
+        ref = weakref.ref(src, drop)
+        with self._lock:
+            while len(self._items) >= self.max_items:
+                self._items.pop(next(iter(self._items)))
+            self._items[key] = (ref, prep)
+
+
 @dataclass
 class ScanInputs:
     """Everything one scan + selection needs, on the engine's device."""
@@ -346,15 +471,23 @@ class ScanInputs:
 class TorchEngine:
     """Single-pattern engine: device pack, windows, scan kernel and
     selection, then one host copy of the candidate list. On a CUDA device
-    the scan is the hand-written kernel; on the CPU, its plain version."""
+    the scan is the hand-written kernel (and "cuda" without one raises);
+    on the CPU, its plain version."""
 
     name = "torch"
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device="cuda"):
+        self.device = engine_device(device, "TorchEngine")
+        self._prep_cache = _IdCache()
 
     def prepare(self, profile: Profile, text) -> PreparedText:
-        return PreparedText(profile, text, self.device)
+        """The text's ``PreparedText``, reused while the same read-only
+        source array lives (``_IdCache``)."""
+        prep = self._prep_cache.get(profile, text)
+        if prep is None:
+            prep = PreparedText(profile, text, self.device)
+            self._prep_cache.put(profile, text, prep)
+        return prep
 
     def build_inputs(self, profile: Profile, pattern_codes: np.ndarray, text,
                      k: int, alpha=None, max_overhang=None,
@@ -523,12 +656,29 @@ class TorchEngine:
     def candidates(self, profile: Profile, pattern_codes: np.ndarray, text,
                    k: int, alpha, max_overhang, all_minima: bool):
         """Sorted [(end position, cost)] of one pattern on one strand."""
-        inp = self.build_inputs(profile, pattern_codes, text, k, alpha,
-                                max_overhang, all_minima)
-        if inp.hier_s:
-            ids = self.flagged_tiles(inp)
-            if ids.numel() == 0:
-                return []
-            inp = self.gather_tiles(inp, ids)
-        pos, cost = self.select(inp, self.scan(inp)).cpu().tolist()
-        return sorted(zip(pos, cost))
+        return self.candidates_async(profile, pattern_codes, text, k, alpha,
+                                     max_overhang, all_minima)()
+
+    def candidates_async(self, profile: Profile, pattern_codes: np.ndarray,
+                         text, k: int, alpha, max_overhang,
+                         all_minima: bool):
+        """Start one search on the dispatch thread and return a
+        ``finish()`` that waits for its sorted [(end position, cost)]
+        (reference myers_xla.py:1381-1526). The thread prepares the text,
+        builds the inputs, runs the suffix prefilter, the scan and the
+        selection, and makes the one host copy; dispatching the next search
+        before finishing this one overlaps them. Errors of the dispatch are
+        raised by ``finish()``."""
+
+        def run():
+            inp = self.build_inputs(profile, pattern_codes, text, k, alpha,
+                                    max_overhang, all_minima)
+            if inp.hier_s:
+                ids = self.flagged_tiles(inp)
+                if ids.numel() == 0:
+                    return []
+                inp = self.gather_tiles(inp, ids)
+            pos, cost = self.select(inp, self.scan(inp)).cpu().tolist()
+            return sorted(zip(pos, cost))
+
+        return dispatch_async(self.device, run).result

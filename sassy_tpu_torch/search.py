@@ -20,12 +20,11 @@ rc_end``), keeping the CIGAR in pattern direction.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .matchrec import UNKNOWN, Match, Strand
 from .nfilter import satisfy_n_endpoint_filter, traced_satisfy_n_frac
 from .ops.batch import BatchEngine, TextSet
-from .ops.myers_torch import TorchEngine
+from .ops.myers_torch import TorchEngine, engine_device
 from .profiles import Profile, as_bytes_array, get_profile
 from .traceback import trace_candidates_batch
 
@@ -119,9 +118,7 @@ class Searcher:
                 rc = False
         if alpha is not None:
             self._overhang_check(profile, alpha)
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Searcher(device='cuda'): no CUDA device")
+        device = engine_device(device, "Searcher")
         self.profile = profile
         self.rc = rc
         self.alpha = alpha

@@ -309,7 +309,7 @@ def test_batched_position_level_sub_ranges_cuda(cuda, monkeypatch):
              for i, n in enumerate(rng.integers(300, 3000, 10))]
     want = Searcher("iupac", rc=True, alpha=0.1, device="cpu").search_many(
         pats, texts, 10)
-    ts = batch.TextSet(texts)
+    ts = batch.TextSet(texts, cuda)
     (g,) = batch.BatchEngine("cpu").groups(
         profiles.Iupac(), [profiles.Iupac().encode(p) for p in pats], ts, 10,
         0.1)

@@ -212,7 +212,8 @@ def test_unequal_lengths_with_overhang(alpha, lens, k):
     texts = _reads(k, pats, 8, 60, 500)
     prof = profiles.Iupac()
     groups = batch.BatchEngine("cpu").groups(
-        prof, [prof.encode(p) for p in pats], batch.TextSet(texts), k, alpha)
+        prof, [prof.encode(p) for p in pats], batch.TextSet(texts, "cpu"), k,
+        alpha)
     want_groups = {(-(-m // 8) * 8, semantics.overhang_steps(m, k, alpha, None))
                    for m in lens}
     assert len(groups) == len(want_groups)
@@ -245,7 +246,7 @@ def test_dispatch_chunks_change_no_result(path, monkeypatch):
     else:
         monkeypatch.setattr(batch, "DISPATCH_BYTES", 12 * 17 * 6)
         monkeypatch.setattr(minima, "POSITIONS_PER_CHUNK", 3000)
-    ts = batch.TextSet(texts)
+    ts = batch.TextSet(texts, "cpu")
     (g,) = batch.BatchEngine("cpu").groups(
         profiles.Iupac(), [profiles.Iupac().encode(p) for p in pats], ts, k,
         alpha)

@@ -121,11 +121,14 @@ def test_golden_subset_equals_xla_engine(k):
         _same(port.search(pat, text, k), ref.search(pat, text, k))
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """Neither JAX nor any module of the JAX package is loaded by a search,
-    a search_many and an overhang search on both engines."""
+    a search_many and an overhang search on both engines, nor by
+    ``python -m sassy_tpu_torch --device cpu search``."""
+    fa = tmp_path / "reads.fa"
+    fa.write_text(">r0\nCCCATCACCC\n>r1\nGGGTGATGGGAT\n")
     code = (
-        "import sys\n"
+        "import runpy, sys\n"
         "from sassy_tpu_torch import Searcher, features\n"
         "s = Searcher('dna', rc=True, device='cpu')\n"
         "assert s.search(b'ATCG', b'CCCATCACCC', 1)\n"
@@ -134,6 +137,13 @@ def test_port_never_imports_jax():
         "assert o.search(b'ATCGGA', b'GGACCCATCACCC', 1)\n"
         "assert o.search_many([b'ATCGGA'], [b'GGACCCATCACCC'], 1)\n"
         "features()\n"
+        "sys.argv = ['sassy_tpu_torch', '--device', 'cpu', 'search', '-p',\n"
+        f"            'ATCG', '-k', '1', {str(fa)!r}]\n"
+        "try:\n"
+        "    runpy.run_module('sassy_tpu_torch', run_name='__main__',\n"
+        "                     alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "ref = [m for m in sys.modules\n"
         "       if m == 'sassy_tpu' or m.startswith('sassy_tpu.')]\n"
@@ -143,6 +153,9 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+    rows = proc.stdout.splitlines()
+    assert rows[0].startswith("pat_id\t"), proc.stdout
+    assert {r.split("\t")[1] for r in rows[1:]} == {"r0", "r1"}, proc.stdout
 
 
 def test_cuda_without_a_gpu_raises(monkeypatch):
