@@ -137,7 +137,24 @@ the CUDA toolkit. Phases:
    an m + k halo, checkpointed: its rows equal Searcher.search over each
    whole contig, and with the Searcher kept alive the device memory after
    the scan is within 64 MiB of its value before (each segment is a fresh
-   array, and its prepared texts go with it).
+   array, and its prepared texts go with it);
+19. the evals, the refcost oracle, the C ABI and the examples: the
+   refcost oracle builds from native/refcost.cc into build/ and leaves
+   native/ byte for byte as it was; the port's evals harness
+   (sassy_tpu_torch.evals.bench_suite) in this process on the card,
+   nanopore at evals/configs/nanopore.toml's full scale (6,400 reads of
+   10 kbp, 96 x 24 bp, k = 3 and 4) and text_scaling, pattern_scaling,
+   off_targets, throughput_m and throughput_n at scale 0.05, one rep
+   each: every CSV with the reference's header, search and tiling
+   counting the same matches, the edlib columns filled, nanopore
+   counting the matches of evals/output-v5e/nanopore_results.csv (6420
+   and 6652), q2meta launched by the batched benches and q1meta by the
+   throughput rows; the port's C ABI built with g++ and its example run
+   on the card (3 matches, one on the reverse strand); the four examples
+   (sassy_tpu_torch.examples) as subprocesses on the card and with
+   --device cpu, all started at once: exit 0, the same match lines, the
+   kernels of each launched on the card (the launch counts of these
+   subprocesses come from a sitecustomize on their PYTHONPATH).
 
 The script imports neither JAX nor anything of the reference package.
 
@@ -238,9 +255,24 @@ RESUME_CRASH = 3
 SEGMENT = 1 << 24
 SCAN_MEM_SLACK = 64 << 20
 
+# phase 19: the evals harness (nanopore.toml at full scale; the other
+# benches cut by EVAL_SCALE), the C ABI, the examples
+EVAL_SMALL = ("text_scaling", "pattern_scaling", "off_targets",
+              "throughput_m", "throughput_n")
+EVAL_SCALE = 0.05
+#: n_matches of evals/output-v5e/nanopore_results.csv (same numpy seeds)
+NANOPORE_WANT = {3: 6420, 4: 6652}
+#: each example and the kernels it launches on the card
+EXAMPLES = {"all_vs_all_barcodes": ("q2meta",),
+            "modes": ("q1meta", "q2meta"),
+            "search_all_alignments": ("q1meta",),
+            "genome_scan_resume": ("q1meta", "q2meta")}
+
 ROOT = Path(__file__).resolve().parent
 #: phase 17-18's files (build/ is not committed)
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+#: phase 19's files
+P19_DIR = ROOT / "build" / "chip_smoke_p19"
 #: the subprocess of run_cli
 _CLI_CHILD = ("import sys, chip_smoke; "
               "sys.exit(chip_smoke.cli_child(sys.argv[1]))")
@@ -2202,6 +2234,273 @@ def genome_scan(guides, genome: Path, plants):
         fail(f"phase 18: planted copies missing: {sorted(planted - rows)}")
 
 
+#: phase 19's sitecustomize: in a process that imports it (through
+#: PYTHONPATH: the examples, the C ABI's embedded interpreter), every
+#: counted kernel wrapper writes the launch counts, and the modules of JAX
+#: or the reference package imported so far, to $SASSY_SMOKE_COUNTS
+_COUNTING_SITE = '''
+import atexit, functools, json, os, sys, time
+
+_OUT = os.environ.get("SASSY_SMOKE_COUNTS")
+if _OUT:
+    from sassy_tpu_torch.ops import myers_cuda as _mc
+
+    _T0 = time.perf_counter()
+    _NAMES = {"q1meta": "scan_meta", "q2meta": "scan_q_meta", "q1": "scan",
+              "q2": "scan_q", "qn": "scan_qn", "variants": "scan_variant"}
+
+    def _dump():
+        with open(_OUT, "w") as fh:
+            json.dump({"launched": {k: getattr(_mc, v).launches
+                                    for k, v in _NAMES.items()},
+                       "imported": sorted(
+                           m for m in sys.modules if m in ("jax", "sassy_tpu")
+                           or m.startswith(("jax.", "sassy_tpu."))),
+                       "seconds": time.perf_counter() - _T0}, fh)
+
+    def _counted(fn):
+        @functools.wraps(fn)  # copies .launches, which fn now increments
+        def wrapper(*a, **kw):
+            out = fn(*a, **kw)
+            _dump()
+            return out
+        return wrapper
+
+    for _v in _NAMES.values():
+        setattr(_mc, _v, _counted(getattr(_mc, _v)))
+    _dump()
+    atexit.register(_dump)  # the interpreter's wall, where it exits
+'''
+
+
+def counted_env(tag: str, **extra) -> tuple[dict, Path]:
+    """The environment of a phase-19 subprocess whose launch counts go to
+    the returned file (``_COUNTING_SITE``), and that finds the port and
+    this interpreter's packages (the C ABI's embedded interpreter too)."""
+    site = P19_DIR / "site"
+    site.mkdir(parents=True, exist_ok=True)
+    (site / "sitecustomize.py").write_text(_COUNTING_SITE)
+    out = P19_DIR / f"counts_{tag}.json"
+    out.unlink(missing_ok=True)
+    path = os.pathsep.join([str(site), str(ROOT), *filter(None, sys.path)])
+    env = dict(os.environ, PYTHONPATH=path, SASSY_SMOKE_COUNTS=str(out))
+    env.pop("SASSY_DEVICE", None)
+    env.update(extra)
+    return env, out
+
+
+def read_counts(what: str, path: Path) -> tuple[dict, float]:
+    """A ``_COUNTING_SITE`` record: the launches and the interpreter's
+    seconds; fails if it imported JAX or the reference package."""
+    if not path.exists():
+        fail(f"{what}: wrote no launch counts")
+    got = json.loads(path.read_text())
+    if got["imported"]:
+        fail(f"{what}: JAX or the reference package was imported: "
+             f"{got['imported']}")
+    return got["launched"], got["seconds"]
+
+
+def masked_lines(text: str) -> list[str]:
+    """An example's printed lines with timings and temporary paths
+    masked."""
+    import re
+
+    text = re.sub(r" +\d+\.\d+ ?m?s", " <time>", text)
+    return re.sub(r"\(checkpoint: [^)]*\)", "(checkpoint)",
+                  text).splitlines()
+
+
+def start_examples() -> dict:
+    """Phase 19's example processes, all started at once: each of
+    ``EXAMPLES`` on the card and with --device cpu (one thread: the CPU
+    runs are the plain versions' Python loops)."""
+    procs = {}
+    for name in EXAMPLES:
+        for dev in ("cuda", "cpu"):
+            tag = f"{name}_{dev}"
+            extra = {"OMP_NUM_THREADS": "1"} if dev == "cpu" else {}
+            env, out = counted_env(tag, **extra)
+            with open(P19_DIR / f"{tag}.out", "w") as so, \
+                    open(P19_DIR / f"{tag}.err", "w") as se:
+                procs[tag] = (subprocess.Popen(
+                    [sys.executable, "-m", f"sassy_tpu_torch.examples.{name}",
+                     "--device", dev], cwd=ROOT, env=env, stdout=so,
+                    stderr=se), out)
+    return procs
+
+
+def finish_examples(procs: dict) -> dict:
+    """Wait for ``start_examples``' processes: each exits 0 without JAX,
+    the card's match lines equal the CPU's, the card's runs launch their
+    kernels (``EXAMPLES``), the CPU's none. Returns the card runs'
+    launches summed."""
+    done = {}
+    for tag, (proc, out) in procs.items():
+        proc.wait(timeout=900)
+        stdout = (P19_DIR / f"{tag}.out").read_text()
+        stderr = (P19_DIR / f"{tag}.err").read_text()
+        if proc.returncode != 0:
+            fail(f"phase 19: example {tag} exited {proc.returncode}: "
+                 f"{stderr[-3000:]}")
+        done[tag] = (stdout, *read_counts(f"phase 19: example {tag}", out))
+    total = dict.fromkeys(counts(), 0)
+    for name in EXAMPLES:
+        (gpu, gl, gs), (cpu, cl, cs) = (done[f"{name}_{d}"]
+                                        for d in ("cuda", "cpu"))
+        log(f"phase 19: example {name}: card {gs:.1f} s, cpu {cs:.1f} s "
+            f"(after the import); launches on the card {gl}")
+        log("\n".join(f"  | {line}" for line in gpu.splitlines()))
+        if masked_lines(gpu) != masked_lines(cpu):
+            fail(f"phase 19: example {name} prints other matches on the "
+                 f"card than on the CPU:\n{gpu}\n---\n{cpu}")
+        used = EXAMPLES[name]
+        require(gl, used, ("q1", "q2", "qn", "variants"),
+                f"phase 19 example {name}", least=1)
+        require(cl, (), tuple(cl), f"phase 19 example {name} --device cpu")
+        for k, v in gl.items():
+            total[k] += v
+    return total
+
+
+def c_abi() -> dict:
+    """The port's C ABI built with g++ into build/, its example run on the
+    card (SASSY_DEVICE unset: the default, cuda) as tests/test_c_abi.py
+    expects of the JAX package's."""
+    from sassy_tpu_torch import capi
+
+    t0 = time.perf_counter()
+    lib, example = capi.build()
+    t_build = time.perf_counter() - t0
+    env, out = counted_env("c_abi")
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(example)], cwd=P19_DIR, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 19: the C ABI example exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    launched, _ = read_counts("phase 19: the C ABI example", out)
+    log(f"phase 19: C ABI {lib.name} and {example.name} built in "
+        f"{t_build:.1f} s; the example on the card in {wall:.1f} s, "
+        f"launches {launched}:")
+    log("\n".join(f"  | {line}" for line in proc.stdout.splitlines()))
+    for want in ("matches: 3", "[3, 7) cost=0 strand=+", "strand=-"):
+        if want not in proc.stdout:
+            fail(f"phase 19: the C ABI example did not print {want!r}")
+    require(launched, ("q1meta",), ("q1", "q2", "q2meta", "qn", "variants"),
+            "phase 19 C ABI", least=1)
+    return launched
+
+
+def refcost_build() -> None:
+    """The port's refcost oracle builds into build/, and native/ (the JAX
+    package's) stays byte for byte as it was."""
+    from sassy_tpu_torch import profiles, refcost
+
+    native = ROOT / "native"
+    before = {p.name: p.read_bytes() for p in native.iterdir()}
+    t0 = time.perf_counter()
+    lib = refcost.build()
+    ok = refcost.load() is not None
+    t_build = time.perf_counter() - t0
+    after = {p.name: p.read_bytes() for p in native.iterdir()}
+    log(f"phase 19: refcost {lib.relative_to(ROOT)} built in "
+        f"{t_build:.1f} s; native/ unchanged: {after == before}")
+    if not ok or lib.parent != ROOT / "build" / "sassy_tpu_torch":
+        fail(f"phase 19: refcost did not build into build/: {lib}")
+    if after != before:
+        fail("phase 19: the refcost build changed native/")
+    if refcost.edit_distance(profiles.Dna(), b"ACGT", b"AGT") != 1:
+        fail("phase 19: refcost edit distance is wrong")
+
+
+def eval_rows(path: Path) -> tuple[list[str], list[dict]]:
+    import csv
+
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    return rows[0], [dict(zip(rows[0], r)) for r in rows[1:]]
+
+
+def evals() -> dict:
+    """The port's evals harness in this process on the card: nanopore at
+    full scale (64 Mbp), the others at ``EVAL_SCALE``, one rep. Each CSV
+    has the reference's header, search and tiling count the same matches,
+    the batched rows have edlib columns, nanopore counts what the v5e
+    CSV counts, and each bench launched its kernel."""
+    from sassy_tpu_torch.evals import bench_suite
+
+    want_header = (ROOT / "evals" / "output-v5e" / "nanopore_results.csv"
+                   ).read_text().splitlines()[0].split(",")
+    out = P19_DIR / "evals"
+    total = dict.fromkeys(counts(), 0)
+    for name, scale in [("nanopore", 1.0)] + [(b, EVAL_SCALE)
+                                             for b in EVAL_SMALL]:
+        counts_zero()
+        t0 = time.perf_counter()
+        bench_suite.main([name, "--out", str(out), "--scale", str(scale),
+                          "--reps", "1", "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        launched = counts()
+        header, rows = eval_rows(out / f"{name}_results.csv")
+        log(f"phase 19: evals {name} at scale {scale}: {len(rows)} rows in "
+            f"{wall:.1f} s, launches {launched}")
+        for r in rows:
+            log(f"  | q={r['num_queries']} n={r['target_len']} "
+                f"m={r['query_len']} k={r['k']}: search "
+                f"{r['search_median_ms']} ms {r['search_throughput_gbps']} "
+                f"GB/s {r['search_n_matches']}, tiling "
+                f"{r['tiling_median_ms']} ms {r['tiling_throughput_gbps']} "
+                f"GB/s {r['tiling_n_matches']}, edlib "
+                f"{r['edlib_throughput_gbps']} GB/s")
+        if header != want_header:
+            fail(f"phase 19: {name}'s CSV header differs from the "
+                 f"reference's: {header}")
+        if not rows:
+            fail(f"phase 19: {name} wrote no rows")
+        single = name.startswith("throughput")
+        for r in rows:
+            if r["search_n_matches"] != r["tiling_n_matches"] and not single:
+                fail(f"phase 19: {name}: search and tiling counts differ: "
+                     f"{r}")
+            if not single and not float(r["edlib_median_ms"]) > 0:
+                fail(f"phase 19: {name}: no edlib column: {r}")
+        if name == "nanopore":
+            got = {int(r["k"]): (int(r["search_n_matches"]),
+                                 int(r["tiling_n_matches"])) for r in rows}
+            if got != {k: (v, v) for k, v in NANOPORE_WANT.items()}:
+                fail(f"phase 19: nanopore counts {got}, want "
+                     f"{NANOPORE_WANT} in both columns")
+        used = ("q1meta",) if single else ("q2meta",)
+        require(launched, used, ("q1", "q2", "qn", "variants"),
+                f"phase 19 evals {name}", least=1)
+        for k, v in launched.items():
+            total[k] += v
+    return total
+
+
+def evals_and_surfaces() -> dict:
+    """Phase 19: refcost, the evals harness, the C ABI and the examples on
+    the card. Returns the launches of the whole phase."""
+    shutil.rmtree(P19_DIR, ignore_errors=True)
+    P19_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = start_examples()
+    try:
+        refcost_build()
+        launched = evals()
+        for part in (c_abi(), finish_examples(procs)):
+            for k, v in part.items():
+                launched[k] += v
+    finally:
+        for proc, _ in procs.values():
+            proc.kill()  # none is left running, whatever failed
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s, launches {launched}")
+    shutil.rmtree(P19_DIR, ignore_errors=True)
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -2278,6 +2577,9 @@ def main() -> int:
     genome_scan(guides, genome, plants)
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     log(f"phases 16-18: q1meta launched {launches_bench} times by phase 16")
+    launches_19 = evals_and_surfaces()
+    log(f"phase 19: q1meta launched {launches_19['q1meta']} times, q2meta "
+        f"{launches_19['q2meta']} times")
 
     ref = [m for m in sys.modules if m in ("jax", "sassy_tpu")
            or m.startswith(("jax.", "sassy_tpu."))]

@@ -521,9 +521,11 @@ class TorchEngine:
         n_prev = cdiv(steps, WORD_BITS) + 1 if alpha is not None else 0
         fast = n_prev <= 4
         tail_word = None
-        if alpha is not None and fast:
+        if alpha is not None and fast and steps > 0:
             # the tail tile restarts from the plain cost-j boundary, so it
-            # re-scans the m + k chars before its owned overshoot span
+            # re-scans the m + k chars before its owned overshoot span; with
+            # no overshoot there is nothing for it to own, and the body
+            # tiles keep the text's last position
             W = max(W, cdiv(steps, WORD_BITS) + 1)
             T += 1
             rescan = max(halo * WORD_BITS, M + k)

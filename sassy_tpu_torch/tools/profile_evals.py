@@ -1,0 +1,131 @@
+"""Where the time of one batched evals row goes on the card.
+
+    python -m sassy_tpu_torch.tools.profile_evals [--bench nanopore_full]
+        [--out FILE]
+
+Makes the bench's data as ``sassy_tpu_torch.evals.bench_suite`` does (same
+seeds, same bytes) and runs its two columns on the card, forward strand:
+
+- upload + pack: the text set's bytes to the card and their bit-planes
+  (host clock, ended by a synchronise; untimed in the bench);
+- tiling: one warm call of all patterns in one dispatch;
+- search: one warm dispatch per pattern, all in flight before the first
+  fetch, over the first ``SEARCH_PATTERNS`` patterns (the row's time
+  scaled from them).
+
+Each column runs once under ``torch.profiler``: its wall, the device time
+of the q2meta kernel and of every other device op (window gathers, the
+state chain, the selection), the device's busy share, the kernel launches,
+and the top ops by device time (``--out`` writes the whole tables). Prints
+the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from ..evals import bench_suite
+from ..ops.batch import BatchEngine, TextSet
+from ..profiles import Iupac
+
+BENCHES = ("nanopore", "nanopore_full", "off_targets", "off_targets_full")
+SEARCH_PATTERNS = 32
+
+
+def _profiled(fn):
+    """(wall ms, q2meta device ms, other device ms, kernel launches,
+    key_averages) of one call of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    dev = [e for e in avg if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
+    q2 = sum(e.self_device_time_total for e in dev
+             if "scan_q_meta" in e.key) / 1e3
+    total = sum(e.self_device_time_total for e in dev) / 1e3
+    launches = sum(e.count for e in avg if "LaunchKernel" in e.key)
+    return wall, q2, total - q2, launches, avg
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m sassy_tpu_torch.tools.profile_evals",
+        description=__doc__.splitlines()[0])
+    ap.add_argument("--bench", default="nanopore_full", choices=BENCHES)
+    ap.add_argument("--out", type=Path, help="write the full tables")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_evals: needs a CUDA device")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], flush=True)
+
+    cfg = bench_suite.load_config(args.bench)
+    if args.bench.startswith("nanopore"):
+        queries, texts = bench_suite.nanopore_data(cfg, 1.0)
+        k = cfg["ks"][0]
+    else:
+        queries, text = bench_suite.off_target_data(cfg, 1.0)
+        texts, k = [text], cfg["k"]
+    n_bytes = sum(len(t) for t in texts)
+    prof = Iupac()
+    qcodes = [prof.encode(q) for q in queries]
+    eng = BatchEngine("cuda")
+    ts = TextSet(texts, eng.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts.planes(prof, False)
+    torch.cuda.synchronize()
+    t_pack = (time.perf_counter() - t0) * 1e3
+    print(f"{args.bench}: {len(queries)} patterns x "
+          f"{len(texts)} texts, {n_bytes} bytes, k={k}; upload + pack "
+          f"{t_pack:.1f} ms", flush=True)
+
+    def tiling():
+        return eng.candidates_many_flat(prof, qcodes, ts, k)
+
+    n_search = min(len(qcodes), SEARCH_PATTERNS)
+
+    def search():
+        fins = [eng.candidates_many_flat_async(prof, [qc], ts, k)
+                for qc in qcodes[:n_search]]
+        return [fin() for fin in fins]
+
+    tables = []
+    for name, fn, scale in (("tiling", tiling, 1.0),
+                            ("search", search, len(qcodes) / n_search)):
+        fn()  # warm: piece plan, windows of this width
+        torch.cuda.reset_peak_memory_stats()
+        wall, q2, other, launches, avg = _profiled(fn)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        row = wall * scale  # the column's time for all the patterns
+        print(f"{name}: {wall:.1f} ms (the row's call: {row:.1f} ms, "
+              f"{n_bytes / row / 1e6:.3f} GB/s); device {q2 + other:.1f} ms "
+              f"= q2meta {q2:.1f} + other ops {other:.1f}, busy "
+              f"{(q2 + other) / wall:.1%}; {launches} kernel launches; "
+              f"peak device memory {peak:.3f} GiB", flush=True)
+        print(avg.table(sort_by="self_device_time_total", row_limit=12))
+        tables.append(f"== {name}\n" + avg.table(
+            sort_by="self_device_time_total", row_limit=-1))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("\n".join(tables))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

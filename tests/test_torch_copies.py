@@ -10,6 +10,7 @@ last tests show that such a comparison sees every field.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -76,6 +77,19 @@ def test_port_file_imports_nothing_of_the_jax_package(path):
 
 def test_port_files_are_all_found():
     assert len(PORT_FILES) > 15 and "sassy_tpu_torch/search.py" in PORT_FILES
+    for sub in ("evals/bench_suite.py", "examples/modes.py", "refcost.py",
+                "capi/__init__.py"):
+        assert f"sassy_tpu_torch/{sub}" in PORT_FILES
+
+
+def test_c_abi_source_imports_the_port():
+    """The embedded interpreter of the port's C ABI imports the port, never
+    the JAX package."""
+    src = (REPO / "sassy_tpu_torch" / "capi" / "sassy_tpu_torch_c.cc"
+           ).read_text()
+    assert re.findall(r'PyImport_\w*\(\s*"([^"]*)"', src) == [
+        "sassy_tpu_torch"]
+    assert "PyImport_Import(" not in src and "jax" not in src
 
 
 @pytest.mark.parametrize("name", list(PROFILE_PAIRS))

@@ -213,3 +213,60 @@ def test_overhang_past_the_tail_reserve_raises():
     pat = np.random.default_rng(5).choice(BASES, 2100)
     with pytest.raises(ValueError, match="overhang"):
         Searcher("iupac", alpha=0.0, device="cpu").search(pat, pat[:50], 3)
+
+
+# zero overhang steps with alpha set: no tail tile, so the body tiles keep
+# the text's last position (the reference's XLA engine drops it, so these
+# cases hold the port to the numpy oracle)
+ZERO_STEPS = [
+    (b"GA", b"TTTTTTTTTTG", 1, 0.5, 0),
+    (b"", b"TTTTTTTTTTG", 1, 0.0, None),
+    (b"", b"TTTTTTTTTTG", 1, 0.5, None),
+]
+
+
+@pytest.mark.parametrize("rc", [False, True])
+@pytest.mark.parametrize("case", ZERO_STEPS)
+@pytest.mark.parametrize("entry", ["search", "search_many"])
+def test_zero_overhang_steps_keep_the_text_end_match(entry, case, rc):
+    pat, text, k, alpha, mo = case
+    port = Searcher("iupac", rc=rc, alpha=alpha, device="cpu")
+    ref = RefSearcher("iupac", rc=rc, alpha=alpha, engine="numpy")
+    if mo is not None:
+        port.with_max_overhang(mo)
+        ref.with_max_overhang(mo)
+    want = ref.search(pat, text, k)
+    if entry == "search":
+        got = port.search(pat, text, k)
+    else:
+        got = port.search_many([pat], [text], k)
+    _same(got, want)
+    assert any(m.text_end == len(text) for m in got)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_zero_overhang_steps_sweep_equals_oracle(seed, monkeypatch):
+    """Random texts that end in the pattern less its last ``d`` chars (or
+    in an exact copy, d = 0), at ``with_max_overhang(0)``, over several
+    body tiles. A match that ends with deletions keeps its cost one
+    position past the text end, so only the text end's own bound makes it
+    a minimum there."""
+    monkeypatch.setattr(plan, "H100_TARGET_TILES", 4)
+    rng = np.random.default_rng(100 + seed)
+    alpha = [0.0, 0.25, 0.5, 1.0][seed]
+    port = Searcher("iupac", rc=True, alpha=alpha,
+                    device="cpu").with_max_overhang(0)
+    ref = RefSearcher("iupac", rc=True, alpha=alpha,
+                      engine="numpy").with_max_overhang(0)
+    for _ in range(6):
+        m = int(rng.integers(2, 30))
+        d = int(rng.integers(0, min(m, 3)))
+        k = d + int(rng.integers(0, 2))
+        pat = rng.choice(BASES, m)
+        text = np.concatenate([rng.choice(BASES, int(rng.integers(1, 600))),
+                               pat[: m - d]])
+        for method in ("search", "search_all"):
+            got = getattr(port, method)(pat, text, k)
+            _same(got, getattr(ref, method)(pat, text, k))
+        assert any(mt.text_end == len(text) for mt in got)
+        _same(port.search_many([pat], [text], k), ref.search(pat, text, k))
