@@ -154,7 +154,30 @@ the CUDA toolkit. Phases:
    (sassy_tpu_torch.examples) as subprocesses on the card and with
    --device cpu, all started at once: exit 0, the same match lines, the
    kernels of each launched on the card (the launch counts of these
-   subprocesses come from a sitecustomize on their PYTHONPATH).
+   subprocesses come from a sitecustomize on their PYTHONPATH); modes'
+   --device cpu run, and a second card run it is compared with, take the
+   module constants of tests/test_torch_examples.py (MODES_SMALL);
+20. the sharded search (sassy_tpu_torch.parallel) on the card, through
+   q1meta, q2meta, q1 and q2 only (the plain versions refuse to run), each
+   run's lists equal to the card's single engine's and its last_stats
+   passing the owner-computes checks, its steps (pack and upload, halo
+   exchange, scan, chain, selection, gather) timed and the device memory
+   peak logged: (a) one process holding a 2 x 4 grid of slots over 1 GiB
+   of random ACGT, fresh for each run, with a mutated copy straddling each
+   of the three shard edges: 8 x 23 bp at k=3 (q2meta), 2 x 23 bp (q1meta;
+   the second all 'A', with a plateau of cost 0 across edge 1 and a step
+   of equal costs across edge 2 that must not be reported), 4 x 23 bp and
+   2 x 23 bp at alpha 0.5 (q2 and q1, position level; exact copies
+   hanging off both ends) and 80 bp at k=3 with the suffix prefilter
+   forced on and off (equal lists);
+   (b) 2^31 + 2^27 bases made on the card, 4 shards, 4 x 23 bp with copies
+   ending past 2^31, against BatchEngine over the one text; (c) two
+   processes sharing the one card over gloo (initialize's share_cards),
+   4 slots each, 64 Mbp, equal to one process's 8 slots, importing
+   neither JAX nor the reference; (d) multihost.initialize and
+   global_search as one NCCL rank, 4 slots, against the single engine;
+   (e) graft_entry.dryrun_multichip(8), counting the launches of its
+   sharded searches alone, and entry() on the card.
 
 The script imports neither JAX nor anything of the reference package.
 
@@ -268,14 +291,47 @@ EXAMPLES = {"all_vs_all_barcodes": ("q2meta",),
             "search_all_alignments": ("q1meta",),
             "genome_scan_resume": ("q1meta", "q2meta")}
 
+# phase 20: the sharded search (sassy_tpu_torch.parallel). (a) one
+# process, a SHARD_GRID (pattern groups, text shards) grid of slots on the
+# card over SHARD_TEXT random bases; SHARD_Q counts patterns of
+# PATTERN_LEN bp: the q2meta run, the q1meta run and the overhang q1 run
+# (one pattern a slot), the overhang q2 run at SHARD_ALPHA; then one
+# pattern of SHARD_LONG (length, k) with the prefilter forced on and off;
+# (b) SHARD_BIG bases made on the card, past 2^31, over SHARD_BIG_DT
+# shards; (c) SHARD_PROCS processes on the one card over gloo and (d) one
+# NCCL rank, both over SHARD_MID bases
+SHARD_TEXT = 1 << 30
+SHARD_GRID = (2, 4)
+SHARD_Q = (8, 2, 4)
+SHARD_ALPHA = 0.5
+SHARD_LONG = (80, 3)
+SHARD_BIG = (1 << 31) + (1 << 27)
+#: (b)'s copies end past this position
+SHARD_PAST = 1 << 31
+SHARD_BIG_DT = 4
+SHARD_MID = 64_000_000
+SHARD_PROCS = 2
+#: phase 19: examples/modes.py's CPU run (and the card run it is compared
+#: with) at the module constants tests/test_torch_examples.py uses
+MODES_SMALL = {"N_PATTERNS": 4, "N_TEXTS": 5, "TEXT_LEN": 300, "K": 8}
+
 ROOT = Path(__file__).resolve().parent
 #: phase 17-18's files (build/ is not committed)
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 #: phase 19's files
 P19_DIR = ROOT / "build" / "chip_smoke_p19"
+#: phase 20's files
+P20_DIR = ROOT / "build" / "chip_smoke_p20"
 #: the subprocess of run_cli
 _CLI_CHILD = ("import sys, chip_smoke; "
               "sys.exit(chip_smoke.cli_child(sys.argv[1]))")
+#: a rank of phase 20c
+_SHARD_CHILD = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.shard_child(*sys.argv[1:]))")
+#: phase 19's modes run at MODES_SMALL, on the device named by argv[1]
+_MODES_SMALL = ("import sys; import sassy_tpu_torch.examples.modes as m; "
+                + "; ".join(f"m.{k} = {v}" for k, v in MODES_SMALL.items())
+                + "; m.main(device=sys.argv[1])")
 
 
 def fail(msg: str):
@@ -408,13 +464,19 @@ def kernel_vs_plain(gen, text_dev):
     return head
 
 
+def mutated(pattern):
+    """A copy with one substitution at ``MUT_AT``, as bench.py plants."""
+    out = pattern.copy()
+    out[MUT_AT] = ord("A") if out[MUT_AT] != ord("A") else ord("C")
+    return out
+
+
 def plant(text, pattern, rc_pattern, n: int):
     """Mutated copies (one substitution, as bench.py plants them) on both
     strands at fixed offsets. Returns [(strand, start)]."""
-    mutated = pattern.copy()
-    mutated[MUT_AT] = ord("A") if mutated[MUT_AT] != ord("A") else ord("C")
-    rc_mut = rc_pattern(mutated)
-    sites = [("FWD", 12345, mutated), ("FWD", n // 2, mutated),
+    mut = mutated(pattern)
+    rc_mut = rc_pattern(mut)
+    sites = [("FWD", 12345, mut), ("FWD", n // 2, mut),
              ("RC", n // 3, rc_mut), ("RC", n - 5000, rc_mut)]
     for _, off, seq in sites:
         text[off : off + len(seq)] = seq
@@ -2311,30 +2373,43 @@ def masked_lines(text: str) -> list[str]:
                   text).splitlines()
 
 
+def example_runs(name: str) -> list[tuple[str, str, bool]]:
+    """(tag, device, small) of phase 19's processes of one example: on the
+    card and with --device cpu; modes' CPU run (512 single searches on the
+    plain versions' Python loops at full size) and a second card run to
+    compare it with take ``MODES_SMALL``."""
+    if name == "modes":
+        return [("modes_cuda", "cuda", False), ("modes_cuda_small", "cuda",
+                                                True),
+                ("modes_cpu", "cpu", True)]
+    return [(f"{name}_cuda", "cuda", False), (f"{name}_cpu", "cpu", False)]
+
+
 def start_examples() -> dict:
     """Phase 19's example processes, all started at once: each of
     ``EXAMPLES`` on the card and with --device cpu (one thread: the CPU
     runs are the plain versions' Python loops)."""
     procs = {}
     for name in EXAMPLES:
-        for dev in ("cuda", "cpu"):
-            tag = f"{name}_{dev}"
+        for tag, dev, small in example_runs(name):
             extra = {"OMP_NUM_THREADS": "1"} if dev == "cpu" else {}
             env, out = counted_env(tag, **extra)
+            cmd = (["-c", _MODES_SMALL, dev] if small else
+                   ["-m", f"sassy_tpu_torch.examples.{name}", "--device",
+                    dev])
             with open(P19_DIR / f"{tag}.out", "w") as so, \
                     open(P19_DIR / f"{tag}.err", "w") as se:
                 procs[tag] = (subprocess.Popen(
-                    [sys.executable, "-m", f"sassy_tpu_torch.examples.{name}",
-                     "--device", dev], cwd=ROOT, env=env, stdout=so,
+                    [sys.executable, *cmd], cwd=ROOT, env=env, stdout=so,
                     stderr=se), out)
     return procs
 
 
 def finish_examples(procs: dict) -> dict:
     """Wait for ``start_examples``' processes: each exits 0 without JAX,
-    the card's match lines equal the CPU's, the card's runs launch their
-    kernels (``EXAMPLES``), the CPU's none. Returns the card runs'
-    launches summed."""
+    the card's match lines equal the CPU's (modes: at ``MODES_SMALL``),
+    the card's runs launch their kernels (``EXAMPLES``), the CPU's none.
+    Returns the card runs' launches summed."""
     done = {}
     for tag, (proc, out) in procs.items():
         proc.wait(timeout=900)
@@ -2346,20 +2421,27 @@ def finish_examples(procs: dict) -> dict:
         done[tag] = (stdout, *read_counts(f"phase 19: example {tag}", out))
     total = dict.fromkeys(counts(), 0)
     for name in EXAMPLES:
-        (gpu, gl, gs), (cpu, cl, cs) = (done[f"{name}_{d}"]
-                                        for d in ("cuda", "cpu"))
-        log(f"phase 19: example {name}: card {gs:.1f} s, cpu {cs:.1f} s "
-            f"(after the import); launches on the card {gl}")
-        log("\n".join(f"  | {line}" for line in gpu.splitlines()))
+        runs = example_runs(name)
+        cards = [t for t, dev, _ in runs if dev == "cuda"]
+        for tag in cards:
+            gpu, gl, gs = done[tag]
+            log(f"phase 19: example {tag}: {gs:.1f} s (after the import); "
+                f"launches {gl}")
+            log("\n".join(f"  | {line}" for line in gpu.splitlines()))
+            require(gl, EXAMPLES[name], ("q1", "q2", "qn", "variants"),
+                    f"phase 19 example {tag}", least=1)
+            for k, v in gl.items():
+                total[k] += v
+        cpu_tag, small = next((t, sm) for t, dev, sm in runs if dev == "cpu")
+        gpu_tag = next(t for t, dev, sm in runs
+                       if dev == "cuda" and sm == small)
+        gpu, cpu = done[gpu_tag][0], done[cpu_tag][0]
+        cl, cs = done[cpu_tag][1:]
+        log(f"phase 19: example {cpu_tag}: {cs:.1f} s (after the import)")
         if masked_lines(gpu) != masked_lines(cpu):
             fail(f"phase 19: example {name} prints other matches on the "
                  f"card than on the CPU:\n{gpu}\n---\n{cpu}")
-        used = EXAMPLES[name]
-        require(gl, used, ("q1", "q2", "qn", "variants"),
-                f"phase 19 example {name}", least=1)
-        require(cl, (), tuple(cl), f"phase 19 example {name} --device cpu")
-        for k, v in gl.items():
-            total[k] += v
+        require(cl, (), tuple(cl), f"phase 19 example {cpu_tag}")
     return total
 
 
@@ -2501,6 +2583,499 @@ def evals_and_surfaces() -> dict:
     return launched
 
 
+def shard_span(n: int, m: int, k: int, alpha, Dt: int) -> tuple[int, int]:
+    """(positions a shard owns, positions of its left halo H) as
+    ``ShardedSearch`` sizes them for one search."""
+    from sassy_tpu_torch import semantics
+    from sassy_tpu_torch.ops import plan
+
+    steps = semantics.overhang_steps(m, k, alpha, None)
+    H = plan.next_pow2(plan.cdiv(plan._bucket_rows(m) + k, 32))
+    S = max(plan.cdiv(max(1, plan.cdiv(n + steps, 32)), Dt), H + 1)
+    return S * 32, H * 32
+
+
+def put(text, end: int, seq) -> None:
+    """``seq`` into the (device) text so that it ends at position ``end``."""
+    import torch
+
+    text[end - len(seq) : end] = torch.from_numpy(seq).to(text.device)
+
+
+def plant_edges(text, pats, span: int, halo: int, Dt: int,
+                last: tuple = ()) -> list[tuple]:
+    """A mutated copy of pattern ``d % Q`` ending inside the first ``halo``
+    positions of each shard d >= 1 (its left context lies in shard d - 1),
+    at the last of them for the shards in ``last``. Returns [(pattern,
+    end)]."""
+    sites = []
+    for d in range(1, Dt):
+        end = d * span + (halo if d in last else 1 + (7 * d) % halo)
+        put(text, end, mutated(pats[d % len(pats)]))
+        sites.append((d % len(pats), end))
+    return sites
+
+
+@contextlib.contextmanager
+def no_plain():
+    """The plain scans refuse to run: phase 20's sharded runs go through the
+    kernels only."""
+    from sassy_tpu_torch.ops import myers_cuda
+
+    names = ("scan_meta_plain", "scan_q_meta_plain", "scan_plain",
+             "scan_q_plain")
+    saved = {name: getattr(myers_cuda, name) for name in names}
+
+    def refuse(name):
+        def plain(*a, **kw):
+            fail(f"phase 20 called the plain version {name}")
+        return plain
+
+    for name in names:
+        setattr(myers_cuda, name, refuse(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(myers_cuda, name, fn)
+
+
+def sharded_run(label: str, ss, text, pats, k: int, alpha, used: tuple,
+                want: list, n: int) -> tuple[list, dict]:
+    """One sharded search with its steps timed: only the kernels ``used``
+    launched, once per slot at least, no plain version; the lists equal
+    ``want`` and pass the owner-computes checks. Returns the lists and the
+    launches."""
+    import torch
+
+    from sassy_tpu_torch import graft_entry, profiles, semantics
+
+    prof = profiles.Iupac()
+    counts_zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with no_plain():
+        got = ss.candidates_batch(prof, pats, text, k, alpha=alpha)
+    wall = time.perf_counter() - t0
+    launched = counts()
+    slots = ss.mesh.size
+    require(launched, used, tuple(x for x in launched if x not in used),
+            label, least=slots)
+    steps = semantics.overhang_steps(len(pats[0]), k, alpha, None)
+    n_cands = graft_entry.check_sharded_case(ss, got, want, n, steps)
+    split = ", ".join(f"{step} {sec * 1e3:.1f} ms"
+                      for step, sec in ss.last_times.items())
+    log(f"{label}: {len(pats)} x {len(pats[0])} bp, k={k}, alpha {alpha}, "
+        f"{ss.mesh.n_pat} x {ss.mesh.n_text} slots: {wall * 1e3:.1f} ms "
+        f"({split}); {n_cands} candidates, equal to the single-device "
+        f"engine's; launches {launched}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return got, launched
+
+
+def single_lists(eng, prep, pats, k: int, alpha) -> list:
+    """The card's single engine over the prepared text, per pattern."""
+    from sassy_tpu_torch import profiles
+
+    prof = profiles.Iupac()
+    return [eng.candidates(prof, prof.encode(p), prep, k, alpha, None, False)
+            for p in pats]
+
+
+def step_plateau(text, edge: int) -> tuple[int, int]:
+    """For an all-'A' pattern: a run of 'A' with a 'C' at index edge - 6
+    and another 11 later, so that the cost steps 0 -> 1 at position
+    edge - 5, stays 1 across the shard edge and steps to 2 at edge + 6. The
+    flat stretch (edge - 5, edge + 5] is no local minimum: the shard after
+    the edge must take the rising state from the one before it. Returns
+    (first, last) end position of the stretch."""
+    text[edge - 400 : edge + 8] = ord("A")
+    text[edge - 6] = ord("C")
+    text[edge + 5] = ord("C")
+    return edge - 5, edge + 5
+
+
+def sharded_one_process(gen) -> dict:
+    """Phase 20a. Returns the launches of its runs."""
+    import torch
+
+    from sassy_tpu_torch import profiles, semantics
+    from sassy_tpu_torch.ops.myers_torch import TorchEngine
+    from sassy_tpu_torch.parallel import ShardedSearch, ShardedText, make_mesh
+
+    Dp, Dt = SHARD_GRID
+    n = SHARD_TEXT
+    Q8, Q1, Qa = SHARD_Q
+    m_long, k_long = SHARD_LONG
+    prof = profiles.Iupac()
+    eng = TorchEngine(DEVICE)
+    mesh = make_mesh(Dt, Dp, device=DEVICE)
+    total = dict.fromkeys(counts(), 0)
+    hang = 4
+
+    def patterns(q, m):
+        return list(random_acgt(gen, q * m).cpu().numpy().reshape(q, m))
+
+
+    runs = [("phase 20a q2meta", patterns(Q8, PATTERN_LEN), K, None,
+             ("q2meta",), None),
+            ("phase 20a q1meta", patterns(Q1, PATTERN_LEN), K, None,
+             ("q1meta",), None),
+            ("phase 20a overhang q2", patterns(Qa, PATTERN_LEN), K,
+             SHARD_ALPHA, ("q2",), None),
+            ("phase 20a overhang q1", patterns(Q1, PATTERN_LEN), K,
+             SHARD_ALPHA, ("q1",), None),
+            ("phase 20a prefilter", patterns(1, m_long), k_long, None,
+             ("q1meta",), (True, False))]
+    for label, pats, k, alpha, used, hiers in runs:
+        t0 = time.perf_counter()
+        text = random_acgt(gen, n)
+        span, halo = shard_span(n, len(pats[0]), k, alpha, Dt)
+        extra = ""
+        if label.endswith("q1meta"):
+            # pattern 1 is all 'A': a step of equal costs across edge 2, and
+            # a plateau of cost 0 across edge 1 whose right end shard 1 owns
+            # (its decreasing state comes from shard 0); pattern 0's copies
+            # end after them
+            pats[1][:] = ord("A")
+            flat = step_plateau(text, 2 * span)
+            text[span - 200 : span + 9] = ord("A")
+            extra = f"; a step plateau at {flat}"
+            sites = plant_edges(text, pats[:1], span, halo, Dt, last=(1, 2))
+        else:
+            sites = plant_edges(text, pats, span, halo, Dt)
+        torch.cuda.synchronize()
+        t_make = time.perf_counter() - t0
+        if alpha is not None:
+            # exact copies hanging off the text's start and end
+            put(text, len(pats[0]) - hang, pats[0][hang:])
+            put(text, n, pats[1][: len(pats[0]) - hang])
+        t0 = time.perf_counter()
+        prep = eng.prepare(prof, text)
+        want = single_lists(eng, prep, pats, k, alpha)
+        t_single = time.perf_counter() - t0
+        log(f"{label}: {n} bases made and planted in {t_make:.2f} s, shards "
+            f"of {span} positions{extra}; the single engine's "
+            f"{len(pats)} searches {t_single:.1f} s")
+        st = ShardedText(prof, text)
+        lists = []
+        for hier in hiers or (None,):
+            ss = ShardedSearch(mesh=mesh, hier=hier, timed=True)
+            tag = (label if hier is None
+                   else f"{label} {'on' if hier else 'off'}")
+            got, launched = sharded_run(tag, ss, st, pats, k, alpha, used,
+                                        want, n)
+            lists.append(got)
+            for key, v in launched.items():
+                total[key] += v
+            if hier and launched["q1meta"] <= mesh.size:
+                fail(f"{tag}: the forced prefilter launched no suffix scan")
+        if any(other != lists[0] for other in lists[1:]):
+            fail(f"{label}: the prefilter changed the lists")
+        got = lists[0]
+        for q, end in sites:
+            if (end, 1) not in got[q]:
+                fail(f"{label}: the copy of pattern {q} ending at {end}, "
+                     "across a shard edge, did not come back with cost 1")
+        if label.endswith("q1meta"):
+            if any(flat[0] <= e <= flat[1] for e, _ in got[1]):
+                fail(f"{label}: an end of the step plateau {flat} was "
+                     f"reported: {got[1]}")
+            if not any(span < e <= span + halo and c == 0
+                       for e, c in got[1]):
+                fail(f"{label}: the plateau across edge 1 did not end in "
+                     f"shard 1: {got[1]}")
+        if alpha is not None:
+            # the overshoot cost of the 4 chars that hang off
+            cost = semantics.overshoot_cost(alpha, hang)
+            if ((len(pats[0]) - hang, cost) not in got[0]
+                    or (n + hang, cost) not in got[1]):
+                fail(f"{label}: the copies hanging off the text's ends did "
+                     f"not come back with cost {cost}: {got[0][:3]} "
+                     f"{got[1][-3:]}")
+        del text, prep, st
+        torch.cuda.empty_cache()
+    return total
+
+
+def random_acgt_chunked(gen, n: int):
+    """``n`` random bases on the card, drawn 2^28 at a time."""
+    import torch
+
+    out = torch.empty(n, dtype=torch.uint8, device=DEVICE)
+    bases = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=DEVICE)
+    for c0 in range(0, n, 1 << 28):
+        c1 = min(n, c0 + (1 << 28))
+        out[c0:c1] = bases[torch.randint(0, 4, (c1 - c0,), generator=gen,
+                                         device=DEVICE)]
+    return out
+
+
+def sharded_past_2g(gen) -> dict:
+    """Phase 20b. Returns the launches."""
+    import torch
+
+    from sassy_tpu_torch import profiles
+    from sassy_tpu_torch.ops.batch import BatchEngine
+    from sassy_tpu_torch.parallel import ShardedSearch, make_mesh
+
+    n = SHARD_BIG
+    t0 = time.perf_counter()
+    text = random_acgt_chunked(gen, n)
+    raw = random_acgt(gen, 4 * PATTERN_LEN).cpu().numpy()
+    pats = list(raw.reshape(4, PATTERN_LEN))
+    past = SHARD_PAST
+    ends = [past + 10, past + (n - past) // 4 + 345,
+            past + (n - past) // 2 + 777, n - 1000]
+    for q, end in enumerate(ends):
+        put(text, end, mutated(pats[q]))
+    torch.cuda.synchronize()
+    log(f"phase 20b: {n} bases made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prof = profiles.Iupac()
+    t0 = time.perf_counter()
+    host = text.cpu().numpy()
+    dense = BatchEngine(DEVICE).candidates_many(
+        prof, [prof.encode(p) for p in pats], [host], K)
+    want = [list(row[0]) for row in dense]
+    log(f"phase 20b: BatchEngine over the one text in "
+        f"{time.perf_counter() - t0:.1f} s (host copy included)")
+    del host
+    ss = ShardedSearch(mesh=make_mesh(SHARD_BIG_DT, 1, device=DEVICE),
+                       timed=True)
+    got, launched = sharded_run("phase 20b past 2^31", ss, text, pats, K,
+                                None, ("q2meta",), want, n)
+    for q, end in enumerate(ends):
+        if (end, 1) not in got[q]:
+            fail(f"phase 20b: the copy ending at {end} (past {past}) did "
+                 "not come back with cost 1")
+    log(f"phase 20b: every copy ending past {past} found: {ends}")
+    del text
+    torch.cuda.empty_cache()
+    return launched
+
+
+def shard_child(addr: str, rank: str, nproc: str, device: str) -> int:
+    """A rank of phase 20c: joins the job over gloo, searches the text and
+    patterns of P20_DIR on its slots of ``device``, writes its lists, its
+    launches and the reference modules it imported to P20_DIR."""
+    import numpy as np
+
+    from sassy_tpu_torch import profiles
+    from sassy_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    multihost.initialize(coordinator_address=addr, num_processes=int(nproc),
+                         process_id=int(rank), share_cards=True)
+    import torch.distributed as dist
+
+    text = np.load(P20_DIR / "text.npy", mmap_mode="r")
+    pats = list(np.load(P20_DIR / "pats.npy"))
+    counts_zero()
+    t1 = time.perf_counter()
+    got = multihost.global_search(profiles.Iupac(), pats, text, K,
+                                  slots_per_rank=8 // int(nproc),
+                                  device=device)
+    search = time.perf_counter() - t1
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "got": got, "launched": counts(), "search_s": search,
+           "seconds": time.perf_counter() - t0,
+           "imported": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "sassy_tpu"))}
+    dist.destroy_process_group()
+    (P20_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_processes(gen) -> dict:
+    """Phases 20c and 20d. Returns the launches of this process."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sassy_tpu_torch import profiles
+    from sassy_tpu_torch.ops.myers_torch import TorchEngine
+    from sassy_tpu_torch.parallel import ShardedSearch, make_mesh, multihost
+
+    shutil.rmtree(P20_DIR, ignore_errors=True)
+    P20_DIR.mkdir(parents=True)
+    text = random_acgt(gen, SHARD_MID)
+    pats = list(random_acgt(gen, SHARD_Q[0] * PATTERN_LEN).cpu().numpy()
+                .reshape(-1, PATTERN_LEN))
+    span, halo = shard_span(SHARD_MID, PATTERN_LEN, K, None, 8)
+    sites = plant_edges(text, pats, span, halo, 8)
+    host = text.cpu().numpy()
+    np.save(P20_DIR / "text.npy", host)
+    np.save(P20_DIR / "pats.npy", np.stack(pats))
+    addr = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SHARD_CHILD, addr, str(r), str(SHARD_PROCS),
+         DEVICE],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(SHARD_PROCS)]
+    total = dict.fromkeys(counts(), 0)
+    try:
+        # meanwhile: the same search in this process over the same 8 slots
+        one = ShardedSearch(mesh=make_mesh(8, 1, device=DEVICE))
+        counts_zero()
+        t1 = time.perf_counter()
+        got_one = one.candidates_batch(profiles.Iupac(), pats, text, K)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t1
+        for key, v in counts().items():
+            total[key] += v
+        ranks = []
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"phase 20c: rank {r} exited {proc.returncode}: "
+                     f"{out[-2000:]} {err[-3000:]}")
+            ranks.append(json.loads((P20_DIR / f"rank{r}.json").read_text()))
+    finally:
+        for proc in procs:
+            proc.kill()
+    wall = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        lists = [[tuple(c) for c in row] for row in got["got"]]
+        log(f"phase 20c: rank {r}: {got['backend']}, world {got['world']}, "
+            f"search {got['search_s']:.2f} s, process {got['seconds']:.1f} s "
+            f"after the import, launches {got['launched']}")
+        if got["backend"] != "gloo" or got["world"] != SHARD_PROCS:
+            fail(f"phase 20c: rank {r} ran on {got['backend']}")
+        if got["imported"]:
+            fail(f"phase 20c: rank {r} imported {got['imported']}")
+        if lists != got_one:
+            fail(f"phase 20c: rank {r}'s lists differ from one process's")
+        require(got["launched"], ("q2meta",), ("q1meta", "q1", "q2"),
+                f"phase 20c rank {r}", least=8 // SHARD_PROCS)
+    for q, end in sites:
+        if (end, 1) not in got_one[q]:
+            fail(f"phase 20c: the copy ending at {end} is missing")
+    log(f"phase 20c: {SHARD_PROCS} processes x {8 // SHARD_PROCS} slots on "
+        f"the one card over gloo, {SHARD_MID} bases: {wall:.1f} s of wall; "
+        f"equal to one process's 8 slots ({one_s * 1e3:.1f} ms)")
+
+    # 20d: one NCCL rank
+    eng = TorchEngine(DEVICE)
+    prep = eng.prepare(profiles.Iupac(), text)
+    want = single_lists(eng, prep, pats, K, None)
+    t0 = time.perf_counter()
+    multihost.initialize(coordinator_address=f"127.0.0.1:{free_port()}",
+                         num_processes=1, process_id=0)
+    try:
+        backend = dist.get_backend()
+        counts_zero()
+        got = multihost.global_search(profiles.Iupac(), pats, text, K,
+                                      slots_per_rank=4, device=DEVICE)
+        torch.cuda.synchronize()
+        launched = counts()
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl":
+        fail(f"phase 20d: the one rank ran on {backend}, not nccl")
+    if got != want:
+        fail("phase 20d: global_search differs from the single engine")
+    require(launched, ("q2meta",), ("q1meta", "q1", "q2"), "phase 20d",
+            least=4)
+    for key, v in launched.items():
+        total[key] += v
+    log(f"phase 20d: one NCCL rank, 4 slots: {time.perf_counter() - t0:.1f} "
+        f"s with the group's set-up, equal to the single engine's lists")
+    shutil.rmtree(P20_DIR, ignore_errors=True)
+    del text, prep
+    torch.cuda.empty_cache()
+    return total
+
+
+@contextlib.contextmanager
+def sharded_launches(total: dict):
+    """Every ``ShardedSearch.candidates_batch`` call sets the counts to 0
+    before it and adds them to ``total`` after it, with no plain version
+    allowed: launches of anything else in the block (the single engine a
+    caller compares against) are not counted."""
+    import torch
+
+    from sassy_tpu_torch.parallel import sharded as sharded_mod
+
+    cls = sharded_mod.ShardedSearch
+    orig = cls.candidates_batch
+
+    def counted(self, *a, **kw):
+        counts_zero()
+        try:
+            with no_plain():
+                got = orig(self, *a, **kw)
+            torch.cuda.synchronize()
+        finally:
+            for key, v in counts().items():
+                total[key] += v
+        total["searches"] += 1
+        return got
+
+    cls.candidates_batch = counted
+    try:
+        yield
+    finally:
+        cls.candidates_batch = orig
+
+
+def sharded_entry_points() -> dict:
+    """Phase 20e. Returns the launches of the dryrun's sharded searches
+    (its single-engine references and ``entry()`` are not counted)."""
+    import torch
+
+    from sassy_tpu_torch import graft_entry
+
+    launched = dict.fromkeys(counts(), 0)
+    launched["searches"] = 0
+    t0 = time.perf_counter()
+    with sharded_launches(launched):
+        done = graft_entry.dryrun_multichip(8, device=DEVICE)
+    searches = launched.pop("searches")
+    t_dry = time.perf_counter() - t0
+    if searches != len(done):
+        fail(f"phase 20e: {searches} sharded searches for {len(done)} "
+             "scenarios")
+    # the dryrun's mesh is 2 x 4: every search launches on each slot; its
+    # two overhang scenarios run q2, its two fast ones q2meta
+    require(launched, ("q2", "q2meta"), ("q1meta", "q1", "qn", "variants"),
+            "phase 20e's sharded searches", least=2 * 8)
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry(DEVICE)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if out.device.type != "cuda" or out.shape[0] != 2:
+        fail(f"phase 20e: entry() returned {out.shape} on {out.device}")
+    log(f"phase 20e: dryrun_multichip(8) {done} in {t_dry:.1f} s, its "
+        f"sharded searches' launches {launched}; entry() ({out.shape[1]} "
+        f"candidates) in {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
+def sharded() -> dict:
+    """Phase 20: the sharded search on the card. Returns its launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    total = dict.fromkeys(counts(), 0)
+    for part in (sharded_one_process(gen), sharded_past_2g(gen),
+                 sharded_processes(gen), sharded_entry_points()):
+        for key, v in part.items():
+            total[key] += v
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s, launches {total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2580,6 +3155,8 @@ def main() -> int:
     launches_19 = evals_and_surfaces()
     log(f"phase 19: q1meta launched {launches_19['q1meta']} times, q2meta "
         f"{launches_19['q2meta']} times")
+    torch.cuda.empty_cache()
+    launches_20 = sharded()
 
     ref = [m for m in sys.modules if m in ("jax", "sassy_tpu")
            or m.startswith(("jax.", "sassy_tpu."))]
@@ -2593,17 +3170,20 @@ def main() -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": None}
 
+    # rows 1-4: the main path's launches and phase 20's (the sharded path)
     record = {"kernels": [
         entry("scan_meta (q1meta)", "sassy_tpu_torch/csrc/scan_meta.cu",
-              "sassy_tpu/ops/myers_pallas.py:201", launches, head),
+              "sassy_tpu/ops/myers_pallas.py:201",
+              launches + launches_20["q1meta"], head),
         entry("scan_q_meta (q2meta)", "sassy_tpu_torch/csrc/scan_q_meta.cu",
-              "sassy_tpu/ops/myers_pallas.py:735", launches_q, head_q),
+              "sassy_tpu/ops/myers_pallas.py:735",
+              launches_q + launches_20["q2meta"], head_q),
         entry("scan (q1)", "sassy_tpu_torch/csrc/scan.cu",
-              "sassy_tpu/ops/myers_pallas.py:49", head_q1["launches"],
-              head_q1),
+              "sassy_tpu/ops/myers_pallas.py:49",
+              head_q1["launches"] + launches_20["q1"], head_q1),
         entry("scan_q (q2)", "sassy_tpu_torch/csrc/scan_q.cu",
-              "sassy_tpu/ops/myers_pallas.py:541", launched_b["q2"],
-              head_q2),
+              "sassy_tpu/ops/myers_pallas.py:541",
+              launched_b["q2"] + launches_20["q2"], head_q2),
         entry("scan_qn U=1 loop WU=1 (q)", "sassy_tpu_torch/csrc/scan_qn.cu",
               "sassy_tpu/ops/myers_pallas.py:400", rows_qn["q"]["launches"],
               rows_qn["q"]),

@@ -44,6 +44,7 @@ __all__ = [
     "select_words_tiles_q",
     "select_words_tiles",
     "select_candidates",
+    "last_owned_code",
     "select_candidates_tiles",
     "cummax_1d",
 ]
@@ -142,23 +143,37 @@ def meta_from_words(vp_w, vm_w, cost_w, valid_from, valid_to, k):
     return meta.to(torch.int32), (cm[..., -1, :] & 3).to(torch.int32)
 
 
-def tile_state_chain_codes(tl, is_start):
+def tile_state_chain_codes(tl, is_start, seed_code=None,
+                           with_out: bool = False):
     """Cross-tile decreasing-state seeds from per-tile last-owned-delta
     codes (``tl`` (T,): 0 none, 2|sign otherwise, the kernel's ``final``),
     combined by an exclusive cummax in tile order and reset at tiles that
     own a text start (``is_start`` (T,) bool). Returns (T,) int32 in
     {0, 1}: 1 = the last delta before this tile's owned range was +1.
-    ``tl`` may have leading axes (one chain per pattern: (Q, T))."""
+    ``tl`` may have leading axes (one chain per pattern: (Q, T)).
+
+    ``seed_code`` (``tl``'s leading shape, int): the state entering before
+    tile 0, coded ``2 + sign`` (0 none), as the sharded search carries it
+    across shards; any owned delta or text start beats it. ``with_out``
+    also returns the code leaving the last tile, ``max`` of the tile codes
+    ``2 * (t + 2) + sign`` (0 when no tile has an owned delta)."""
     T = tl.shape[-1]
     t_ids = torch.arange(T, dtype=torch.int64, device=tl.device)
     tl = tl.to(torch.int64)
     tcode = torch.where(tl > 0, 2 * (t_ids + 2) + (tl & 1), 0)
     cm = torch.cummax(tcode, dim=-1).values
     ld = torch.cat([torch.zeros_like(cm[..., :1]), cm[..., :-1]], dim=-1)
+    if seed_code is not None:
+        # the incoming state sits at pseudo tile -1: (ld >> 1) == 1
+        seed = torch.as_tensor(seed_code, dtype=torch.int64, device=tl.device)
+        ld = torch.maximum(ld, seed[..., None])
     scode = torch.where(is_start, t_ids + 2, 0)
     ls = torch.cummax(scode, dim=-1).values
     state0 = torch.where((ld > 0) & ((ld >> 1) >= ls), ld & 1, 0)
-    return state0.to(torch.int32)
+    state0 = state0.to(torch.int32)
+    if with_out:
+        return state0, tcode.amax(dim=-1) if T else tcode.sum(dim=-1)
+    return state0
 
 
 def overshoot_floor(alpha32: torch.Tensor, over: torch.Tensor) -> torch.Tensor:
@@ -352,9 +367,64 @@ def _word_bits(vp, vm, cost):
     return delta, cost[:, None] + torch.cumsum(delta, dim=1, dtype=torch.int32)
 
 
+def _flat_words(x: torch.Tensor, W: int, halo: int, f0: int,
+                f1: int) -> torch.Tensor:
+    """Flat owned words f0..f1 - 1 of (NW, T) tiled scan outputs: flat word
+    f is word ``f % W`` of tile ``f // W``'s owned range (window words
+    [halo, halo + W) of tile t >= 1, [0, W) of tile 0)."""
+    f = torch.arange(f0, f1, dtype=torch.int64, device=x.device)
+    t = f // W
+    return x[f % W + torch.where(t > 0, halo, 0), t]
+
+
+def last_owned_code(vp_w, vm_w, W: int, halo: int, lo: int, hi: int,
+                    n_text: int, alpha) -> int:
+    """The code of the last nonzero cost delta at the flat positions
+    lo..hi of ``select_candidates``' tiled scan outputs: 0 none, 2 for
+    -1, 3 for +1. Deltas past ``n_text`` include the overshoot cost's
+    steps, as the selection sees them. The sharded search passes it to
+    the shards after this one; ``hi - n_text`` is at most the overhang
+    steps there, so only those positions are expanded."""
+    lo = max(lo, 1)
+    if hi < lo:
+        return 0
+    dev = vp_w.device
+    raw_hi = hi if alpha is None else min(hi, n_text)
+    if alpha is not None and hi > max(lo - 1, n_text):
+        p = torch.arange(max(lo - 1, n_text) + 1, hi + 1, dtype=torch.int64,
+                         device=dev)
+        f0 = int(p[0] - 1) // WB
+        f1 = int(p[-1] - 1) // WB + 1
+        vp = u32(_flat_words(vp_w, W, halo, f0, f1))
+        vm = u32(_flat_words(vm_w, W, halo, f0, f1))
+        b = (p - 1) % WB
+        i = (p - 1) // WB - f0
+        a32 = _alpha32(alpha, dev)
+        delta = (((vp[i] >> b) & 1) - ((vm[i] >> b) & 1)
+                 + overshoot_floor(a32, p - n_text)
+                 - overshoot_floor(a32, p - 1 - n_text))
+        nz = torch.nonzero(delta).view(-1)
+        if nz.numel():
+            return 2 + int(delta[nz[-1]] > 0)
+    if raw_hi < lo:
+        return 0
+    f0, f1 = (lo - 1) // WB, (raw_hi - 1) // WB + 1
+    widx = torch.arange(f0, f1, dtype=torch.int64, device=dev)
+    omask = _owned_delta_masks(widx, torch.tensor(lo - 1, device=dev),
+                               torch.tensor(raw_hi, device=dev))
+    vp_o = u32(_flat_words(vp_w, W, halo, f0, f1)) & omask
+    vm_o = u32(_flat_words(vm_w, W, halo, f0, f1)) & omask
+    nz = torch.nonzero((vp_o | vm_o) != 0).view(-1)
+    if nz.numel() == 0:
+        return 0
+    last = nz[-1]
+    return 2 + int(_last_delta_up(vp_o[last], vm_o[last]))
+
+
 def select_candidates(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
                       n_text: int, max_pos: int, k: int, alpha,
-                      all_minima: bool):
+                      all_minima: bool, min_pos: int | None = None,
+                      owned_end: int | None = None, state0: int | None = None):
     """Position-level candidate selection of one text (the single engine's
     overhang path with a long overshoot span).
 
@@ -367,6 +437,12 @@ def select_candidates(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
     ``minima.select_candidates``), run in chunks of whole tiles with the
     last state carried across chunk edges. Returns a (2, N) int64 tensor,
     [end positions; costs], in position order.
+
+    The sharded search passes its owner-computes range: only positions in
+    [``min_pos``, ``owned_end``] are reported, and with ``state0`` (1 = the
+    last delta before ``min_pos`` was +1, from the shards before this
+    one) the deltas below ``min_pos``, restart artifacts of the halo, do
+    not feed the decreasing state (reference ``minima.py:43-107``).
     """
     NW, T = vp_w.shape
     dev = vp_w.device
@@ -390,7 +466,10 @@ def select_candidates(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
         return d + int(ov(p) - ov(p - 1))
 
     found = []
-    carry = -1  # the encoded last nonzero delta before the chunk
+    # the encoded last nonzero delta before the chunk (position 0 codes +1
+    # as 1, as the reference seeds it)
+    carry = -1 if not state0 else 1
+    lo = 0 if min_pos is None else min_pos
     for t0 in range(0, T, t_chunk):
         t1 = min(T, t0 + t_chunk)
         d32, c32 = _word_bits(owned(vp_w, t0, t1), owned(vm_w, t0, t1),
@@ -406,10 +485,14 @@ def select_candidates(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
         ovp = ov(p)
         c = c + ovp
         delta = delta + ovp - ov(p - 1)
-        mask = (p <= max_pos) & (c <= k)
+        mask = (p <= max_pos) & (c <= k) & (p >= lo)
+        if owned_end is not None:
+            mask &= p <= owned_end
         if not all_minima:
             enc = torch.where(delta > 0, 2 * p + 1,
                               torch.where(delta < 0, 2 * p, -1))
+            if state0 is not None:
+                enc = torch.where(p >= lo, enc, -1)
             enc[0] = max(int(enc[0]), carry)
             m2 = cummax_1d(enc)
             carry = int(m2[-1])

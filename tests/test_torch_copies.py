@@ -78,7 +78,9 @@ def test_port_file_imports_nothing_of_the_jax_package(path):
 def test_port_files_are_all_found():
     assert len(PORT_FILES) > 15 and "sassy_tpu_torch/search.py" in PORT_FILES
     for sub in ("evals/bench_suite.py", "examples/modes.py", "refcost.py",
-                "capi/__init__.py"):
+                "capi/__init__.py", "parallel/sharded.py",
+                "parallel/multihost.py", "graft_entry.py",
+                "tools/bench_sharded.py"):
         assert f"sassy_tpu_torch/{sub}" in PORT_FILES
 
 

@@ -490,3 +490,48 @@ def test_batched_prefilter_cuda_equals_cpu_and_oracle(cuda, monkeypatch):
         pats, texts, 2))
     _same(on, RefSearcher("iupac", rc=True, engine="numpy").search_many(
         pats, texts, 2))
+
+
+def _sharded_launches():
+    return (myers_cuda.scan_meta.launches, myers_cuda.scan_q_meta.launches,
+            myers_cuda.scan.launches, myers_cuda.scan_q.launches)
+
+
+@pytest.mark.parametrize("n_text,n_pat", [(1, 1), (8, 1), (4, 2)])
+@pytest.mark.parametrize("alpha", [None, 0.5])
+def test_sharded_cuda_equals_single_engine(cuda, n_text, n_pat, alpha):
+    """The sharded search's slots on one card (1 and 8 slots, and a 2-group
+    pattern axis) against the card's single engine, with copies planted
+    across every shard edge and off both text ends; word level through
+    q1meta / q2meta only, overhang through q1 / q2 only."""
+    from sassy_tpu_torch.ops.myers_torch import TorchEngine
+    from sassy_tpu_torch.parallel import ShardedSearch, make_mesh
+
+    rng = np.random.default_rng(70 + n_text)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    n, m = 200_000 + 37, 23
+    Q = 1 if n_text == 8 else 4  # one pattern a slot: q1meta / q1
+    pats = [rng.choice(bases, m) for _ in range(Q)]
+    text = rng.choice(bases, n)
+    span = n // n_text
+    for d in range(1, n_text):
+        text[d * span - 10 : d * span - 10 + m] = pats[d % Q]
+    text[:19] = pats[0][4:]
+    text[-19:] = pats[-1][:19]
+    prof = profiles.Iupac()
+    ss = ShardedSearch(mesh=make_mesh(n_text, n_pat))
+    before = _sharded_launches()
+    got = ss.candidates_batch(prof, pats, text, 3, alpha=alpha)
+    torch.cuda.synchronize()
+    q1meta, q2meta, q1, q2 = (a - b for a, b in
+                              zip(_sharded_launches(), before))
+    used = {(None, 1): q1meta, (None, 4): q2meta, (0.5, 1): q1,
+            (0.5, 4): q2}[alpha, Q]
+    assert used == n_text * n_pat
+    assert q1meta + q2meta + q1 + q2 == used
+    eng = TorchEngine("cuda")
+    want = [eng.candidates(prof, prof.encode(p), text, 3, alpha, None, False)
+            for p in pats]
+    assert got == want
+    assert ss.last_stats["ownership_violations"] == 0
+    assert sum(len(c) for c in got) == ss.last_stats["per_shard_counts"].sum()
