@@ -40,7 +40,8 @@ the CUDA toolkit. Phases:
    through q2meta and never q1meta; every read with any other match, and
    a sample of the others, is searched again on the port's CPU path (the
    plain versions), Match for Match with CIGAR; the phases of one strand
-   are timed, and the async dispatch is shown to return before its work;
+   are timed (its traceback over the first 4,096 reads), and the async
+   dispatch is shown to return before its work;
 7. batched vs single on the card: 4 barcodes over 200 reads, search_many
    against the per-pair Searcher.search results (q1meta), and
    search_encoded_patterns(rc_anchor="end") against per-pattern search,
@@ -106,13 +107,14 @@ the CUDA toolkit. Phases:
    nanopore shape with 8 x 72 bp at k=2 (32 suffix rows), on and off,
    equal Match lists, one strand's phases timed, and its dispatch with
    and without the prefilter in turns, also over fewer reads;
-16. bench.py's loop on the port: 1 GiB of random ACGT on the card with a
-   23 bp pattern planted three times with one substitution,
-   TorchEngine.prepare, a warm candidates, the best of 5 sequential
-   candidates and 8 depth-2 pipelined candidates_async calls (sequential
-   and pipelined GB/s); every list holds the planted ends and the
-   pipelined lists equal the sequential one; candidates_async returns
-   before its dispatch ends; q1meta only;
+16. bench.py's loop on the port, through sassy_tpu_torch.tools.bench's
+   run(): 1 GiB of random ACGT on the card with a 23 bp pattern planted
+   three times with one substitution, TorchEngine.prepare, a warm
+   candidates, 20 sequential candidates (median, p10, p90, best) and 3
+   batches of 8 depth-2 pipelined candidates_async calls, then q1meta
+   alone on the same windows under CUDA events; every list holds the
+   planted ends and equals the warm one; candidates_async returns before
+   its dispatch ends; q1meta only;
 17. the command line on the card, in subprocesses (`cli_child`: a command
    as `python -m sassy_tpu_torch ...` runs it, or several through
    `sassy_tpu_torch.cli.main`, each with the kernels' launch counts read
@@ -177,7 +179,21 @@ the CUDA toolkit. Phases:
    neither JAX nor the reference; (d) multihost.initialize and
    global_search as one NCCL rank, 4 slots, against the single engine;
    (e) graft_entry.dryrun_multichip(8), counting the launches of its
-   sharded searches alone, and entry() on the card.
+   sharded searches alone, and entry() on the card;
+21. the port's tools (sassy_tpu_torch.tools) on the card through their
+   run(), the plain scans made to refuse: (a) one round of the
+   differential soak (tools.soak: the 16 signatures, 8,000 pairs, each
+   against the numpy oracle in a pool of processes), which must launch
+   q1meta, q2meta, q1 and q2; (b) bench_oneshot at 10 kbp, 100 kbp and
+   1 Mbp; (c) bench_traceback over 1,000 planted matches in 8 MB, traced
+   and untraced counts equal (its ratio against the 10x criterion is
+   logged only); (d) bench_io_overlap over a 16 Mbp genome, the crispr
+   command line in a subprocess that imports neither JAX nor the
+   reference, the steady pass finding the matches of the first; (e)
+   profile_readset, 8 patterns over 16 MB as reads and as one text, with
+   equal match counts (the copies planted every 5,000 bases never cross
+   an edge of the 10,000-base reads); its soak round's launches join
+   phase 20's in rows 1-4 of the kernels line.
 
 The script imports neither JAX nor anything of the reference package.
 
@@ -221,6 +237,9 @@ Q_KERNEL = 8
 READS_CPU = 64
 Q_SINGLE = 4
 READS_SINGLE = 200
+#: phase 6's timed strand: the reads whose candidates it traces back (its
+#: search_many run traces every read of both strands)
+TRACE_READS = 4096
 #: the planted copies' one edit: a substitution at this pattern index
 MUT_AT = 11
 #: phases 8-11: overhang. (alpha, k, pattern length, chars a planted copy
@@ -253,9 +272,8 @@ HIER_TURNS = 3
 HIER_REPS = 5
 #: a gate that no plan reaches: the prefilter forced off
 NEVER = 1 << 62
-#: phase 16: bench.py's sequential runs and pipelined calls
-BENCH_SEQ = 5
-BENCH_PIPE = 8
+#: phase 16: the seed of tools.bench's text and pattern (its default)
+BENCH_SEED = 42
 #: phase 17a: crispr at evals/configs/off_targets.toml's shape: guides,
 #: contigs of the genome, a guide copy every CRISPR_EVERY bp, a run of
 #: CRISPR_N_RUN 'N' per contig, k
@@ -311,6 +329,14 @@ SHARD_PAST = 1 << 31
 SHARD_BIG_DT = 4
 SHARD_MID = 64_000_000
 SHARD_PROCS = 2
+#: phase 21: the port's tools on the card. The soak's seed (one round of
+#: its 16 signatures, 8,000 pairs), bench_traceback's planted matches and
+#: text, bench_io_overlap's genome, profile_readset's patterns and bytes
+SOAK_SEED = 21
+TRACEBACK_MATCHES, TRACEBACK_MB = 1000, 8.0
+IO_OVERLAP_MB = 16
+READSET_Q, READSET_MB = 8, 16
+ONESHOT_REPS = 5
 #: phase 19: examples/modes.py's CPU run (and the card run it is compared
 #: with) at the module constants tests/test_torch_examples.py uses
 MODES_SMALL = {"N_PATTERNS": 4, "N_TEXTS": 5, "TEXT_LEN": 300, "K": 8}
@@ -687,10 +713,13 @@ def q_kernel_vs_plain(reads, barcodes):
     return head
 
 
-def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha):
+def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha,
+                          trace_texts=None):
     """The phases of the forward strand of a batched search: the engine's
     own dispatch, with its window, scan and selection steps timed (each
-    ended by a synchronise); the first run pays one-time costs."""
+    ended by a synchronise); the first run pays one-time costs. The warm
+    run traces back the candidates of the first ``trace_texts`` texts (all
+    by default)."""
     import torch
 
     from sassy_tpu_torch.ops import batch
@@ -731,12 +760,14 @@ def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha):
         t_decode = time.perf_counter() - t0
         post = "not run"  # the host traceback has no cold cost to show
         if run == "warm":
+            nt = len(texts) if trace_texts is None else trace_texts
+            part = [row[:nt] for row in dense]
             t0 = time.perf_counter()
             ms = searcher._finish_many_batched(
-                lambda: dense, None, pats, pcodes, None, None, texts, texts,
-                k, None)
+                lambda: part, None, pats, pcodes, None, None, texts[:nt],
+                texts[:nt], k, None)
             post = (f"{(time.perf_counter() - t0) * 1e3:.1f} ms "
-                    f"({len(ms)} matches)")
+                    f"({len(ms)} matches of {nt} texts)")
         n_chunks = len(list(eng.chunks(g, pp)))
         log(f"{label}: forward strand, {len(pats)} x {len(pats[0])} bp over "
             f"{len(texts)} x {READ_LEN} bp, {run}: upload+pack "
@@ -764,7 +795,8 @@ def batched_end_to_end(reads, barcodes):
     pcodes = [dna.encode(p) for p in pats]
     searcher = Searcher("dna", rc=True, device=DEVICE)
 
-    batched_strand_phases("phase 6", searcher, dna, pats, texts, K, None)
+    batched_strand_phases("phase 6", searcher, dna, pats, texts, K, None,
+                          TRACE_READS)
 
     # the async dispatch returns before its device work ends: dispatch
     # both strands, then wait for each
@@ -1725,78 +1757,27 @@ def hier_batched(gen, reads):
     plan.HIER_MIN_SAVED_PAIRS = default
 
 
-def bench_loop(gen):
-    """Phase 16: bench.py's loop (bench.py:104-159) on the port."""
-    import torch
-
-    from sassy_tpu_torch import profiles
-    from sassy_tpu_torch.ops.myers_torch import TorchEngine
-
-    n = N_TEXT
-    text = random_acgt(gen, n)
-    pattern = random_acgt(gen, PATTERN_LEN).cpu().numpy()
-    planted = pattern.copy()
-    planted[MUT_AT] = ord("A") if planted[MUT_AT] != ord("A") else ord("C")
-    ends = [off + PATTERN_LEN for off in (12345, n // 2, n - 5000)]
-    for end in ends:
-        text[end - PATTERN_LEN : end] = torch.from_numpy(planted).to(DEVICE)
-    iupac = profiles.Iupac()
-    pcodes = iupac.encode(pattern)
-    eng = TorchEngine(DEVICE)
-
-    def run():
-        return eng.candidates(iupac, pcodes, prep, K, None, None, False)
+def bench_loop():
+    """Phase 16: bench.py's loop (bench.py:104-159) on the port, as
+    ``python -m sassy_tpu_torch.tools.bench`` runs it."""
+    from sassy_tpu_torch.tools import bench
 
     counts_zero()
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prep = eng.prepare(iupac, text)
-    torch.cuda.synchronize()
-    t_prep = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cands = run()
-    warm = time.perf_counter() - t0
-    if not set(ends) <= {e for e, _ in cands}:
-        fail(f"phase 16: planted ends {ends} not all among {cands[:10]}")
-    best = float("inf")
-    for _ in range(BENCH_SEQ):
-        t0 = time.perf_counter()
-        got = run()
-        best = min(best, time.perf_counter() - t0)
-        if got != cands:
-            fail("phase 16: a sequential candidates list differs")
-
-    def start():
-        return eng.candidates_async(iupac, pcodes, prep, K, None, None, False)
-
-    results = []
-    t0 = time.perf_counter()
-    prev = start()
-    t_return = time.perf_counter() - t0
-    # finish() is the dispatch's Future.result: not done yet at the return
-    pending = not prev.__self__.done()
-    for _ in range(BENCH_PIPE - 1):
-        nxt = start()
-        results.append(prev())
-        prev = nxt
-    results.append(prev())
-    pipe = (time.perf_counter() - t0) / BENCH_PIPE
+    try:
+        rec, _ = bench.run(N_TEXT, BENCH_SEED, DEVICE,
+                           log=lambda msg: log(f"phase 16: {msg}"))
+    except AssertionError as e:
+        fail(f"phase 16: {e}")
     launched = counts()
-    log(f"phase 16: TorchEngine({DEVICE!r}) over {n >> 20} MiB, "
-        f"{PATTERN_LEN} bp at k={K}: prepare {t_prep:.3f} s, warm "
-        f"candidates {warm:.3f} s "
-        f"({len(cands)} candidates), best of {BENCH_SEQ} sequential "
-        f"{best * 1e3:.2f} ms = {n / best / 1e9:.2f} GB/s, {BENCH_PIPE} "
-        f"depth-2 pipelined calls {pipe * 1e3:.2f} ms each = "
-        f"{n / pipe / 1e9:.2f} GB/s; candidates_async returned in "
-        f"{t_return * 1e3:.3f} ms, its dispatch then pending={pending}; "
-        f"launches {launched}")
-    if any(r != cands for r in results):
-        fail("phase 16: a pipelined candidates list differs from the "
-             "sequential one")
-    if not pending:
+    log(f"phase 16: tools.bench.run over {N_TEXT >> 20} MiB in "
+        f"{time.perf_counter() - t0:.1f} s: {rec['value']:.2f} GB/s "
+        f"(sequential median {rec['sequential_gbps']:.2f}, pipelined "
+        f"{rec['pipelined_gbps']:.2f}), q1meta "
+        f"{rec['q1meta_ms']['median_ms']:.3f} ms; launches {launched}")
+    if not rec["async_pending"]:
         fail("phase 16: candidates_async returned after its dispatch ended")
-    if launched["q1meta"] != 1 + BENCH_SEQ + BENCH_PIPE:
+    if launched["q1meta"] != rec["calls"] + rec["kernel_launches"]:
         fail(f"phase 16: q1meta launched {launched['q1meta']} times")
     require(launched, ("q1meta",), ("q1", "q2", "q2meta", "qn", "variants"),
             "phase 16")
@@ -2617,9 +2598,9 @@ def plant_edges(text, pats, span: int, halo: int, Dt: int,
 
 
 @contextlib.contextmanager
-def no_plain():
-    """The plain scans refuse to run: phase 20's sharded runs go through the
-    kernels only."""
+def no_plain(what: str = "phase 20"):
+    """The plain scans refuse to run: phase 20's sharded runs and phase
+    21's tools go through the kernels only."""
     from sassy_tpu_torch.ops import myers_cuda
 
     names = ("scan_meta_plain", "scan_q_meta_plain", "scan_plain",
@@ -2628,7 +2609,7 @@ def no_plain():
 
     def refuse(name):
         def plain(*a, **kw):
-            fail(f"phase 20 called the plain version {name}")
+            fail(f"{what} called the plain version {name}")
         return plain
 
     for name in names:
@@ -3076,6 +3057,70 @@ def sharded() -> dict:
     return total
 
 
+def tools_on_card() -> dict:
+    """Phase 21: the port's tools (sassy_tpu_torch.tools) through their
+    run(), on the card, with the plain scans made to refuse; 21d and 21e
+    each hold two of their results equal, 21c's ratio is logged only.
+    Returns the launches of the soak round."""
+    from sassy_tpu_torch.tools import (bench_io_overlap, bench_oneshot,
+                                       bench_traceback, profile_readset, soak)
+
+    t0 = time.perf_counter()
+    one_round = sum(sig[0] * sig[1] for sig in soak.SIGNATURES)
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    counts_zero()
+    with no_plain("phase 21a"):
+        rec = soak.run(one_round, SOAK_SEED, DEVICE, workers,
+                       log=lambda msg: log(f"phase 21a: {msg}"))
+    soaked = counts()
+    if not rec["ok"]:
+        fail(f"phase 21a: {rec['mismatch']}  {rec['repro']}")
+    log(f"phase 21a: soak round of {len(soak.SIGNATURES)} signatures: "
+        f"{rec['pairs']} pairs in {rec['wall_s']:.1f} s (device "
+        f"{rec['card_s']:.1f} s, oracle {rec['oracle_s']:.1f} s in "
+        f"{workers} processes, waited {rec['oracle_wait_s']:.1f} s); "
+        f"launches {soaked}")
+    require(soaked, ("q1meta", "q2meta", "q1", "q2"), ("qn", "variants"),
+            "phase 21a", least=1)
+
+    runs = [
+        ("21b bench_oneshot", lambda: bench_oneshot.run(
+            reps=ONESHOT_REPS, device=DEVICE,
+            log=lambda msg: log(f"phase 21b: {msg}")), ("q1meta",), None),
+        ("21c bench_traceback", lambda: bench_traceback.run(
+            TRACEBACK_MATCHES, TRACEBACK_MB, DEVICE,
+            log=lambda msg: log(f"phase 21c: {msg}"))[0], ("q1meta",),
+         None),
+        ("21d bench_io_overlap", lambda: bench_io_overlap.run(
+            IO_OVERLAP_MB, 32, DEVICE, workdir=CLI_DIR / "io_overlap",
+            log=lambda msg: log(f"phase 21d: {msg}")), ("q2meta",),
+         lambda got: (got["matches"], got["steady_matches"])),
+        ("21e profile_readset", lambda: profile_readset.run(
+            READSET_Q, READSET_MB, device=DEVICE,
+            log=lambda msg: log(f"phase 21e: {msg}")), ("q2meta",),
+         lambda got: (got["reads"]["matches"], got["flat"]["matches"])),
+    ]
+    for label, fn, used, agree in runs:
+        counts_zero()
+        t1 = time.perf_counter()
+        with no_plain(f"phase {label}"):
+            try:
+                got = fn()
+            except (AssertionError, RuntimeError) as e:
+                fail(f"phase {label}: {e}")
+        launched = counts()
+        require(launched, used, ("q1", "q2", "qn", "variants"),
+                f"phase {label}", least=1)
+        if agree is not None and len(set(agree(got))) != 1:
+            fail(f"phase {label}: matches differ {agree(got)}: "
+                 f"{json.dumps(got)}")
+        log(f"phase {label}: {time.perf_counter() - t1:.1f} s, launches "
+            f"{launched}: {json.dumps(got)}")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    return soaked
+
+
 def main() -> int:
     import torch
 
@@ -3144,7 +3189,7 @@ def main() -> int:
     hier_batched(gen, overhang_reads(gen))
     torch.cuda.empty_cache()
 
-    launches_bench = bench_loop(gen)
+    launches_bench = bench_loop()
     torch.cuda.empty_cache()
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     guides, genome, plants = cli_crispr(gen)
@@ -3157,6 +3202,8 @@ def main() -> int:
         f"{launches_19['q2meta']} times")
     torch.cuda.empty_cache()
     launches_20 = sharded()
+    torch.cuda.empty_cache()
+    launches_21 = tools_on_card()
 
     ref = [m for m in sys.modules if m in ("jax", "sassy_tpu")
            or m.startswith(("jax.", "sassy_tpu."))]
@@ -3170,20 +3217,24 @@ def main() -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": None}
 
-    # rows 1-4: the main path's launches and phase 20's (the sharded path)
+    # rows 1-4: the main path's launches, phase 20's (the sharded path) and
+    # phase 21a's (the soak round)
     record = {"kernels": [
         entry("scan_meta (q1meta)", "sassy_tpu_torch/csrc/scan_meta.cu",
               "sassy_tpu/ops/myers_pallas.py:201",
-              launches + launches_20["q1meta"], head),
+              launches + launches_20["q1meta"] + launches_21["q1meta"], head),
         entry("scan_q_meta (q2meta)", "sassy_tpu_torch/csrc/scan_q_meta.cu",
               "sassy_tpu/ops/myers_pallas.py:735",
-              launches_q + launches_20["q2meta"], head_q),
+              launches_q + launches_20["q2meta"] + launches_21["q2meta"],
+              head_q),
         entry("scan (q1)", "sassy_tpu_torch/csrc/scan.cu",
               "sassy_tpu/ops/myers_pallas.py:49",
-              head_q1["launches"] + launches_20["q1"], head_q1),
+              head_q1["launches"] + launches_20["q1"] + launches_21["q1"],
+              head_q1),
         entry("scan_q (q2)", "sassy_tpu_torch/csrc/scan_q.cu",
               "sassy_tpu/ops/myers_pallas.py:541",
-              launched_b["q2"] + launches_20["q2"], head_q2),
+              launched_b["q2"] + launches_20["q2"] + launches_21["q2"],
+              head_q2),
         entry("scan_qn U=1 loop WU=1 (q)", "sassy_tpu_torch/csrc/scan_qn.cu",
               "sassy_tpu/ops/myers_pallas.py:400", rows_qn["q"]["launches"],
               rows_qn["q"]),

@@ -17,6 +17,7 @@ import gzip
 import io
 import sys
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Iterator
 
 from ..search import CachedRev
@@ -103,8 +104,23 @@ def _parse_fastq(fh) -> Iterator[Record]:
 # iteration parses plain fasta at ~1.2 GB/s, slightly ahead of the native
 # single-pass parser (copy/page-fault bound), and gzip is
 # decompression-bound either way — so the Python path is the default.
+# The source is read, never written: g++ builds it into
+# build/sassy_tpu_torch/libfastxio_<hash>.so at first use (``gxx.build``),
+# never ``make -C native``, which writes the JAX package's native/. When
+# that build or its load fails, a line on stderr says the Python path runs.
+
+FASTX_SOURCE = Path(__file__).resolve().parents[2] / "native" / "fastxio.cc"
+FASTX_FLAGS = ("-O3", "-fPIC", "-shared")
 
 _NATIVE = None  # unresolved; False = unavailable
+
+
+def build_native() -> Path:
+    """The native reader's library, compiled unless this source is built
+    already. Raises ``RuntimeError`` when g++ is missing or fails."""
+    from .. import gxx
+
+    return gxx.build("libfastxio", [FASTX_SOURCE], FASTX_FLAGS, libs=["-lz"])
 
 
 def _native_lib():
@@ -112,18 +128,16 @@ def _native_lib():
     if _NATIVE is None:
         import ctypes
         import os
-        from pathlib import Path
 
         if os.environ.get("SASSY_NATIVE_FASTX") != "1":
             _NATIVE = False
             return _NATIVE
-        lib_path = Path(__file__).resolve().parent.parent.parent / "native" / "libfastxio.so"
-        if not lib_path.exists():
-            _NATIVE = False
-            return _NATIVE
         try:
-            lib = ctypes.CDLL(str(lib_path))
-        except OSError:
+            lib = ctypes.CDLL(str(build_native()))
+        except (OSError, RuntimeError) as e:
+            print(f"sassy_tpu_torch: SASSY_NATIVE_FASTX=1 but the native "
+                  f"reader is unavailable, parsing in Python: {e}",
+                  file=sys.stderr)
             _NATIVE = False
             return _NATIVE
 

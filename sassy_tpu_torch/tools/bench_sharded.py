@@ -28,16 +28,9 @@ import time
 
 import torch
 
-from ..ops import myers_cuda
-from ..tools.timing import card_line
+from ..tools.timing import card_line, launch_counts
 
 M, K, Q = 20, 2, 4
-
-
-def _launches() -> dict:
-    return {"q1meta": myers_cuda.scan_meta.launches,
-            "q2meta": myers_cuda.scan_q_meta.launches,
-            "q1": myers_cuda.scan.launches, "q2": myers_cuda.scan_q.launches}
 
 
 def run(mb: float, reps: int, device: str, seed: int) -> dict:
@@ -70,7 +63,7 @@ def run(mb: float, reps: int, device: str, seed: int) -> dict:
             mesh = make_mesh(Dt, 1, device=dev)
             ss = ShardedSearch(mesh=mesh)
             timed = ShardedSearch(mesh=mesh, timed=True)
-            before = _launches()
+            before = launch_counts()
             t0 = time.perf_counter()
             got = ss.candidates_batch(prof, pats, st, K, alpha=alpha)
             sync()
@@ -94,7 +87,7 @@ def run(mb: float, reps: int, device: str, seed: int) -> dict:
             if got != want:
                 raise AssertionError(f"Dt={Dt} {path}: lists differ from "
                                      "Dt=1's")
-            launched = {k: v - before[k] for k, v in _launches().items()}
+            launched = {k: v - before[k] for k, v in launch_counts().items()}
             case = {"Dt": Dt, "path": path, "alpha": alpha,
                     "first_ms": first * 1e3, "best_ms": best * 1e3,
                     "timed_best_ms": best_timed * 1e3,

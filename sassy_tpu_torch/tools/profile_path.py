@@ -15,6 +15,14 @@ synchronise:
 - selection: the state chain, the screened-word expansion and the one
   device-to-host copy of the candidates.
 
+Then the host split of one warm ``candidates`` call on the prepared text
+(the call ``tools.bench`` times, here on this tool's text): the median,
+p10 and p90 of ``SPLIT_CALLS`` calls of each of its steps, run as its
+dispatch thread runs them but each ended by a synchronise (inputs, scan,
+select, copy, host: ``tolist`` and the sort), of the whole call, and of
+what the steps leave of it (the dispatch thread's hand-off and the waits
+the synchronises moved).
+
 Then one warm strand (pack from the device text, windows, scan, selection)
 under ``torch.profiler``: its device time per op (top 25 by self device
 time), the sum of device time against the wall time (the device's busy
@@ -32,6 +40,7 @@ import torch
 
 PATTERN_LEN = 23
 K = 3
+SPLIT_CALLS = 20
 
 
 def _timed(fn, reps: int):
@@ -44,6 +53,43 @@ def _timed(fn, reps: int):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return times[0], sum(times[1:]) / reps
+
+
+def split_call(eng, profile, codes, text, k: int, sync,
+               calls: int = SPLIT_CALLS) -> dict:
+    """{step: {median, p10, p90, best} in ms} of ``calls`` warm
+    ``candidates`` calls of ``eng`` on ``text`` (prepared), split into the
+    steps its dispatch thread runs (the 23 bp shape runs no suffix
+    prefilter), each ended by ``sync``; then ``call``, the whole
+    ``candidates``, and ``rest``, its median less the steps' medians."""
+    from .timing import spread
+
+    names = ("inputs", "scan", "select", "copy", "host", "call")
+    times = {name: [] for name in names}
+    for _ in range(calls):
+        t = [time.perf_counter()]
+        inp = eng.build_inputs(profile, codes, text, k)
+        sync()
+        t.append(time.perf_counter())
+        outs = eng.scan(inp)
+        sync()
+        t.append(time.perf_counter())
+        sel = eng.select(inp, outs)
+        sync()
+        t.append(time.perf_counter())
+        host = sel.cpu()
+        t.append(time.perf_counter())
+        pos, cost = host.tolist()
+        sorted(zip(pos, cost))
+        t.append(time.perf_counter())
+        eng.candidates(profile, codes, text, k, None, None, False)
+        t.append(time.perf_counter())
+        for name, t0, t1 in zip(names, t, t[1:]):
+            times[name].append((t1 - t0) * 1e3)
+    out = {name: spread(v) for name, v in times.items()}
+    out["rest"] = {"median": out["call"]["median"] - sum(
+        out[name]["median"] for name in names[:-1])}
+    return out
 
 
 def main(argv=None) -> int:
@@ -96,6 +142,12 @@ def main(argv=None) -> int:
         cold, warm = _timed(fn, args.reps)
         print(f"{name}: cold {cold:.3f} ms, warm {warm:.3f} ms "
               f"(mean of {args.reps})", flush=True)
+    split = split_call(eng, dna, codes, prep, K, torch.cuda.synchronize)
+    for name, sp in split.items():
+        print(f"candidates split, {name}: median {sp['median']:.3f} ms"
+              + (f" (p10 {sp['p10']:.3f}, p90 {sp['p90']:.3f})"
+                 if "p10" in sp else "") + f" of {SPLIT_CALLS} calls",
+              flush=True)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

@@ -1,11 +1,14 @@
-"""What the kernel-design tools share: the timing of one callable, the
-card's name and power limit, and the registers ``ptxas`` reported for a
-kernel of the built library."""
+"""What the tools share: the device a tool runs on, the timing of one
+callable and the spread of a list of times, the card's name and power
+limit, the kernels' launch counts, and the registers ``ptxas`` reported
+for a kernel of the built library."""
 
 from __future__ import annotations
 
 import re
+import statistics
 import subprocess
+import sys
 import time
 
 from ..ops import myers_cuda
@@ -25,17 +28,50 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, device, reps: int = REPS, batches: int = BATCHES) -> float:
-    """Milliseconds per call of ``fn``: after one warm-up call, the least
-    mean over ``batches`` batches of ``reps`` calls each (a batch that the
-    host enqueued slowly, or that met the allocator's first growth, reads
-    high). CUDA events on the current stream of a CUDA device, the host
-    clock on the CPU."""
+def open_device(tool: str, device: str):
+    """(``device`` as a torch.device, the card's line printed, or None on
+    the CPU), or (None, None) after saying on stderr that ``tool`` found
+    no CUDA device: a tool asked for the card never runs on the CPU in its
+    place."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev, None
+    if not torch.cuda.is_available():
+        print(f"{tool}: no CUDA device (pass --device cpu to run the plain "
+              "versions on the CPU)", file=sys.stderr)
+        return None, None
+    card = card_line()
+    print(card, flush=True)
+    return dev, card
+
+
+def launch_counts() -> dict:
+    """The launch counts of the four kernels the searches run."""
+    return {"q1meta": myers_cuda.scan_meta.launches,
+            "q2meta": myers_cuda.scan_q_meta.launches,
+            "q1": myers_cuda.scan.launches, "q2": myers_cuda.scan_q.launches}
+
+
+def spread(times) -> dict:
+    """Median, p10, p90 (nearest rank, as ``scripts/bench_oneshot.py``
+    takes them) and best of a list of times."""
+    t = sorted(times)
+    return {"median": statistics.median(t),
+            "p10": t[max(0, int(0.1 * len(t)) - 1)],
+            "p90": t[min(len(t) - 1, int(0.9 * len(t)))], "best": t[0]}
+
+
+def batch_ms(fn, device, reps: int = REPS, batches: int = BATCHES) -> list:
+    """Milliseconds per call of ``fn`` in each of ``batches`` batches of
+    ``reps`` calls (the batch's mean), after one warm-up call. CUDA events
+    on the current stream of a CUDA device, the host clock on the CPU."""
     import torch
 
     on_card = torch.device(device).type == "cuda"
     fn()
-    best = float("inf")
+    out = []
     for _ in range(batches):
         if on_card:
             torch.cuda.synchronize()
@@ -49,10 +85,16 @@ def time_ms(fn, device, reps: int = REPS, batches: int = BATCHES) -> float:
         if on_card:
             end.record()
             torch.cuda.synchronize()
-            best = min(best, start.elapsed_time(end) / reps)
+            out.append(start.elapsed_time(end) / reps)
         else:
-            best = min(best, (time.perf_counter() - t0) * 1e3 / reps)
-    return best
+            out.append((time.perf_counter() - t0) * 1e3 / reps)
+    return out
+
+
+def time_ms(fn, device, reps: int = REPS, batches: int = BATCHES) -> float:
+    """The least of ``batch_ms``: a batch that the host enqueued slowly,
+    or that met the allocator's first growth, reads high."""
+    return min(batch_ms(fn, device, reps, batches))
 
 
 def kernel_resources(log: str) -> dict[str, tuple[int, int]]:

@@ -1,8 +1,9 @@
 """The port owns its host modules: no file of ``sassy_tpu_torch`` (nor
 ``chip_smoke.py``) imports the JAX package, and each of the port's copies
 behaves as the original does: the profiles' tables, the overhang math,
-the pattern plane masks, the DP matrix, CIGARs, the N-fraction filters,
-the traceback and the alignment iterator.
+the pattern plane masks, the DP matrix, the oracle's end costs and
+candidates, the end-position scans, CIGARs, the N-fraction filters, the
+traceback and the alignment iterator.
 
 The port's ``Match`` and the reference's are different classes, so the
 tests compare Match lists as (``sort_key()``, CIGAR string) tuples; the
@@ -28,6 +29,7 @@ from sassy_tpu import profiles as ref_profiles
 from sassy_tpu import semantics as ref_semantics
 from sassy_tpu import traceback as ref_traceback
 from sassy_tpu.ops import bitpack as ref_bitpack
+from sassy_tpu.search import NumpyEngine
 from sassy_tpu_torch import (
     Searcher,
     cigar,
@@ -79,7 +81,10 @@ def test_port_files_are_all_found():
     assert len(PORT_FILES) > 15 and "sassy_tpu_torch/search.py" in PORT_FILES
     for sub in ("evals/bench_suite.py", "examples/modes.py", "refcost.py",
                 "capi/__init__.py", "parallel/sharded.py",
-                "parallel/multihost.py", "graft_entry.py",
+                "parallel/multihost.py", "graft_entry.py", "tools/soak.py",
+                "tools/bench.py", "tools/bench_oneshot.py",
+                "tools/bench_traceback.py", "tools/bench_io_overlap.py",
+                "tools/profile_readset.py",
                 "tools/bench_sharded.py"):
         assert f"sassy_tpu_torch/{sub}" in PORT_FILES
 
@@ -169,6 +174,77 @@ def test_dp_matrix_equals_reference(alpha, mo):
         np.testing.assert_array_equal(
             oracle.dp_matrix(port, p, t, alpha, mo),
             ref_oracle.dp_matrix(ref, p, t, alpha, mo))
+
+
+ALPHAS = [None, 0.0, 0.5, 1.0]
+
+
+def _oracle_inputs(seed: int):
+    """Seeded (pattern codes, text) pairs of the iupac profile: IUPAC
+    patterns, texts with N runs and planted copies, lengths from 1 up."""
+    port, _ = PROFILE_PAIRS["iupac"]
+    rng = np.random.default_rng(seed)
+    iupac = np.frombuffer(b"ACGTNRYSWKM", np.uint8)
+    out = []
+    for m, n in ((1, 0), (4, 9), (7, 60), (12, 200), (23, 500)):
+        pat = rng.choice(iupac if rng.random() < 0.4 else BASES, m)
+        text = rng.choice(np.frombuffer(b"ACGTN", np.uint8), n)
+        for _ in range(int(rng.integers(0, 3))):
+            if n >= m:
+                p = int(rng.integers(0, n - m + 1))
+                text[p : p + m] = pat
+        out.append((port.encode(pat), text))
+    return out
+
+
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_end_costs_equals_reference(alpha):
+    port, ref = PROFILE_PAIRS["iupac"]
+    for mo in (None, 3):
+        for p, t in _oracle_inputs(5):
+            np.testing.assert_array_equal(
+                oracle.end_costs(port, p, port.encode(t), alpha, mo),
+                ref_oracle.end_costs(ref, p, ref.encode(t), alpha, mo))
+
+
+@pytest.mark.parametrize("all_minima", [False, True])
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_find_candidates_equal_reference(alpha, all_minima):
+    """Both end-position scans over the oracle's total costs (overshoot
+    included) of seeded inputs, and over random cost rows with plateaus."""
+    port, _ = PROFILE_PAIRS["iupac"]
+    rng = np.random.default_rng(6)
+    rows = [rng.integers(0, 4, size=int(rng.integers(1, 40)))
+            for _ in range(50)]
+    for p, t in _oracle_inputs(7):
+        n = len(t)
+        steps = semantics.overhang_steps(len(p), 3, alpha, None)
+        padded = np.concatenate([port.encode(t), np.full(
+            steps, port.overhang_pad_code, np.uint8)])
+        rows.append(oracle.end_costs(port, p, padded, alpha, None)
+                    + semantics.overshoot_costs_vec(
+                        alpha, np.arange(n + steps + 1) - n))
+    for c in rows:
+        for k in (0, 1, 3):
+            want = ref_semantics.find_candidates(c, k, all_minima)
+            assert semantics.find_candidates(c, k, all_minima) == want
+            assert semantics.find_candidates_scalar(c, k, all_minima) == want
+            assert (ref_semantics.find_candidates_scalar(c, k, all_minima)
+                    == want)
+
+
+@pytest.mark.parametrize("all_minima", [False, True])
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_oracle_candidates_equal_numpy_engine(alpha, all_minima):
+    port, ref = PROFILE_PAIRS["iupac"]
+    ne = NumpyEngine()
+    for mo in (None, 2):
+        for p, t in _oracle_inputs(8):
+            for k in (0, 2, 4):
+                got = oracle.candidates(port, p, t, k, alpha, mo, all_minima)
+                want = ne.candidates(ref, p, t, k, alpha, mo, all_minima)
+                assert got == want
+                assert all(type(x) is int for pair in got for x in pair)
 
 
 def test_cigar_equals_reference():
