@@ -7,12 +7,16 @@ from the root of a checkout, on a machine with an sm_90a GPU (H100) and
 the CUDA toolkit. Phases:
 
 1. the card (nvidia-smi), the toolchain (features()), and the build of
-   the six kernel sources (q1meta, q2meta, q1, q2, the qN family, the
-   row-step ablations) from sassy_tpu_torch/csrc/ with one nvcc call;
+   the eight kernel sources (q1meta, q2meta, q1, q2, the qN family, the
+   row-step ablations, the word-level and the position-level candidate
+   selections) from sassy_tpu_torch/csrc/ with one nvcc call;
 2. kernel vs plain: the q1meta scan kernel against its plain PyTorch
    version on the windows of a 1 GiB text (the H100 tile plan, a 23 bp
    pattern at k=3), bit for bit on all five outputs, for the pure, iupac
-   and ascii eq and for a 100 bp pattern (M > 64); both timed;
+   and ascii eq and for a 100 bp pattern (M > 64); both timed; then the
+   select_words kernel on the pure outputs as the engine runs it, with
+   and without all_minima, against its plain version (every selection
+   comparison: the columns equal after a lexsort; both timed);
 3. end to end at full size: Searcher("dna", rc=True, device="cuda")
    .search over 1 GiB of random ACGT with mutated copies of the pattern
    planted on both strands; every copy must come back, through the
@@ -29,7 +33,8 @@ the CUDA toolkit. Phases:
    outputs: first that chunk exactly as phase 6 launches it (all 96
    barcodes), then Q = 8 patterns of one row bucket with different
    lengths for pure, iupac, ascii and 97-104 bp patterns (M > 64); each
-   pattern's slice also against the q1meta kernel; both timed;
+   pattern's slice also against the q1meta kernel; both timed; the
+   select_words kernel on the first case's outputs as phase 6 runs it;
 6. end to end at full size, batched: the nanopore shape of
    evals/configs/nanopore_full.toml, 96 random 24 bp barcodes against
    33,400 random 10 kbp reads (334 Mbp), k=3, through
@@ -53,16 +58,19 @@ the CUDA toolkit. Phases:
    one strand each and then on the other, and a mutated interior copy;
    each must come back as the port's CPU path finds it on a 50 kbp slice
    holding the same end; q1meta launched, q1 never; one strand timed;
+   the select_words kernel on the tail tile and the n_prev strip;
 9. q1 vs plain and the single position-level path, 1 GiB: the q1 kernel
    against its plain version on the overlaid windows of a 120 bp IUPAC
    pattern at k=10, alpha 0.1 (101 overshoot steps), bit for bit, both
    timed; then Searcher("iupac", rc=True, alpha=0.1).search of it, with
    copies hanging 10 chars off both ends, checked as in phase 8; q1
-   launched, q1meta never; the device memory peak;
+   launched, q1meta never; the device memory peak; the select_positions
+   kernel on the planted text's q1 outputs;
 10. q2 vs plain: the q2 kernel against its plain version on the first
    dispatch chunk of phase 11b's position-level run (8 patterns of
    120 bp, k=10, alpha 0.1), bit for bit, each pattern's slice against
-   q1; both timed;
+   q1; both timed; the select_positions kernel on the first tile range
+   of the chunk as phase 11b selects it;
 11. batched overhang at the nanopore shape, 33,400 fresh random 10 kbp
    reads: (a) search_many of 96 x 24 bp barcodes, k=3, alpha 0.5, an
    exact barcode copy hanging 4 chars off the start or the end of every
@@ -179,11 +187,14 @@ the CUDA toolkit. Phases:
    neither JAX nor the reference; (d) multihost.initialize and
    global_search as one NCCL rank, 4 slots, against the single engine;
    (e) graft_entry.dryrun_multichip(8), counting the launches of its
-   sharded searches alone, and entry() on the card;
+   sharded searches alone, and entry() on the card; the selection
+   kernels on a slot of a later shard (select_positions with min_pos,
+   owned_end and state0, (a)'s overhang q2) and on the slot past 2^31
+   ((b), select_words);
 21. the port's tools (sassy_tpu_torch.tools) on the card through their
-   run(), the plain scans made to refuse: (a) one round of the
-   differential soak (tools.soak: the 16 signatures, 8,000 pairs, each
-   against the numpy oracle in a pool of processes), which must launch
+   run(), the plain scans and selections made to refuse: (a) one round
+   of the differential soak (tools.soak: the 16 signatures, 8,000 pairs,
+   each against the numpy oracle in a pool of processes), which must launch
    q1meta, q2meta, q1 and q2; (b) bench_oneshot at 10 kbp, 100 kbp and
    1 Mbp; (c) bench_traceback over 1,000 planted matches in 8 MB, traced
    and untraced counts equal (its ratio against the 10x criterion is
@@ -194,6 +205,13 @@ the CUDA toolkit. Phases:
    equal match counts (the copies planted every 5,000 bases never cross
    an edge of the 10,000-base reads); its soak round's launches join
    phase 20's in rows 1-4 of the kernels line.
+
+After each main-path run of phases 3, 6, 8, 9, 11, 20 and 21a no plain
+selection ran and the selection kernel of its level launched; those
+launches are rows 10-11 of the kernels line (select_words,
+select_positions), whose times are phase 2's (without all_minima) and
+phase 9's. The plain selections refuse to run wherever the plain scans
+do (phases 20 and 21).
 
 The script imports neither JAX nor anything of the reference package.
 
@@ -213,9 +231,11 @@ import sys
 import time
 from pathlib import Path
 
-#: bound_ms and bound_by of one scan launch (the kernels line): the H100
-#: bound of PERF.md section 6, kept in the package beside cost_model
+#: bound_ms and bound_by of one scan launch and of one selection call (the
+#: kernels line): the H100 bounds of PERF.md section 6, kept in the package
+#: beside cost_model
 from sassy_tpu_torch.diagnostics import scan_bound as bound
+from sassy_tpu_torch.diagnostics import select_bound
 
 DEVICE = "cuda"
 SEED = 0
@@ -394,7 +414,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def counts_zero():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and the plain selections' call
+    counts, to 0."""
     from sassy_tpu_torch.ops import myers_cuda
 
     for fn in (myers_cuda.scan_meta, myers_cuda.scan_q_meta, myers_cuda.scan,
@@ -403,6 +424,146 @@ def counts_zero():
         fn.launches = 0
     myers_cuda.scan_qn.members = {}
     myers_cuda.scan_variant.members = {}
+    select_restore(dict.fromkeys(select_state(), 0))
+
+
+#: the selection entry points of ops/minima.py and their kernels' rows
+SELECT_ENTRIES = {"select_words_tiles_q": "select_words",
+                  "select_candidates": "select_positions",
+                  "select_candidates_tiles": "select_positions"}
+#: launches of the selection kernels in the main path's runs (phases 3, 6,
+#: 8, 9, 11, 20 and 21a), rows 10-11 of the kernels line
+SELECTED = {"select_words": 0, "select_positions": 0}
+
+
+def select_state() -> dict:
+    """The selection kernels' launch counts and the plain versions' call
+    counts."""
+    from sassy_tpu_torch.ops import minima, myers_cuda
+
+    got = {"select_words": myers_cuda.select_words.launches,
+           "select_positions": myers_cuda.select_positions.launches}
+    for name in SELECT_ENTRIES:
+        got[name + "_plain"] = getattr(minima, name + "_plain").calls
+    return got
+
+
+def select_restore(state: dict) -> None:
+    from sassy_tpu_torch.ops import minima, myers_cuda
+
+    myers_cuda.select_words.launches = state["select_words"]
+    myers_cuda.select_positions.launches = state["select_positions"]
+    for name in SELECT_ENTRIES:
+        getattr(minima, name + "_plain").calls = state[name + "_plain"]
+
+
+def selected(what: str, used: tuple) -> dict:
+    """After a main-path run that began with ``counts_zero()``: no plain
+    selection ran, each kernel ``used`` launched; the launches join
+    ``SELECTED``."""
+    got = select_state()
+    plain = {k: v for k, v in got.items() if k.endswith("_plain") and v}
+    if plain:
+        fail(f"{what} ran the plain selections {plain}")
+    for name in used:
+        if not got[name]:
+            fail(f"{what} launched no {name} kernel")
+    for name in SELECTED:
+        SELECTED[name] += got[name]
+    return got
+
+
+@contextlib.contextmanager
+def captured_selection(keep=None):
+    """Record the arguments of a call of each selection entry point in the
+    block (the first, or the first for which ``keep(name, args, kwargs)``
+    holds) as {name: (args, kwargs)}; every call goes through."""
+    from sassy_tpu_torch.ops import minima
+
+    calls = {}
+    saved = {name: getattr(minima, name) for name in SELECT_ENTRIES}
+
+    def recording(name):
+        fn = saved[name]
+
+        def rec(*a, **kw):
+            if name not in calls and (keep is None or keep(name, a, kw)):
+                calls[name] = (a, kw)
+            return fn(*a, **kw)
+        return rec
+
+    for name in SELECT_ENTRIES:
+        setattr(minima, name, recording(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(minima, name, fn)
+
+
+def cuda_once(fn):
+    """One call's result and its milliseconds (CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def hold_selection(label: str, name: str, call) -> dict:
+    """A selection kernel against its plain version: the entry point
+    ``name`` of ops/minima.py on the card and its plain version on the
+    same inputs (``call``, captured where a phase ran it), equal after a
+    lexsort of the columns (they are integers); both timed with CUDA
+    events (the kernel over REPS calls, the plain version once). Leaves
+    the launch counts as it found them. Returns the record."""
+    import numpy as np
+
+    from sassy_tpu_torch.ops import minima
+
+    a, kw = call
+    state = select_state()
+    entry = getattr(minima, name)
+    plain = getattr(minima, name + "_plain")
+    got = entry(*a, **kw).cpu().numpy()
+    ref, plain_ms = cuda_once(lambda: plain(*a, **kw))
+    ref = ref.cpu().numpy()
+    ms = cuda_ms(lambda: entry(*a, **kw), REPS)
+    select_restore(state)
+    order = (slice(None), np.lexsort(got[::-1]))
+    same = got.shape == ref.shape and bool(
+        (got[order] == ref[(slice(None), np.lexsort(ref[::-1]))]).all())
+    rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
+           "candidates": got.shape[1],
+           **select_bound(name, a, kw, got.shape[1])}
+    log(f"{label}: {SELECT_ENTRIES[name]} ({name}) vs plain: "
+        f"{got.shape[1]} candidates, equal after a lexsort={same} (in the "
+        f"same order={got.shape == ref.shape and bool((got == ref).all())})"
+        f", kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    if not same:
+        fail(f"{label}: the {SELECT_ENTRIES[name]} kernel != its plain "
+             f"version: {got.shape} {ref.shape}")
+    return rec
+
+
+def hold_engine_select(label: str, run, keep=None) -> dict:
+    """``run()`` (an engine's selection step) with its selection call
+    captured, then that call held against its plain version; the launches
+    of ``run()`` are not counted."""
+    state = select_state()
+    with captured_selection(keep) as calls:
+        run()
+    select_restore(state)
+    if len(calls) != 1:
+        fail(f"{label}: expected one selection call, got {list(calls)}")
+    ((name, call),) = calls.items()
+    return hold_selection(label, name, call)
 
 
 def counts() -> dict:
@@ -433,7 +594,8 @@ def random_acgt(gen, n: int):
 
 
 def kernel_vs_plain(gen, text_dev):
-    """Phase 2. Returns the headline (pure) record: times and error."""
+    """Phase 2. Returns the headline (pure) records of q1meta and of the
+    word-level selection: times and error."""
     import torch
 
     from sassy_tpu_torch import profiles
@@ -486,8 +648,14 @@ def kernel_vs_plain(gen, text_dev):
             head = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
                     **bound(inp.eq_mode, 1, inp.pmasks.shape[0],
                             inp.windows.shape, True)}
+            # the selection of these outputs as the engine runs it
+            for all_minima in (True, False):
+                inp.all_minima = all_minima
+                head_sw = hold_engine_select(
+                    f"phase 2: {label}, all_minima={all_minima}",
+                    lambda: eng.select(inp, got))
         del got, ref
-    return head
+    return head, head_sw
 
 
 def mutated(pattern):
@@ -555,12 +723,13 @@ def end_to_end(gen):
             + f" ({len(ends)} candidates)")
         del prep, inp, outs
 
-    myers_cuda.scan_meta.launches = 0
+    counts_zero()
     t0 = time.perf_counter()
     matches = searcher.search(pattern, text, K)
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     launches = myers_cuda.scan_meta.launches
+    selected("phase 3", ("select_words",))
     log(f"phase 3: Searcher.search, both strands, {N_TEXT >> 20} MiB: "
         f"{e2e:.3f} s, "
         f"{len(matches)} matches, scan kernel launches {launches}")
@@ -709,6 +878,13 @@ def q_kernel_vs_plain(reads, barcodes):
             head = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
                     **bound(eq_mode, pm.shape[0], pm.shape[1], win.shape,
                             True)}
+            # its selection, as BatchEngine.select runs it in phase 6
+            carry = torch.zeros((pm.shape[0], 1), dtype=torch.int32,
+                                device=DEVICE)
+            hold_engine_select(
+                f"phase 5: {label}", lambda: eng.select(
+                    got, g, pp, q0, tiles.start, tiles.stop, K, False,
+                    carry))
         del got
     return head
 
@@ -819,14 +995,14 @@ def batched_end_to_end(reads, barcodes):
         "ms")
     del eng, ts
 
-    myers_cuda.scan_q_meta.launches = 0
-    myers_cuda.scan_meta.launches = 0
+    counts_zero()
     t0 = time.perf_counter()
     matches = searcher.search_many(pats, texts, K)
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     launches = myers_cuda.scan_q_meta.launches
     single = myers_cuda.scan_meta.launches
+    selected("phase 6", ("select_words",))
     log(f"phase 6: Searcher.search_many, both strands: {e2e:.3f} s, "
         f"{len(matches)} matches, q2meta launches {launches}, q1meta "
         f"launches {single}")
@@ -1052,6 +1228,17 @@ def overhang_single(gen, text):
             sites.append((strand, where, at, span + (cost,)))
         if variant == 0:
             single_strand_phases("phase 8", searcher, iupac, pattern, text, k)
+            eng = searcher.engine
+            inp = eng.build_inputs(iupac, iupac.encode(pattern),
+                                   eng.prepare(iupac, text), k, alpha,
+                                   searcher.max_overhang)
+            if not (inp.fast and inp.n_prev and inp.text_end is not None):
+                fail(f"phase 8: expected the word level with a strip, got "
+                     f"fast={inp.fast} n_prev={inp.n_prev}")
+            hold_engine_select(
+                f"phase 8: the tail tile and a {inp.n_prev}-word strip",
+                lambda: eng.select(inp, eng.scan(inp)))
+            del inp
         counts_zero()
         t0 = time.perf_counter()
         matches = searcher.search(pattern, text, k)
@@ -1063,6 +1250,7 @@ def overhang_single(gen, text):
             f"the end: {e2e:.3f} s, {len(matches)} matches, launches "
             f"{launched}")
         require(launched, ("q1meta",), ("q1", "q2", "q2meta"), "phase 8")
+        selected("phase 8", ("select_words",))
         check_sites("phase 8", matches, sites, pattern, text, k, alpha)
 
 
@@ -1126,6 +1314,14 @@ def overhang_position_level(gen, text):
         at, part, span = planted_end(planted, strand, where, hang, n)
         text[at : at + len(part)] = part
         sites.append((strand, where, at, span + (cost,)))
+    # the selection of the planted text's forward strand as the engine
+    # runs it
+    inp = eng.build_inputs(iupac, iupac.encode(pattern),
+                           eng.prepare(iupac, text), k, alpha)
+    record["select"] = hold_engine_select(
+        "phase 9: the single position level, planted copies",
+        lambda: eng.select(inp, eng.scan(inp)))
+    del inp
     single_strand_phases("phase 9", searcher, iupac, pattern, text, k)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1140,6 +1336,7 @@ def overhang_position_level(gen, text):
         f"{n >> 20} MiB, position level: {e2e:.3f} s, {len(matches)} "
         f"matches, launches {launched}, device memory peak {peak:.2f} GiB")
     require(launched, ("q1",), ("q1meta", "q2", "q2meta"), "phase 9")
+    selected("phase 9", ("select_positions",))
     check_sites("phase 9", matches, sites, pattern, text, k, alpha)
     record["launches"] = launched["q1"]
     return record
@@ -1213,14 +1410,23 @@ def q2_vs_plain(reads, pats):
         f"equal q1={one}")
     if not (same and one):
         fail("q2 != plain or q1")
+    # the selection of the chunk's first tile range, as phase 11b runs it
+    s0, s1 = next(eng.select_ranges(g, pp, q1 - q0, t0, t1))
+    part = tuple(o[..., s0 - t0 : s1 - t0] for o in got)
+    carry = torch.zeros((q1 - q0, 1), dtype=torch.int32, device=DEVICE)
+    hold_engine_select(
+        f"phase 10: phase 11b's selection of pieces {s0}..{s1}",
+        lambda: eng.select(part, g, pp, q0, s0, s1, k, False, carry))
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             **bound(g.eq_mode, q1 - q0, g.pmasks.shape[1], win.shape, False)}
 
 
-def batched_overhang(label, reads, pats, case, want, used, unused):
-    """Phase 11a/b: search_many with overhang over the read set; every
-    planted copy, then the CPU path on the reads with other matches and a
-    sample. Returns the launch counts of the main-path run."""
+def batched_overhang(label, reads, pats, case, want, used, unused,
+                     selection):
+    """Phase 11a/b: search_many with overhang over the read set through
+    the ``selection`` kernel; every planted copy, then the CPU path on the
+    reads with other matches and a sample. Returns the launch counts of the
+    main-path run."""
     import numpy as np
     import torch
 
@@ -1241,6 +1447,7 @@ def batched_overhang(label, reads, pats, case, want, used, unused):
     log(f"{label}: Searcher.search_many with alpha {alpha}, both strands: "
         f"{e2e:.3f} s, {len(matches)} matches, launches {launched}")
     require(launched, used, unused, label)
+    selected(label, (selection,))
 
     cost = int(np.floor(np.float32(alpha) * np.float32(hang)))
     cigar = f"{m - hang}="
@@ -2599,34 +2806,39 @@ def plant_edges(text, pats, span: int, halo: int, Dt: int,
 
 @contextlib.contextmanager
 def no_plain(what: str = "phase 20"):
-    """The plain scans refuse to run: phase 20's sharded runs and phase
-    21's tools go through the kernels only."""
-    from sassy_tpu_torch.ops import myers_cuda
+    """The plain scans and selections refuse to run: phase 20's sharded
+    runs and phase 21's tools go through the kernels only."""
+    from sassy_tpu_torch.ops import minima, myers_cuda
 
-    names = ("scan_meta_plain", "scan_q_meta_plain", "scan_plain",
-             "scan_q_plain")
-    saved = {name: getattr(myers_cuda, name) for name in names}
+    names = [(myers_cuda, name) for name in (
+        "scan_meta_plain", "scan_q_meta_plain", "scan_plain",
+        "scan_q_plain")]
+    names += [(minima, name + "_plain") for name in SELECT_ENTRIES]
+    saved = {(mod, name): getattr(mod, name) for mod, name in names}
 
     def refuse(name):
         def plain(*a, **kw):
             fail(f"{what} called the plain version {name}")
+        plain.calls = 0
         return plain
 
-    for name in names:
-        setattr(myers_cuda, name, refuse(name))
+    for mod, name in names:
+        setattr(mod, name, refuse(name))
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(myers_cuda, name, fn)
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
 
 
 def sharded_run(label: str, ss, text, pats, k: int, alpha, used: tuple,
-                want: list, n: int) -> tuple[list, dict]:
-    """One sharded search with its steps timed: only the kernels ``used``
-    launched, once per slot at least, no plain version; the lists equal
-    ``want`` and pass the owner-computes checks. Returns the lists and the
-    launches."""
+                want: list, n: int, hold=None) -> tuple[list, dict]:
+    """One sharded search with its steps timed: only the scan kernels
+    ``used`` launched, once per slot at least, and the selection kernel of
+    its level, no plain version; the lists equal ``want`` and pass the
+    owner-computes checks. With ``hold`` (what, a ``captured_selection``
+    keep), the selection call the keep picks is then held against its
+    plain version. Returns the lists and the launches."""
     import torch
 
     from sassy_tpu_torch import graft_entry, profiles, semantics
@@ -2635,13 +2847,17 @@ def sharded_run(label: str, ss, text, pats, k: int, alpha, used: tuple,
     counts_zero()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with no_plain():
+    capture = (captured_selection(hold[1]) if hold
+               else contextlib.nullcontext({}))
+    with capture as calls, no_plain():
         got = ss.candidates_batch(prof, pats, text, k, alpha=alpha)
     wall = time.perf_counter() - t0
     launched = counts()
     slots = ss.mesh.size
     require(launched, used, tuple(x for x in launched if x not in used),
             label, least=slots)
+    selected(label, ("select_words" if alpha is None
+                     else "select_positions",))
     steps = semantics.overhang_steps(len(pats[0]), k, alpha, None)
     n_cands = graft_entry.check_sharded_case(ss, got, want, n, steps)
     split = ", ".join(f"{step} {sec * 1e3:.1f} ms"
@@ -2651,6 +2867,11 @@ def sharded_run(label: str, ss, text, pats, k: int, alpha, used: tuple,
         f"({split}); {n_cands} candidates, equal to the single-device "
         f"engine's; launches {launched}; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if hold is not None:
+        if len(calls) != 1:
+            fail(f"{label}: no selection call to hold: {list(calls)}")
+        ((name, call),) = calls.items()
+        hold_selection(f"{label}, {hold[0]} {call[1]}", name, call)
     return got, launched
 
 
@@ -2740,12 +2961,17 @@ def sharded_one_process(gen) -> dict:
             f"{len(pats)} searches {t_single:.1f} s")
         st = ShardedText(prof, text)
         lists = []
+        # a slot past the first shard, with its owned range and the state
+        # the shards before it pass on
+        hold = (("a slot of a later shard", lambda name, a, kw: kw.get(
+            "min_pos", 0) > 0 and kw.get("state0") is not None)
+            if label.endswith("overhang q2") else None)
         for hier in hiers or (None,):
             ss = ShardedSearch(mesh=mesh, hier=hier, timed=True)
             tag = (label if hier is None
                    else f"{label} {'on' if hier else 'off'}")
             got, launched = sharded_run(tag, ss, st, pats, k, alpha, used,
-                                        want, n)
+                                        want, n, hold)
             lists.append(got)
             for key, v in launched.items():
                 total[key] += v
@@ -2824,8 +3050,10 @@ def sharded_past_2g(gen) -> dict:
     del host
     ss = ShardedSearch(mesh=make_mesh(SHARD_BIG_DT, 1, device=DEVICE),
                        timed=True)
-    got, launched = sharded_run("phase 20b past 2^31", ss, text, pats, K,
-                                None, ("q2meta",), want, n)
+    got, launched = sharded_run(
+        "phase 20b past 2^31", ss, text, pats, K, None, ("q2meta",), want, n,
+        ("the slot past 2^31", lambda name, a, kw: a[7].numel() > 0
+         and int(a[7].max()) > past))
     for q, end in enumerate(ends):
         if (end, 1) not in got[q]:
             fail(f"phase 20b: the copy ending at {end} (past {past}) did "
@@ -3059,8 +3287,9 @@ def sharded() -> dict:
 
 def tools_on_card() -> dict:
     """Phase 21: the port's tools (sassy_tpu_torch.tools) through their
-    run(), on the card, with the plain scans made to refuse; 21d and 21e
-    each hold two of their results equal, 21c's ratio is logged only.
+    run(), on the card, with the plain scans and selections made to
+    refuse; 21d and 21e each hold two of their results equal, 21c's ratio
+    is logged only.
     Returns the launches of the soak round."""
     from sassy_tpu_torch.tools import (bench_io_overlap, bench_oneshot,
                                        bench_traceback, profile_readset, soak)
@@ -3082,6 +3311,7 @@ def tools_on_card() -> dict:
         f"launches {soaked}")
     require(soaked, ("q1meta", "q2meta", "q1", "q2"), ("qn", "variants"),
             "phase 21a", least=1)
+    selected("phase 21a", ("select_words", "select_positions"))
 
     runs = [
         ("21b bench_oneshot", lambda: bench_oneshot.run(
@@ -3139,7 +3369,7 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     text_dev = random_acgt(gen, N_TEXT)
-    head = kernel_vs_plain(gen, text_dev)
+    head, head_sw = kernel_vs_plain(gen, text_dev)
     del text_dev
     torch.cuda.empty_cache()
 
@@ -3172,9 +3402,10 @@ def main() -> int:
     head_q2 = q2_vs_plain(reads, long_)
     torch.cuda.empty_cache()
     batched_overhang("phase 11a", reads, barcodes, OH_WORD, want_a,
-                     ("q2meta",), ("q2", "q1", "q1meta"))
+                     ("q2meta",), ("q2", "q1", "q1meta"), "select_words")
     launched_b = batched_overhang("phase 11b", reads, long_, OH_POS, want_b,
-                                  ("q2",), ("q2meta", "q1", "q1meta"))
+                                  ("q2",), ("q2meta", "q1", "q1meta"),
+                                  "select_positions")
     del reads
     torch.cuda.empty_cache()
 
@@ -3250,6 +3481,14 @@ def main() -> int:
         entry("scan_variant full", "sassy_tpu_torch/csrc/scan_variants.cu",
               "scripts/kernel_variants.py:29", head_variants["launches"],
               head_variants),
+        # rows 10-11: the JAX pipeline's XLA selection; launches of phases
+        # 3, 6, 8, 9, 11, 20 and 21a, times from phases 2 and 9
+        entry("select_words", "sassy_tpu_torch/csrc/select_words.cu",
+              "sassy_tpu/ops/minima.py:662", SELECTED["select_words"],
+              head_sw),
+        entry("select_positions", "sassy_tpu_torch/csrc/select_positions.cu",
+              "sassy_tpu/ops/minima.py:43", SELECTED["select_positions"],
+              head_q1["select"]),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ import numpy as np
 from .ops.bitpack import WORD_BITS
 from .ops.plan import _bucket_rows, cdiv, halo_words, plan_tiles
 
-__all__ = ["self_test", "trace", "cost_model", "scan_bound",
+__all__ = ["self_test", "trace", "cost_model", "scan_bound", "select_bound",
            "MEM_BYTES_PER_S", "INT32_OPS_PER_S", "ROW_OPS", "WORD_OPS"]
 
 #: The least time of a scan kernel: the larger of its bytes over the
@@ -56,6 +56,52 @@ def scan_bound(eq_mode: str, Q: int, M: int, windows_shape, meta: bool,
     ops = Q * NW * T * (M * ROW_OPS[eq_mode] + word_ops)
     nbytes = 4 * (NW * P * T + Q * NW * T * n_out
                   + (Q * T if meta else 0)) + (0 if vp_only else T)
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
+    """bound_ms and bound_by of one call of a selection entry point of
+    ``ops/minima.py`` (``select_words_tiles_q``, ``select_candidates``,
+    ``select_candidates_tiles``) with these arguments, which returned
+    ``n_out`` candidates. Bytes: what the function must read, once, and
+    its int64 output columns. The word level reads every meta word, and
+    vp, vm and cost of each screened word with the next word's and the
+    ``n_prev`` strip's vp and vm (the screen depends on the data: this
+    call's count); the position level reads vp, vm and cost of every
+    walked word (tiles' owned words, or every piece word of each pattern).
+    Operations: one integer operation per position examined, the least
+    work (each is held against k): one per (pattern, word, tile) and 33
+    per screened word, or every position walked."""
+    import inspect
+
+    from .ops import minima
+
+    if entry not in ("select_words_tiles_q", "select_candidates",
+                     "select_candidates_tiles"):
+        raise ValueError(f"no selection entry point {entry!r}")
+    sig = inspect.signature(getattr(minima, entry + "_plain"))
+    a = sig.bind(*args, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    if entry == "select_words_tiles_q":
+        meta = a["meta"]
+        screened = int(((meta & 1) != 0).sum())
+        T = meta.shape[-1]
+        nbytes = (4 * meta.numel() + screened * (12 + 8 * (1 + a["n_prev"]))
+                  + T * (20 + (8 if a["text_end"] is not None else 0))
+                  + 4 * a["state0"].numel() + 32 * n_out)
+        ops = meta.numel() + 33 * screened
+    elif entry == "select_candidates":
+        T, W = a["vp_w"].shape[1], a["W"]
+        nbytes = 12 * W * T + 16 * n_out
+        ops = W * WORD_BITS * T + 1
+    else:
+        Q, NW, T = a["vp_w"].shape
+        nbytes = 12 * Q * NW * T + 8 * Q * T + 28 * T + 32 * n_out
+        ops = Q * T * (NW * WORD_BITS + 1)
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),

@@ -14,14 +14,27 @@ positions:
 - position level, for overhang searches whose overshoot spans more than
   four words: ``select_candidates`` over the flat positions of one text
   (the single engine), ``select_candidates_tiles`` per piece (the batched
-  engine). Both expand every position, so both work in bounded chunks.
+  engine).
+
+Each selection is an entry point that runs its plain version
+(``select_words_tiles_q_plain``, ``select_candidates_plain``,
+``select_candidates_tiles_plain``) for tensors on the CPU and its CUDA
+kernel (``myers_cuda.select_words``, ``select_positions``,
+``select_positions_tiles``; ``csrc/select_words.cu``,
+``csrc/select_positions.cu``) for tensors on a CUDA device, with no other
+fallback. The kernels give the plain versions' candidates in the same
+order; callers sort them. The plain position-level versions expand every
+position, so they work in bounded chunks; the kernels walk each tile's
+positions in one thread. Each plain version counts its calls in
+``.calls``.
 
 Overshoot costs are ``floor(float32(alpha) * float32(overshoot))`` in
 float32 tensors, the reference's f32 rounding (``semantics.py``).
 
 The TPU version compacts screened words in 1024-word blocks into
 fixed-size ``cap`` buffers and retries with larger buffers on overflow,
-because scatters are slow there. Here ``torch.nonzero`` compacts exactly,
+because scatters are slow there. Here the plain version's
+``torch.nonzero`` compacts exactly, as the kernels' counting pass does,
 and the result leaves the device in one copy.
 
 Bit words arrive as int32 tensors holding uint32 bit patterns. torch has
@@ -42,10 +55,13 @@ __all__ = [
     "tile_state_chain_codes",
     "last_delta_codes",
     "select_words_tiles_q",
+    "select_words_tiles_q_plain",
     "select_words_tiles",
     "select_candidates",
+    "select_candidates_plain",
     "last_owned_code",
     "select_candidates_tiles",
+    "select_candidates_tiles_plain",
     "cummax_1d",
 ]
 
@@ -161,19 +177,28 @@ def tile_state_chain_codes(tl, is_start, seed_code=None,
     t_ids = torch.arange(T, dtype=torch.int64, device=tl.device)
     tl = tl.to(torch.int64)
     tcode = torch.where(tl > 0, 2 * (t_ids + 2) + (tl & 1), 0)
-    cm = torch.cummax(tcode, dim=-1).values
+    cm = _cummax_rows(tcode)
     ld = torch.cat([torch.zeros_like(cm[..., :1]), cm[..., :-1]], dim=-1)
     if seed_code is not None:
         # the incoming state sits at pseudo tile -1: (ld >> 1) == 1
         seed = torch.as_tensor(seed_code, dtype=torch.int64, device=tl.device)
         ld = torch.maximum(ld, seed[..., None])
     scode = torch.where(is_start, t_ids + 2, 0)
-    ls = torch.cummax(scode, dim=-1).values
+    ls = _cummax_rows(scode)
     state0 = torch.where((ld > 0) & ((ld >> 1) >= ls), ld & 1, 0)
     state0 = state0.to(torch.int32)
     if with_out:
         return state0, tcode.amax(dim=-1) if T else tcode.sum(dim=-1)
     return state0
+
+
+def _cummax_rows(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cummax(x, dim=-1).values``; one row (a chain at Q = 1) in
+    ``cummax_1d``'s two levels, since ``torch.cummax`` scans a row in one
+    thread block on a CUDA device."""
+    if x.numel() == x.shape[-1] and x.numel() > 0:
+        return cummax_1d(x.reshape(-1)).view(x.shape)
+    return torch.cummax(x, dim=-1).values
 
 
 def overshoot_floor(alpha32: torch.Tensor, over: torch.Tensor) -> torch.Tensor:
@@ -204,7 +229,26 @@ def _state_enc(delta, lpos):
 def select_words_tiles_q(vp_w, vm_w, cost_w, meta, valid_from, valid_to,
                          islast_at, pos_base, k, state0, all_minima: bool,
                          text_end=None, alpha=None, n_prev: int = 0):
-    """Word-level candidate selection of Q patterns.
+    """Word-level candidate selection of Q patterns: the inputs and output
+    of ``select_words_tiles_q_plain``, which runs for tensors on the CPU;
+    for CUDA tensors the kernel ``myers_cuda.select_words`` runs, and
+    raises on inputs it does not take."""
+    if vp_w.device.type == "cpu":
+        return select_words_tiles_q_plain(
+            vp_w, vm_w, cost_w, meta, valid_from, valid_to, islast_at,
+            pos_base, k, state0, all_minima, text_end, alpha, n_prev)
+    from . import myers_cuda
+
+    return myers_cuda.select_words(
+        vp_w, vm_w, cost_w, meta, valid_from, valid_to, islast_at, pos_base,
+        k, state0, all_minima, text_end, alpha, n_prev)
+
+
+def select_words_tiles_q_plain(vp_w, vm_w, cost_w, meta, valid_from,
+                               valid_to, islast_at, pos_base, k, state0,
+                               all_minima: bool, text_end=None, alpha=None,
+                               n_prev: int = 0):
+    """Word-level candidate selection of Q patterns, plain version.
 
     vp_w/vm_w/cost_w/meta: (Q, NW, T) int32 scan outputs; valid_from/
     valid_to: (T,) window-local owned range (valid_from -1 = the tile owns
@@ -226,6 +270,7 @@ def select_words_tiles_q(vp_w, vm_w, cost_w, meta, valid_from, valid_to,
     the device, [pattern; tile; end position; cost], in (pattern, word,
     tile, position) order.
     """
+    select_words_tiles_q_plain.calls += 1
     Q, NW, T = vp_w.shape
     F = Q * NW * T
     dev = vp_w.device
@@ -304,6 +349,9 @@ def select_words_tiles_q(vp_w, vm_w, cost_w, meta, valid_from, valid_to,
     pos = pos_base[g_tile][:, None] + lpos
     row = torch.nonzero(mask)[:, 0]
     return torch.stack([g_q[row], g_tile[row], pos[mask], c[mask]])
+
+
+select_words_tiles_q_plain.calls = 0
 
 
 def select_words_tiles(vp_w, vm_w, cost_w, meta, valid_from, valid_to,
@@ -425,8 +473,29 @@ def select_candidates(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
                       n_text: int, max_pos: int, k: int, alpha,
                       all_minima: bool, min_pos: int | None = None,
                       owned_end: int | None = None, state0: int | None = None):
+    """Position-level candidate selection of one text: the inputs and
+    output of ``select_candidates_plain``, which runs for tensors on the
+    CPU; for CUDA tensors the kernel ``myers_cuda.select_positions`` runs,
+    and raises on inputs it does not take."""
+    if vp_w.device.type == "cpu":
+        return select_candidates_plain(
+            vp_w, vm_w, cost_w, W, halo, boundary_m, n_text, max_pos, k,
+            alpha, all_minima, min_pos, owned_end, state0)
+    from . import myers_cuda
+
+    return myers_cuda.select_positions(
+        vp_w, vm_w, cost_w, W, halo, boundary_m, n_text, max_pos, k, alpha,
+        all_minima, min_pos, owned_end, state0)
+
+
+def select_candidates_plain(vp_w, vm_w, cost_w, W: int, halo: int,
+                            boundary_m: int, n_text: int, max_pos: int,
+                            k: int, alpha, all_minima: bool,
+                            min_pos: int | None = None,
+                            owned_end: int | None = None,
+                            state0: int | None = None):
     """Position-level candidate selection of one text (the single engine's
-    overhang path with a long overshoot span).
+    overhang path with a long overshoot span), plain version.
 
     vp_w/vm_w/cost_w: (NW, T) int32 scan outputs of the halo-tiled windows
     (NW = W + halo + 1). The owned words (window words [halo, halo + W) of
@@ -444,6 +513,7 @@ def select_candidates(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
     one) the deltas below ``min_pos``, restart artifacts of the halo, do
     not feed the decreasing state (reference ``minima.py:43-107``).
     """
+    select_candidates_plain.calls += 1
     NW, T = vp_w.shape
     dev = vp_w.device
     t_chunk = max(1, POSITIONS_PER_CHUNK // (W * WB))
@@ -503,11 +573,34 @@ def select_candidates(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
     return torch.cat(found, dim=1)
 
 
+select_candidates_plain.calls = 0
+
+
 def select_candidates_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
                             valid_from, valid_to, islast_at, pos_base, k,
                             alpha, state0, all_minima: bool):
+    """Position-level candidate selection of Q patterns over pieces: the
+    inputs and output of ``select_candidates_tiles_plain``, which runs for
+    tensors on the CPU; for CUDA tensors the kernel
+    ``myers_cuda.select_positions_tiles`` runs, and raises on inputs it
+    does not take."""
+    if vp_w.device.type == "cpu":
+        return select_candidates_tiles_plain(
+            vp_w, vm_w, cost_w, boundary0, text_end, valid_from, valid_to,
+            islast_at, pos_base, k, alpha, state0, all_minima)
+    from . import myers_cuda
+
+    return myers_cuda.select_positions_tiles(
+        vp_w, vm_w, cost_w, boundary0, text_end, valid_from, valid_to,
+        islast_at, pos_base, k, alpha, state0, all_minima)
+
+
+def select_candidates_tiles_plain(vp_w, vm_w, cost_w, boundary0, text_end,
+                                  valid_from, valid_to, islast_at, pos_base,
+                                  k, alpha, state0, all_minima: bool):
     """Position-level candidate selection of Q patterns over pieces (the
-    batched engine's overhang path with a long overshoot span).
+    batched engine's overhang path with a long overshoot span), plain
+    version.
 
     vp_w/vm_w/cost_w: (Q, NW, T) int32 scan outputs; boundary0: (Q, T) cost
     at each piece's position 0; text_end, valid_from, valid_to, islast_at:
@@ -517,6 +610,7 @@ def select_candidates_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
     tensor, [pattern; tile; end position; cost], in (pattern, tile,
     position) order.
     """
+    select_candidates_tiles_plain.calls += 1
     Q, NW, T = vp_w.shape
     N = NW * WB
     dev = vp_w.device
@@ -548,3 +642,6 @@ def select_candidates_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
         mask &= d & ((nxt >= 1) | (pos == islast_at[:, None]))
     q, t, p = torch.nonzero(mask).T
     return torch.stack([q, t, pos_base[t] + p, c[mask].to(torch.int64)])
+
+
+select_candidates_tiles_plain.calls = 0

@@ -24,15 +24,31 @@ plain PyTorch version. Each replaces a TPU kernel of
   nomem and nostore; ``scan_variant_plain``. Only
   ``sassy_tpu_torch.tools.kernel_variants`` launches it.
 
-The sources share the row step of ``csrc/myers_step.cuh``. They are
-compiled with one ``nvcc`` call for ``sm_90a`` at first use into one
-library in ``build/sassy_tpu_torch/`` beside the package, keyed by a hash
-of the sources and flags, and loaded with ctypes through plain C entry
-points.
+The candidate selection, the XLA code around the JAX pipeline's meta and
+position scans, has two kernels of its own; ``ops/minima.py``'s entry
+points run their plain versions for tensors on the CPU and these for
+CUDA tensors:
 
-Each wrapper runs the plain version for tensors on the CPU and its kernel
-for tensors on a CUDA device; there is no other fallback. Its
-``launches`` attribute counts kernel launches.
+- ``select_words`` (``csrc/select_words.cu``) replaces
+  ``sassy_tpu/ops/minima.py``'s ``select_words_tiles_q`` (and
+  ``select_words_tiles``): the word-level selection;
+  ``minima.select_words_tiles_q_plain``.
+- ``select_positions`` and ``select_positions_tiles``
+  (``csrc/select_positions.cu``) replace its ``select_candidates`` and
+  ``select_candidates_tiles``: the position-level selections of one text
+  and of the batched engine's pieces; ``minima.select_candidates_plain``,
+  ``minima.select_candidates_tiles_plain``. Both count in
+  ``select_positions.launches``.
+
+The scan sources share the row step of ``csrc/myers_step.cuh``, the
+selection sources ``csrc/select_common.cuh``. All are compiled with one
+``nvcc`` call for ``sm_90a`` at first use into one library in
+``build/sassy_tpu_torch/`` beside the package, keyed by a hash of the
+sources and flags, and loaded with ctypes through plain C entry points.
+
+Each scan wrapper runs the plain version for tensors on the CPU and its
+kernel for tensors on a CUDA device; there is no other fallback. Its
+``launches`` attribute counts the calls that launch its kernel.
 """
 
 from __future__ import annotations
@@ -51,12 +67,14 @@ from . import minima, myers_torch
 __all__ = ["scan_meta", "scan_meta_plain", "scan_q_meta",
            "scan_q_meta_plain", "scan", "scan_plain", "scan_q",
            "scan_q_plain", "scan_qn", "scan_qn_plain", "scan_variant",
-           "scan_variant_plain", "build", "nvcc_path"]
+           "scan_variant_plain", "select_words", "select_positions",
+           "select_positions_tiles", "build", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu", CSRC / "scan.cu",
-           CSRC / "scan_q.cu", CSRC / "scan_qn.cu", CSRC / "scan_variants.cu")
-HEADERS = (CSRC / "myers_step.cuh",)
+           CSRC / "scan_q.cu", CSRC / "scan_qn.cu", CSRC / "scan_variants.cu",
+           CSRC / "select_words.cu", CSRC / "select_positions.cu")
+HEADERS = (CSRC / "myers_step.cuh", CSRC / "select_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sassy_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,8 +95,15 @@ QN_LOOP_U = (1, 2, 4, 8)
 QN_UNROLL = ((1, 1), (2, 1), (1, 2), (2, 2), (2, 4))
 QN_UNROLL_ROWS = (24, 64)
 VARIANTS = {"full": 0, "noeq": 1, "nomem": 2, "nostore": 3}
+#: (pattern, word, tile) elements per block of the word-level selection
+#: (kWordsPerBlock)
+SELECT_WORDS_PER_BLOCK = 4096
+#: owned_end of a position-level selection without one: past every position
+NO_END = 1 << 62
 
 _LIBS: dict = {}
+_KEYS: dict = {}  # (files, flags) -> hash of their bytes
+_BUILT: set = set()  # libraries known to exist
 
 
 def nvcc_path() -> str | None:
@@ -93,16 +118,29 @@ def nvcc_path() -> str | None:
     return None
 
 
+def library_path() -> Path:
+    """The kernel library of these sources, headers and flags: its name
+    holds a hash of them all. The hash is taken once per set of files in
+    a process: every wrapper asks for the library at every launch, and
+    reading the sources each time costs host time where the file system
+    is slow, which the selections' host read of their count exposes."""
+    files = (SOURCES + HEADERS, NVCC_FLAGS)
+    key = _KEYS.get(files)
+    if key is None:
+        key = _KEYS[files] = hashlib.sha256(
+            b"".join(f.read_bytes() for f in SOURCES + HEADERS)
+            + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+    return BUILD_DIR / f"scan_kernels_{key}.so"
+
+
 def build() -> Path:
     """Compile the kernel library unless these sources are built already.
     Returns its path; ``<path>.log`` keeps the compiler's report
     (registers, spills). Raises with nvcc's stderr when the build fails."""
-    key = hashlib.sha256(
-        b"".join(f.read_bytes() for f in SOURCES + HEADERS)
-        + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"scan_kernels_{key}.so"
-    if lib.exists():
+    lib = library_path()
+    if lib in _BUILT or lib.exists():
+        _BUILT.add(lib)
         return lib
     nvcc = nvcc_path()
     if nvcc is None:
@@ -120,6 +158,7 @@ def build() -> Path:
         )
     lib.with_name(lib.name + ".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: concurrent builders race harmlessly
+    _BUILT.add(lib)
     return lib
 
 
@@ -136,9 +175,18 @@ def load_library(path) -> ctypes.CDLL:
         lib.sassy_scan_q.argtypes = [ptr] * 12 + [num] * 6 + [ptr]
         lib.sassy_scan_qn.argtypes = [ptr] * 11 + [num] * 9 + [ptr]
         lib.sassy_scan_variant.argtypes = [ptr] * 3 + [num] * 5 + [ptr]
+        big, real = ctypes.c_longlong, ctypes.c_float
+        lib.sassy_select_words.argtypes = ([ptr] * 13 + [big] + [num] * 6
+                                           + [real, num, ptr])
+        lib.sassy_select_positions.argtypes = ([ptr] * 8 + [big] * 7
+                                               + [num] * 6 + [real, num, ptr])
+        lib.sassy_select_positions_tiles.argtypes = (
+            [ptr] * 13 + [big] * 3 + [num] * 5 + [real, num, ptr])
         for fn in (lib.sassy_scan_meta, lib.sassy_scan_q_meta, lib.sassy_scan,
                    lib.sassy_scan_q, lib.sassy_scan_qn,
-                   lib.sassy_scan_variant):
+                   lib.sassy_scan_variant, lib.sassy_select_words,
+                   lib.sassy_select_positions,
+                   lib.sassy_select_positions_tiles):
             fn.restype = num
         _LIBS[path] = lib
     return lib
@@ -640,3 +688,218 @@ def scan_variant(windows, pmasks, variant: str):
 
 scan_variant.launches = 0
 scan_variant.members = {}
+
+
+# -- the candidate selection -------------------------------------------------
+
+
+def _check_words(name: str, x, shape, like=None):
+    """A (…, NW, T) int32 word array on a CUDA device (that of ``like``)."""
+    if x.dtype != torch.int32 or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected torch.int32 {tuple(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the selection kernels run on cpu or cuda, not "
+                         f"{x.device}")
+    if like is not None and x.device != like.device:
+        raise ValueError(f"{name} is on {x.device}, vp_w on {like.device}")
+
+
+def _check_strides(name: str, x, like):
+    """A word array read in place: the strides of ``like``, tiles adjacent
+    (stride 1), as a range of tiles sliced from the scan outputs has."""
+    if x.stride() != like.stride():
+        raise ValueError(f"{name} must have the strides {like.stride()} of "
+                         f"vp_w, not {x.stride()}")
+    if x.shape[-1] > 1 and x.stride(-1) != 1:
+        raise ValueError(f"{name}: tiles must be adjacent (stride 1)")
+
+
+def _small(name: str, x, dtype, shape, device):
+    """A tile vector or per-(pattern, tile) table, checked and made
+    contiguous (a few bytes per tile)."""
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, vp_w on {device}")
+    return x.contiguous()
+
+
+def _count_then_emit(launch, n_counts: int, rows: int, device):
+    """The selection kernels' two steps: ``launch(counts, None, None, 0)``
+    writes ``n_counts`` int32 counts; their inclusive prefix sums size the
+    (rows, N) int64 output (the one host read), which ``launch(counts,
+    ends, out, N)`` fills."""
+    counts = torch.empty(n_counts, dtype=torch.int32, device=device)
+    launch(counts, None, None, 0)
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    N = int(ends[-1])
+    out = torch.empty((rows, N), dtype=torch.int64, device=device)
+    if N:
+        launch(counts, ends, out, N)
+    return out
+
+
+def select_words(vp_w, vm_w, cost_w, meta, valid_from, valid_to, islast_at,
+                 pos_base, k: int, state0, all_minima: bool, text_end=None,
+                 alpha=None, n_prev: int = 0):
+    """The word-level selection kernel (``csrc/select_words.cu``) on CUDA
+    tensors: what ``minima.select_words_tiles_q_plain`` computes, with its
+    inputs. vp_w, vm_w, cost_w, meta (Q, NW, T) int32, made contiguous
+    (the engines pass whole scan outputs, which are); valid_from,
+    valid_to, islast_at (T,) int32; pos_base (T,) int64;
+    state0 (Q, T) int32; text_end (T,) int64 or None. Returns (4, N) int64
+    [pattern; tile; end position; cost] in (pattern, word, tile, position)
+    order. Raises ValueError on other inputs."""
+    if vp_w.dim() != 3:
+        raise ValueError(f"vp_w: expected (Q, NW, T), got {tuple(vp_w.shape)}")
+    Q, NW, T = vp_w.shape
+    _check_words("vp_w", vp_w, (Q, NW, T))
+    for name, x in (("vm_w", vm_w), ("cost_w", cost_w), ("meta", meta)):
+        _check_words(name, x, (Q, NW, T), vp_w)
+    vp_w, vm_w, cost_w, meta = (x.contiguous()
+                                for x in (vp_w, vm_w, cost_w, meta))
+    dev = vp_w.device
+    vf = _small("valid_from", valid_from, torch.int32, (T,), dev)
+    vt = _small("valid_to", valid_to, torch.int32, (T,), dev)
+    il = _small("islast_at", islast_at, torch.int32, (T,), dev)
+    pb = _small("pos_base", pos_base, torch.int64, (T,), dev)
+    s0 = _small("state0", state0, torch.int32, (Q, T), dev)
+    if text_end is not None:
+        text_end = _small("text_end", text_end, torch.int64, (T,), dev)
+        if alpha is None:
+            raise ValueError("text_end needs alpha")
+    if n_prev < 0:
+        raise ValueError(f"n_prev = {n_prev} < 0")
+    if Q * NW * T == 0:
+        return torch.empty((4, 0), dtype=torch.int64, device=dev)
+    lib = load_library(build())
+    blocks = -(-(Q * NW * T) // SELECT_WORDS_PER_BLOCK)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch(counts, ends, out, N):
+            _raise_on(lib.sassy_select_words(
+                _ptr(vp_w), _ptr(vm_w), _ptr(cost_w), _ptr(meta), _ptr(vf),
+                _ptr(vt), _ptr(il), _ptr(pb), _ptr(s0), _ptr(text_end),
+                _ptr(counts), _ptr(ends), _ptr(out), N, Q, NW, T, k,
+                int(all_minima), n_prev,
+                0.0 if alpha is None else alpha, int(out is not None),
+                stream,
+            ), "select_words")
+
+        out = _count_then_emit(launch, blocks, 4, dev)
+    select_words.launches += 1
+    return out
+
+
+select_words.launches = 0
+
+
+def select_positions(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
+                     n_text: int, max_pos: int, k: int, alpha,
+                     all_minima: bool, min_pos: int | None = None,
+                     owned_end: int | None = None, state0: int | None = None):
+    """The position-level selection kernel of one text
+    (``csrc/select_positions.cu``) on CUDA tensors: what
+    ``minima.select_candidates_plain`` computes, with its inputs. vp_w,
+    vm_w, cost_w (NW, T) int32 with the same strides, tiles adjacent,
+    NW >= halo + W. Without ``all_minima`` a first launch writes each
+    tile's last delta code and ``minima.tile_state_chain_codes`` chains
+    them (seeded by ``state0``). Returns (2, N) int64 [end position;
+    cost] in position order. Raises ValueError on other inputs."""
+    if vp_w.dim() != 2:
+        raise ValueError(f"vp_w: expected (NW, T), got {tuple(vp_w.shape)}")
+    NW, T = vp_w.shape
+    _check_words("vp_w", vp_w, (NW, T))
+    _check_strides("vp_w", vp_w, vp_w)
+    for name, x in (("vm_w", vm_w), ("cost_w", cost_w)):
+        _check_words(name, x, (NW, T), vp_w)
+        _check_strides(name, x, vp_w)
+    if W < 1 or halo < 0 or halo + W > NW:
+        raise ValueError(f"tiles of W = {W} owned words after a halo of "
+                         f"{halo} do not fit NW = {NW} window words")
+    dev = vp_w.device
+    if T == 0:
+        return torch.empty((2, 0), dtype=torch.int64, device=dev)
+    lib = load_library(build())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch(pass_, chain=None, codes=None, counts=None, ends=None,
+                   out=None, N=0):
+            _raise_on(lib.sassy_select_positions(
+                _ptr(vp_w), _ptr(vm_w), _ptr(cost_w), _ptr(chain),
+                _ptr(codes), _ptr(counts), _ptr(ends), _ptr(out),
+                vp_w.stride(0), boundary_m, n_text, max_pos,
+                0 if min_pos is None else min_pos,
+                NO_END if owned_end is None else owned_end, N, T, W, halo, k,
+                int(all_minima), int(state0 is not None),
+                0.0 if alpha is None else alpha, pass_, stream,
+            ), "select_positions")
+
+        chain = None
+        if not all_minima:
+            codes = torch.empty(T, dtype=torch.int32, device=dev)
+            launch(0, codes=codes)
+            chain = minima.tile_state_chain_codes(
+                codes, torch.zeros(T, dtype=torch.bool, device=dev),
+                seed_code=3 if state0 else 0)
+        out = _count_then_emit(
+            lambda counts, ends, out, N: launch(
+                1 if out is None else 2, chain, None, counts, ends, out, N),
+            T, 2, dev)
+    select_positions.launches += 1
+    return out
+
+
+select_positions.launches = 0
+
+
+def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
+                           valid_from, valid_to, islast_at, pos_base, k: int,
+                           alpha, state0, all_minima: bool):
+    """The position-level selection kernel of Q patterns over pieces
+    (``csrc/select_positions.cu``) on CUDA tensors: what
+    ``minima.select_candidates_tiles_plain`` computes, with its inputs.
+    vp_w, vm_w, cost_w (Q, NW, T) int32 with the same strides, tiles
+    adjacent; boundary0, state0 (Q, T) int32; text_end, pos_base (T,)
+    int64; valid_from, valid_to, islast_at (T,) int32. Returns (4, N)
+    int64 [pattern; tile; end position; cost] in (pattern, tile,
+    position) order; counts in ``select_positions.launches``. Raises
+    ValueError on other inputs."""
+    if vp_w.dim() != 3:
+        raise ValueError(f"vp_w: expected (Q, NW, T), got {tuple(vp_w.shape)}")
+    Q, NW, T = vp_w.shape
+    _check_words("vp_w", vp_w, (Q, NW, T))
+    _check_strides("vp_w", vp_w, vp_w)
+    for name, x in (("vm_w", vm_w), ("cost_w", cost_w)):
+        _check_words(name, x, (Q, NW, T), vp_w)
+        _check_strides(name, x, vp_w)
+    dev = vp_w.device
+    b0 = _small("boundary0", boundary0, torch.int32, (Q, T), dev)
+    s0 = _small("state0", state0, torch.int32, (Q, T), dev)
+    te = _small("text_end", text_end, torch.int64, (T,), dev)
+    vf = _small("valid_from", valid_from, torch.int32, (T,), dev)
+    vt = _small("valid_to", valid_to, torch.int32, (T,), dev)
+    il = _small("islast_at", islast_at, torch.int32, (T,), dev)
+    pb = _small("pos_base", pos_base, torch.int64, (T,), dev)
+    if Q * NW * T == 0:
+        return torch.empty((4, 0), dtype=torch.int64, device=dev)
+    lib = load_library(build())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch(counts, ends, out, N):
+            _raise_on(lib.sassy_select_positions_tiles(
+                _ptr(vp_w), _ptr(vm_w), _ptr(cost_w), _ptr(b0), _ptr(te),
+                _ptr(vf), _ptr(vt), _ptr(il), _ptr(pb), _ptr(s0),
+                _ptr(counts), _ptr(ends), _ptr(out), vp_w.stride(0),
+                vp_w.stride(1), N, Q, NW, T, k, int(all_minima),
+                float(alpha), 1 if out is None else 2, stream,
+            ), "select_positions_tiles")
+
+        out = _count_then_emit(launch, Q * T, 4, dev)
+    select_positions.launches += 1
+    return out

@@ -535,3 +535,197 @@ def test_sharded_cuda_equals_single_engine(cuda, n_text, n_pat, alpha):
     assert got == want
     assert ss.last_stats["ownership_violations"] == 0
     assert sum(len(c) for c in got) == ss.last_stats["per_shard_counts"].sum()
+
+
+# ---------------------------------------------------------------------------
+# the selection kernels (csrc/select_words.cu, csrc/select_positions.cu)
+# against their plain versions
+
+
+def _lexsorted(cols):
+    """(R, N) columns on the host in lexicographic order."""
+    a = cols.cpu().numpy()
+    return a[:, np.lexsort(a[::-1])]
+
+
+def _to(dev, args):
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+def _piece_tables(g, T, NW, base):
+    """Piece tables of the batched engine's layout: valid_from, valid_to,
+    text_end, islast_at, pos_base (from ``base``, past 2^31 at most)."""
+    tile0 = g.random(T) < 0.3
+    vf = np.where(tile0, -1, g.integers(0, 64, T)).astype(np.int32)
+    vt = np.minimum(vf + g.integers(32, NW * 32, T), NW * 32 - 32)
+    tend = (vt - g.integers(0, 60, T)).astype(np.int64)
+    islast = np.where(g.random(T) < 0.5, vt, -1).astype(np.int32)
+    pos_base = base + np.arange(T, dtype=np.int64) * (NW * 32 + 1)
+    t = torch.from_numpy
+    return (t(tile0), t(vf), t(vt.astype(np.int32)), t(tend), t(islast),
+            t(pos_base))
+
+
+def _held(cuda, entry, args, counter):
+    """The entry point on the card (one kernel call) against its plain
+    version on the host, equal after a lexsort; returns N."""
+    before = counter.launches
+    got = getattr(minima, entry)(*_to(cuda, args))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    want = getattr(minima, entry + "_plain")(*args)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(_lexsorted(got), _lexsorted(want))
+    return want.shape[1]
+
+
+@pytest.mark.parametrize("overhang", [False, True])
+@pytest.mark.parametrize("all_minima", [False, True])
+@pytest.mark.parametrize("Q", [1, 8])
+def test_select_words_kernel_equals_plain(cuda, Q, all_minima, overhang):
+    """Random q2meta outputs over piece tables past 2^31, with and without
+    text ends and a three-word strip."""
+    T, NW, k = 400, 9, 6
+    g = np.random.default_rng(Q + 2 * all_minima + 4 * overhang)
+    tile0, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 3 << 30)
+    a = _random_q_inputs("iupac", Q, 24, T=T, NW=NW, seed=Q)
+    vp, vm, cost, meta, _ = myers_cuda.scan_q_meta_plain(
+        a[0], tile0, vf, vt, *a[4:9], k, "iupac")
+    state0 = torch.from_numpy(g.integers(0, 2, (Q, T)).astype(np.int32))
+    args = (vp, vm, cost, meta, vf, vt, islast, pos_base, k, state0,
+            all_minima, tend if overhang else None, 0.3 if overhang else None,
+            3 if overhang else 0)
+    assert _held(cuda, "select_words_tiles_q", args, myers_cuda.select_words)
+    # tile slices, as BatchEngine.select passes a range of a chunk
+    part = tuple(x[..., 50:300] if isinstance(x, torch.Tensor)
+                 and x.shape[-1] == T else x for x in args)
+    _held(cuda, "select_words_tiles_q", part, myers_cuda.select_words)
+
+
+def _position_level(monkeypatch, alpha=0.1, k=10):
+    """A position-level single search's q1 outputs on the host."""
+    from sassy_tpu_torch.ops.myers_torch import TorchEngine
+
+    monkeypatch.setattr(plan, "H100_TARGET_TILES", 8)
+    prof = profiles.Iupac()
+    g = np.random.default_rng(3)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pat = g.choice(bases, 120)
+    text = _overhung(3, 2500, pat, 10)
+    eng = TorchEngine("cpu")
+    inp = eng.build_inputs(prof, prof.encode(pat), text, k, alpha, None,
+                           False)
+    assert not inp.fast
+    return inp, eng.scan(inp)
+
+
+@pytest.mark.parametrize("all_minima", [False, True])
+@pytest.mark.parametrize("owned", [None, (0, None, 0), (900, 4000, 1),
+                                   (900, 4000, 0), (1700, None, 1)])
+def test_select_positions_kernel_equals_plain(cuda, monkeypatch, owned,
+                                              all_minima):
+    """One text's positions, alone and with the sharded search's owned
+    range and incoming state."""
+    inp, (vp, vm, cost) = _position_level(monkeypatch)
+    args = (vp, vm, cost, inp.W, inp.halo, inp.boundary_m, inp.n_text,
+            inp.max_pos, inp.k, 0.1, all_minima)
+    if owned is not None:
+        args += owned
+    n = _held(cuda, "select_candidates", args, myers_cuda.select_positions)
+    assert n or owned == (1700, None, 1)
+
+
+@pytest.mark.parametrize("all_minima", [False, True])
+@pytest.mark.parametrize("alpha", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("Q", [1, 8])
+def test_select_positions_tiles_kernel_equals_plain(cuda, Q, alpha,
+                                                    all_minima):
+    """Q patterns over pieces past 2^31, also over a range of tiles."""
+    T, NW, k = 300, 5, 8
+    g = np.random.default_rng(Q + int(10 * alpha))
+    tile0, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 5 << 30)
+    a = _random_q_inputs("iupac", Q, 24, T=T, NW=NW, seed=Q + 20)
+    vp, vm, cost = myers_cuda.scan_q_plain(a[0], tile0, *a[4:9], "iupac")
+    boundary0 = torch.where(tile0[None], a[8][:, None], a[7][:, None])
+    state0 = torch.from_numpy(g.integers(0, 2, (Q, T)).astype(np.int32))
+    args = (vp, vm, cost, boundary0, tend, vf, vt, islast, pos_base, k,
+            alpha, state0, all_minima)
+    assert _held(cuda, "select_candidates_tiles", args,
+                 myers_cuda.select_positions)
+    part = tuple(x[..., 40:200] if isinstance(x, torch.Tensor)
+                 and x.shape[-1] == T else x for x in args)
+    _held(cuda, "select_candidates_tiles", part, myers_cuda.select_positions)
+
+
+def test_select_kernels_on_empty_results(cuda, monkeypatch):
+    """No candidate (k below every cost): each kernel returns its empty
+    columns; no tile at all: no launch."""
+    T, NW = 64, 4
+    g = np.random.default_rng(9)
+    tile0, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 0)
+    a = _random_q_inputs("iupac", 2, 24, T=T, NW=NW, seed=9)
+    vp, vm, cost, meta, _ = myers_cuda.scan_q_meta_plain(
+        a[0], tile0, vf, vt, *a[4:9], 6, "iupac")
+    state0 = torch.zeros((2, T), dtype=torch.int32)
+    words = (vp, vm, cost, meta, vf, vt, islast, pos_base, -1, state0, True)
+    assert _held(cuda, "select_words_tiles_q", words,
+                 myers_cuda.select_words) == 0
+    inp, (pv, pm, pc) = _position_level(monkeypatch)
+    assert _held(cuda, "select_candidates",
+                 (pv, pm, pc, inp.W, inp.halo, inp.boundary_m, inp.n_text,
+                  inp.max_pos, -1, 0.1, False),
+                 myers_cuda.select_positions) == 0
+    boundary0 = torch.full((2, T), 99, dtype=torch.int32)
+    assert _held(cuda, "select_candidates_tiles",
+                 (vp, vm, cost, boundary0, tend, vf, vt, islast, pos_base,
+                  -1, 0.1, state0, False), myers_cuda.select_positions) == 0
+    before = (myers_cuda.select_words.launches,
+              myers_cuda.select_positions.launches)
+    none = tuple(x[..., :0].to(cuda) if isinstance(x, torch.Tensor)
+                 else x for x in words)
+    assert myers_cuda.select_words(*none).shape == (4, 0)
+    assert (myers_cuda.select_words.launches,
+            myers_cuda.select_positions.launches) == before
+
+
+def test_select_kernels_reject_bad_inputs(cuda):
+    """Inputs of another dtype, shape, layout or device raise ValueError
+    before any launch."""
+    T, NW = 32, 3
+    g = np.random.default_rng(4)
+    tile0, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 0)
+    a = _random_q_inputs("iupac", 2, 24, T=T, NW=NW, seed=4)
+    outs = myers_cuda.scan_q_meta_plain(a[0], tile0, vf, vt, *a[4:9], 6,
+                                        "iupac")[:4]
+    state0 = torch.zeros((2, T), dtype=torch.int32)
+    good = _to(cuda, (*outs, vf, vt, islast, pos_base, 6, state0, False))
+    bad = {
+        0: good[0].to(torch.int64),                # vp of another dtype
+        3: good[3][:, :, :-1].contiguous(),        # meta of another shape
+        7: good[7].to(torch.int32),                # pos_base as int32
+        9: good[9][:1],                            # one pattern's seeds
+    }
+    for i, x in bad.items():
+        args = list(good)
+        args[i] = x
+        with pytest.raises(ValueError):
+            myers_cuda.select_words(*args)
+    vp, vm, cost = (x[0] for x in good[:3])
+    with pytest.raises(ValueError, match="do not fit"):
+        myers_cuda.select_positions(vp, vm, cost, NW, 1, 0, 100, 100, 3,
+                                    None, False)
+    # the position level reads its words in place: tiles adjacent
+    other = good[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="strides"):
+        myers_cuda.select_positions_tiles(
+            *good[:2], other, good[9], tend.to(cuda), *good[4:8], 3, 0.1,
+            good[9], False)
+    with pytest.raises(ValueError, match="text_end"):
+        myers_cuda.select_positions_tiles(
+            *good[:3], good[9], tend.to(cuda).to(torch.int32), *good[4:8], 3,
+            0.1, good[9], False)
+    # a CUDA tensor beside a host one
+    with pytest.raises(ValueError):
+        myers_cuda.select_words(*good[:4], vf, *good[5:])

@@ -73,6 +73,16 @@ def test_tile_state_chain_codes_equals_reference():
     got = minima.tile_state_chain_codes(torch.from_numpy(tl),
                                         torch.from_numpy(is_start))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # one pattern's row of T > 1024 tiles (cummax_1d's two levels), seeded
+    tl1, seed = tl[None, :3000], np.array([3], np.int32)
+    want = ref.tile_state_chain_codes(jax, jnp, jnp.asarray(tl1),
+                                      jnp.asarray(is_start[:3000]),
+                                      jnp.asarray(seed), True)
+    got = minima.tile_state_chain_codes(torch.from_numpy(tl1),
+                                        torch.from_numpy(is_start[:3000]),
+                                        torch.from_numpy(seed), True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def _planted(seed, n, m, alphabet):
