@@ -69,8 +69,9 @@ the CUDA toolkit. Phases:
 10. q2 vs plain: the q2 kernel against its plain version on the first
    dispatch chunk of phase 11b's position-level run (8 patterns of
    120 bp, k=10, alpha 0.1), bit for bit, each pattern's slice against
-   q1; both timed; the select_positions kernel on the first tile range
-   of the chunk as phase 11b selects it;
+   q1; both timed; the select_positions_tiles kernel (the pieces' walk
+   in select_positions.cu) on the first tile range of the chunk as phase
+   11b selects it;
 11. batched overhang at the nanopore shape, 33,400 fresh random 10 kbp
    reads: (a) search_many of 96 x 24 bp barcodes, k=3, alpha 0.5, an
    exact barcode copy hanging 4 chars off the start or the end of every
@@ -208,10 +209,13 @@ the CUDA toolkit. Phases:
 
 After each main-path run of phases 3, 6, 8, 9, 11, 20 and 21a no plain
 selection ran and the selection kernel of its level launched; those
-launches are rows 10-11 of the kernels line (select_words,
-select_positions), whose times are phase 2's (without all_minima) and
-phase 9's. The plain selections refuse to run wherever the plain scans
-do (phases 20 and 21).
+launches are rows 10-11 of the kernels line (select_words;
+select_positions, with the pieces' kernel select_positions_tiles as a
+record of its own under the row's "pieces" key), whose times are phase
+2's (without all_minima), phase 9's and phase 10's. The sharded runs
+that hold a selection to its plain version capture its arguments in a
+second, untimed run. The plain selections refuse to run wherever the
+plain scans do (phases 20 and 21).
 
 The script imports neither JAX nor anything of the reference package.
 
@@ -430,10 +434,10 @@ def counts_zero():
 #: the selection entry points of ops/minima.py and their kernels' rows
 SELECT_ENTRIES = {"select_words_tiles_q": "select_words",
                   "select_candidates": "select_positions",
-                  "select_candidates_tiles": "select_positions"}
+                  "select_candidates_tiles": "select_positions_tiles"}
 #: launches of the selection kernels in the main path's runs (phases 3, 6,
 #: 8, 9, 11, 20 and 21a), rows 10-11 of the kernels line
-SELECTED = {"select_words": 0, "select_positions": 0}
+SELECTED = dict.fromkeys(SELECT_ENTRIES.values(), 0)
 
 
 def select_state() -> dict:
@@ -441,8 +445,8 @@ def select_state() -> dict:
     counts."""
     from sassy_tpu_torch.ops import minima, myers_cuda
 
-    got = {"select_words": myers_cuda.select_words.launches,
-           "select_positions": myers_cuda.select_positions.launches}
+    got = {kernel: getattr(myers_cuda, kernel).launches
+           for kernel in SELECTED}
     for name in SELECT_ENTRIES:
         got[name + "_plain"] = getattr(minima, name + "_plain").calls
     return got
@@ -451,8 +455,8 @@ def select_state() -> dict:
 def select_restore(state: dict) -> None:
     from sassy_tpu_torch.ops import minima, myers_cuda
 
-    myers_cuda.select_words.launches = state["select_words"]
-    myers_cuda.select_positions.launches = state["select_positions"]
+    for kernel in SELECTED:
+        getattr(myers_cuda, kernel).launches = state[kernel]
     for name in SELECT_ENTRIES:
         getattr(minima, name + "_plain").calls = state[name + "_plain"]
 
@@ -1414,11 +1418,12 @@ def q2_vs_plain(reads, pats):
     s0, s1 = next(eng.select_ranges(g, pp, q1 - q0, t0, t1))
     part = tuple(o[..., s0 - t0 : s1 - t0] for o in got)
     carry = torch.zeros((q1 - q0, 1), dtype=torch.int32, device=DEVICE)
-    hold_engine_select(
+    held = hold_engine_select(
         f"phase 10: phase 11b's selection of pieces {s0}..{s1}",
         lambda: eng.select(part, g, pp, q0, s0, s1, k, False, carry))
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            **bound(g.eq_mode, q1 - q0, g.pmasks.shape[1], win.shape, False)}
+            **bound(g.eq_mode, q1 - q0, g.pmasks.shape[1], win.shape, False),
+            "select": held}
 
 
 def batched_overhang(label, reads, pats, case, want, used, unused,
@@ -2837,8 +2842,10 @@ def sharded_run(label: str, ss, text, pats, k: int, alpha, used: tuple,
     ``used`` launched, once per slot at least, and the selection kernel of
     its level, no plain version; the lists equal ``want`` and pass the
     owner-computes checks. With ``hold`` (what, a ``captured_selection``
-    keep), the selection call the keep picks is then held against its
-    plain version. Returns the lists and the launches."""
+    keep, a check of the call it kept), a second run, untimed and with
+    its launches not counted, captures the selection call the keep picks,
+    the check holds for it, and the call is held against its plain
+    version. Returns the lists and the launches."""
     import torch
 
     from sassy_tpu_torch import graft_entry, profiles, semantics
@@ -2847,9 +2854,7 @@ def sharded_run(label: str, ss, text, pats, k: int, alpha, used: tuple,
     counts_zero()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    capture = (captured_selection(hold[1]) if hold
-               else contextlib.nullcontext({}))
-    with capture as calls, no_plain():
+    with no_plain():
         got = ss.candidates_batch(prof, pats, text, k, alpha=alpha)
     wall = time.perf_counter() - t0
     launched = counts()
@@ -2868,9 +2873,19 @@ def sharded_run(label: str, ss, text, pats, k: int, alpha, used: tuple,
         f"engine's; launches {launched}; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if hold is not None:
-        if len(calls) != 1:
-            fail(f"{label}: no selection call to hold: {list(calls)}")
+        state = select_state()
+        with captured_selection(hold[1]) as calls, no_plain():
+            again = ss.candidates_batch(prof, pats, text, k, alpha=alpha)
+        select_restore(state)
+        if again != got or len(calls) != 1:
+            fail(f"{label}: the second run differed, or no selection call "
+                 f"to hold: {list(calls)}")
         ((name, call),) = calls.items()
+        if not hold[2](*call):
+            fail(f"{label}: the selection call kept is not {hold[0]}")
+        log(f"{label}: the second run's steps (the capture on): "
+            + ", ".join(f"{step} {sec * 1e3:.1f} ms"
+                        for step, sec in ss.last_times.items()))
         hold_selection(f"{label}, {hold[0]} {call[1]}", name, call)
     return got, launched
 
@@ -2963,9 +2978,11 @@ def sharded_one_process(gen) -> dict:
         lists = []
         # a slot past the first shard, with its owned range and the state
         # the shards before it pass on
-        hold = (("a slot of a later shard", lambda name, a, kw: kw.get(
-            "min_pos", 0) > 0 and kw.get("state0") is not None)
-            if label.endswith("overhang q2") else None)
+        later = (lambda name, a, kw: kw.get("min_pos", 0) > 0
+                 and kw.get("state0") is not None)
+        hold = (("a slot of a later shard", later,
+                 lambda a, kw: later(None, a, kw))
+                if label.endswith("overhang q2") else None)
         for hier in hiers or (None,):
             ss = ShardedSearch(mesh=mesh, hier=hier, timed=True)
             tag = (label if hier is None
@@ -3050,10 +3067,19 @@ def sharded_past_2g(gen) -> dict:
     del host
     ss = ShardedSearch(mesh=make_mesh(SHARD_BIG_DT, 1, device=DEVICE),
                        timed=True)
+    # the slots select in order, one call each: the last is the last text
+    # shard's, which holds the positions past 2^31 (chosen on the host:
+    # the keep runs inside the search); checked on its pos_base after
+    seen = []
+
+    def last_slot(name, a, kw):
+        seen.append(name)
+        return len(seen) == SHARD_BIG_DT
+
     got, launched = sharded_run(
         "phase 20b past 2^31", ss, text, pats, K, None, ("q2meta",), want, n,
-        ("the slot past 2^31", lambda name, a, kw: a[7].numel() > 0
-         and int(a[7].max()) > past))
+        ("the slot past 2^31", last_slot,
+         lambda a, kw: int(a[7].max()) > past))
     for q, end in enumerate(ends):
         if (end, 1) not in got[q]:
             fail(f"phase 20b: the copy ending at {end} (past {past}) did "
@@ -3311,7 +3337,7 @@ def tools_on_card() -> dict:
         f"launches {soaked}")
     require(soaked, ("q1meta", "q2meta", "q1", "q2"), ("qn", "variants"),
             "phase 21a", least=1)
-    selected("phase 21a", ("select_words", "select_positions"))
+    selected("phase 21a", tuple(SELECTED))
 
     runs = [
         ("21b bench_oneshot", lambda: bench_oneshot.run(
@@ -3405,7 +3431,7 @@ def main() -> int:
                      ("q2meta",), ("q2", "q1", "q1meta"), "select_words")
     launched_b = batched_overhang("phase 11b", reads, long_, OH_POS, want_b,
                                   ("q2",), ("q2meta", "q1", "q1meta"),
-                                  "select_positions")
+                                  "select_positions_tiles")
     del reads
     torch.cuda.empty_cache()
 
@@ -3482,13 +3508,20 @@ def main() -> int:
               "scripts/kernel_variants.py:29", head_variants["launches"],
               head_variants),
         # rows 10-11: the JAX pipeline's XLA selection; launches of phases
-        # 3, 6, 8, 9, 11, 20 and 21a, times from phases 2 and 9
+        # 3, 6, 8, 9, 11, 20 and 21a, times from phases 2, 9 and (the
+        # pieces' kernel of the same source, a record of its own) 10
         entry("select_words", "sassy_tpu_torch/csrc/select_words.cu",
               "sassy_tpu/ops/minima.py:662", SELECTED["select_words"],
               head_sw),
-        entry("select_positions", "sassy_tpu_torch/csrc/select_positions.cu",
-              "sassy_tpu/ops/minima.py:43", SELECTED["select_positions"],
-              head_q1["select"]),
+        {**entry("select_positions",
+                 "sassy_tpu_torch/csrc/select_positions.cu",
+                 "sassy_tpu/ops/minima.py:43", SELECTED["select_positions"],
+                 head_q1["select"]),
+         "pieces": entry("select_positions_tiles",
+                         "sassy_tpu_torch/csrc/select_positions.cu",
+                         "sassy_tpu/ops/minima.py:1019",
+                         SELECTED["select_positions_tiles"],
+                         head_q2["select"])},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

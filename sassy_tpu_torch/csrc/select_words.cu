@@ -223,6 +223,10 @@ __global__ void __launch_bounds__(kSelThreads) emit_words(const WordArgs a) {
 
 }  // namespace
 
+// The (pattern, word, tile) elements per block: the caller sizes
+// block_counts as ceil(Q * NW * T / this).
+extern "C" long long sassy_select_words_per_block() { return kWordsPerBlock; }
+
 // pass 0 counts (block_counts), pass 1 writes `out` (block_counts and
 // their inclusive prefix sums block_ends from pass 0). Launches on
 // `stream` without synchronising; returns the cudaError_t of the launch.

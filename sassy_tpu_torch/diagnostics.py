@@ -63,19 +63,38 @@ def scan_bound(eq_mode: str, Q: int, M: int, windows_shape, meta: bool,
 
 
 def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
-    """bound_ms and bound_by of one call of a selection entry point of
+    """bound_ms and bound_by (and the bytes and ops they come from) of one
+    call of a selection entry point of
     ``ops/minima.py`` (``select_words_tiles_q``, ``select_candidates``,
     ``select_candidates_tiles``) with these arguments, which returned
     ``n_out`` candidates. Bytes: what the function must read, once, and
-    its int64 output columns. The word level reads every meta word, and
-    vp, vm and cost of each screened word with the next word's and the
-    ``n_prev`` strip's vp and vm (the screen depends on the data: this
-    call's count); the position level reads vp, vm and cost of every
-    walked word (tiles' owned words, or every piece word of each pattern).
-    Operations: one integer operation per position examined, the least
-    work (each is held against k): one per (pattern, word, tile) and 33
-    per screened word, or every position walked."""
+    its int64 output columns; where that depends on the data, this call's
+    data.
+
+    - Word level: every meta word; vp, vm and cost of each screened word
+      and, unless ``all_minima``, vp and vm of the other words of its
+      ``n_prev`` strip that lie past valid_from; the tile tables
+      (valid_from, valid_to, islast_at, pos_base, text_end) of the tiles
+      with a screened word and, unless ``all_minima``, ``state0`` of the
+      (pattern, tile) pairs with one.
+      The next word's first delta is read only for a candidate pending at
+      a word's end, and is not counted.
+    - Position level: vp and vm of every word that holds a position the
+      function reports or whose delta feeds the state (one text: flat
+      positions up to ``max_pos`` and ``owned_end``, from ``min_pos`` with
+      an incoming state or ``all_minima``; pieces: window positions in
+      (valid_from, valid_to]), and one cost a tile (the cost at a tile's first such
+      word; each next word's is that plus popc(vp) - popc(vm)); pieces
+      also read their tables, boundary0 where they own position 0, and
+      ``state0`` unless ``all_minima``.
+
+    Operations: one integer operation per position examined (each is held
+    against k): one per (pattern, word, tile) and 32 per screened or
+    strip word (33 for a screened one), or every position of the words
+    above."""
     import inspect
+
+    import torch
 
     from .ops import minima
 
@@ -86,26 +105,64 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
     a = sig.bind(*args, **kwargs)
     a.apply_defaults()
     a = a.arguments
+    state = not a["all_minima"]
     if entry == "select_words_tiles_q":
         meta = a["meta"]
-        screened = int(((meta & 1) != 0).sum())
-        T = meta.shape[-1]
-        nbytes = (4 * meta.numel() + screened * (12 + 8 * (1 + a["n_prev"]))
-                  + T * (20 + (8 if a["text_end"] is not None else 0))
-                  + 4 * a["state0"].numel() + 32 * n_out)
-        ops = meta.numel() + 33 * screened
+        scr = (meta & 1) != 0
+        screened = int(scr.sum())
+        strip = torch.zeros_like(scr)
+        if state:
+            # the n_prev words before a screened word, less those wholly at
+            # or below valid_from (their deltas never feed the state)
+            for s in range(1, min(a["n_prev"], scr.shape[1] - 1) + 1):
+                strip[:, :-s] |= scr[:, s:]
+            w = torch.arange(scr.shape[1], device=scr.device)
+            vf = a["valid_from"].to(torch.int64).div(
+                WORD_BITS, rounding_mode="floor")
+            strip &= ~scr & (w[:, None] >= vf[None, :])[None]
+        n_strip = int(strip.sum())
+        tiles = int(scr.any(dim=1).any(dim=0).sum())
+        pairs = int(scr.any(dim=1).sum()) if state else 0
+        nbytes = (4 * meta.numel() + 12 * screened + 8 * n_strip
+                  + tiles * (20 + (8 if a["text_end"] is not None else 0))
+                  + 4 * pairs + 32 * n_out)
+        ops = meta.numel() + 33 * screened + WORD_BITS * n_strip
     elif entry == "select_candidates":
         T, W = a["vp_w"].shape[1], a["W"]
-        nbytes = 12 * W * T + 16 * n_out
-        ops = W * WORD_BITS * T + 1
+        hi = a["max_pos"]
+        if a["owned_end"] is not None:
+            hi = min(hi, a["owned_end"])
+        gated = a["state0"] is not None or not state
+        lo = max(1, a["min_pos"] or 0) if gated else 1
+        # flat word j holds positions 32 j + 1 .. 32 j + 32
+        first = (lo - 1) // WORD_BITS
+        last = min(T * W - 1, (hi - 1) // WORD_BITS)
+        words = max(0, last - first + 1)
+        tiles = max(0, last // W - first // W + 1) if words else 0
+        nbytes = 8 * words + 4 * tiles + 16 * n_out
+        ops = words * WORD_BITS + 1
     else:
         Q, NW, T = a["vp_w"].shape
-        nbytes = 12 * Q * NW * T + 8 * Q * T + 28 * T + 32 * n_out
-        ops = Q * T * (NW * WORD_BITS + 1)
+        vf = a["valid_from"].to(torch.int64)
+        vt = a["valid_to"].to(torch.int64)
+        # window word w holds positions 32 w + 1 .. 32 w + 32
+        first = vf.clamp(min=0) // WORD_BITS
+        last = torch.minimum((vt - 1).div(WORD_BITS, rounding_mode="floor"),
+                             torch.full_like(vt, NW - 1))
+        nw = torch.where(vt > vf.clamp(min=0), last - first + 1, 0).clamp(
+            min=0)
+        own0 = (vf < 0) & (vt >= 0)
+        live = int(((nw > 0) | own0).sum())
+        words = int(nw.sum())
+        nbytes = (Q * (8 * words + 4 * int((nw > 0).sum())
+                       + 4 * int(own0.sum()) + (4 * live if state else 0))
+                  + live * (20 + (8 if a["alpha"] else 0)) + 32 * n_out)
+        ops = Q * (words * WORD_BITS + int(own0.sum()))
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops}
 
 
 def cost_model(m: int, n: int, k: int, num_patterns: int = 1,

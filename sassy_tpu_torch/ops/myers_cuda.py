@@ -37,14 +37,14 @@ CUDA tensors:
   (``csrc/select_positions.cu``) replace its ``select_candidates`` and
   ``select_candidates_tiles``: the position-level selections of one text
   and of the batched engine's pieces; ``minima.select_candidates_plain``,
-  ``minima.select_candidates_tiles_plain``. Both count in
-  ``select_positions.launches``.
+  ``minima.select_candidates_tiles_plain``.
 
 The scan sources share the row step of ``csrc/myers_step.cuh``, the
 selection sources ``csrc/select_common.cuh``. All are compiled with one
 ``nvcc`` call for ``sm_90a`` at first use into one library in
 ``build/sassy_tpu_torch/`` beside the package, keyed by a hash of the
-sources and flags, and loaded with ctypes through plain C entry points.
+sources and flags, and loaded with ctypes through plain C entry points,
+once per process (``_lib``).
 
 Each scan wrapper runs the plain version for tensors on the CPU and its
 kernel for tensors on a CUDA device; there is no other fallback. Its
@@ -54,6 +54,7 @@ kernel for tensors on a CUDA device; there is no other fallback. Its
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -95,15 +96,10 @@ QN_LOOP_U = (1, 2, 4, 8)
 QN_UNROLL = ((1, 1), (2, 1), (1, 2), (2, 2), (2, 4))
 QN_UNROLL_ROWS = (24, 64)
 VARIANTS = {"full": 0, "noeq": 1, "nomem": 2, "nostore": 3}
-#: (pattern, word, tile) elements per block of the word-level selection
-#: (kWordsPerBlock)
-SELECT_WORDS_PER_BLOCK = 4096
 #: owned_end of a position-level selection without one: past every position
 NO_END = 1 << 62
 
 _LIBS: dict = {}
-_KEYS: dict = {}  # (files, flags) -> hash of their bytes
-_BUILT: set = set()  # libraries known to exist
 
 
 def nvcc_path() -> str | None:
@@ -120,17 +116,11 @@ def nvcc_path() -> str | None:
 
 def library_path() -> Path:
     """The kernel library of these sources, headers and flags: its name
-    holds a hash of them all. The hash is taken once per set of files in
-    a process: every wrapper asks for the library at every launch, and
-    reading the sources each time costs host time where the file system
-    is slow, which the selections' host read of their count exposes."""
-    files = (SOURCES + HEADERS, NVCC_FLAGS)
-    key = _KEYS.get(files)
-    if key is None:
-        key = _KEYS[files] = hashlib.sha256(
-            b"".join(f.read_bytes() for f in SOURCES + HEADERS)
-            + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+    holds a hash of them all."""
+    key = hashlib.sha256(
+        b"".join(f.read_bytes() for f in SOURCES + HEADERS)
+        + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"scan_kernels_{key}.so"
 
 
@@ -139,8 +129,7 @@ def build() -> Path:
     Returns its path; ``<path>.log`` keeps the compiler's report
     (registers, spills). Raises with nvcc's stderr when the build fails."""
     lib = library_path()
-    if lib in _BUILT or lib.exists():
-        _BUILT.add(lib)
+    if lib.exists():
         return lib
     nvcc = nvcc_path()
     if nvcc is None:
@@ -158,7 +147,6 @@ def build() -> Path:
         )
     lib.with_name(lib.name + ".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: concurrent builders race harmlessly
-    _BUILT.add(lib)
     return lib
 
 
@@ -182,6 +170,8 @@ def load_library(path) -> ctypes.CDLL:
                                                + [num] * 6 + [real, num, ptr])
         lib.sassy_select_positions_tiles.argtypes = (
             [ptr] * 13 + [big] * 3 + [num] * 5 + [real, num, ptr])
+        lib.sassy_select_words_per_block.argtypes = []
+        lib.sassy_select_words_per_block.restype = big
         for fn in (lib.sassy_scan_meta, lib.sassy_scan_q_meta, lib.sassy_scan,
                    lib.sassy_scan_q, lib.sassy_scan_qn,
                    lib.sassy_scan_variant, lib.sassy_select_words,
@@ -190,6 +180,16 @@ def load_library(path) -> ctypes.CDLL:
             fn.restype = num
         _LIBS[path] = lib
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built (or found built) and loaded once per
+    process: the wrappers call it at every launch, and hashing the sources
+    each time costs host time the selections' host read of their count
+    exposes. After changing the sources or ``build``, call
+    ``_lib.cache_clear()``."""
+    return load_library(build())
 
 
 def scan_q_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
@@ -476,7 +476,7 @@ def scan_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
                                is_pad, h_init, m_real, boundary_m, k, eq_mode)
     dev = _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
                         h_init, eq_mode, ())
-    lib = load_library(build())
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         outs = launch(lib, windows, tile0, valid_from, valid_to, pmasks,
@@ -507,7 +507,7 @@ def scan_q_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
                         h_init, eq_mode, (Q,))
     _check("m_real", m_real, torch.int32, (Q,), dev)
     _check("boundary_m", boundary_m, torch.int32, (Q,), dev)
-    lib = load_library(build())
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         outs = launch_q(lib, windows, tile0, valid_from, valid_to, pmasks,
@@ -532,7 +532,7 @@ def scan(windows, tile0, pmasks, is_pad, h_init, m_real: int,
                           boundary_m, eq_mode)
     dev = _check_inputs(windows, tile0, None, None, pmasks, is_pad, h_init,
                         eq_mode, ())
-    lib = load_library(build())
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         outs = launch_scan(lib, windows, tile0, pmasks, is_pad, h_init,
@@ -559,7 +559,7 @@ def scan_q(windows, tile0, pmasks, is_pad, h_init, m_real, boundary_m,
                         eq_mode, (Q,))
     _check("m_real", m_real, torch.int32, (Q,), dev)
     _check("boundary_m", boundary_m, torch.int32, (Q,), dev)
-    lib = load_library(build())
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         outs = launch_scan_q(lib, windows, tile0, pmasks, is_pad, h_init,
@@ -636,7 +636,7 @@ def scan_qn(windows, tile0, pmasks, is_pad, h_init, m_real, boundary_m,
         raise ValueError(
             f"scan_qn is not built for eq_mode {eq_mode!r}, M = {M}, U = {U},"
             f" unroll = {unroll}, WU = {WU}")
-    lib = load_library(build())
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         outs = launch_scan_qn(lib, windows, tile0, pmasks, is_pad, h_init,
@@ -677,7 +677,7 @@ def scan_variant(windows, pmasks, variant: str):
     dev = windows.device
     _check("windows", windows, torch.int32, (NW, P, T), dev)
     _check("pmasks", pmasks, torch.int32, (M, P), dev)
-    lib = load_library(build())
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         out = launch_scan_variant(lib, windows, pmasks, variant, stream)
@@ -774,8 +774,8 @@ def select_words(vp_w, vm_w, cost_w, meta, valid_from, valid_to, islast_at,
         raise ValueError(f"n_prev = {n_prev} < 0")
     if Q * NW * T == 0:
         return torch.empty((4, 0), dtype=torch.int64, device=dev)
-    lib = load_library(build())
-    blocks = -(-(Q * NW * T) // SELECT_WORDS_PER_BLOCK)
+    lib = _lib()
+    blocks = -(-(Q * NW * T) // lib.sassy_select_words_per_block())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -823,7 +823,7 @@ def select_positions(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
     dev = vp_w.device
     if T == 0:
         return torch.empty((2, 0), dtype=torch.int64, device=dev)
-    lib = load_library(build())
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -867,8 +867,7 @@ def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
     adjacent; boundary0, state0 (Q, T) int32; text_end, pos_base (T,)
     int64; valid_from, valid_to, islast_at (T,) int32. Returns (4, N)
     int64 [pattern; tile; end position; cost] in (pattern, tile,
-    position) order; counts in ``select_positions.launches``. Raises
-    ValueError on other inputs."""
+    position) order. Raises ValueError on other inputs."""
     if vp_w.dim() != 3:
         raise ValueError(f"vp_w: expected (Q, NW, T), got {tuple(vp_w.shape)}")
     Q, NW, T = vp_w.shape
@@ -887,7 +886,7 @@ def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
     pb = _small("pos_base", pos_base, torch.int64, (T,), dev)
     if Q * NW * T == 0:
         return torch.empty((4, 0), dtype=torch.int64, device=dev)
-    lib = load_library(build())
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -901,5 +900,8 @@ def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
             ), "select_positions_tiles")
 
         out = _count_then_emit(launch, Q * T, 4, dev)
-    select_positions.launches += 1
+    select_positions_tiles.launches += 1
     return out
+
+
+select_positions_tiles.launches = 0

@@ -653,10 +653,11 @@ def test_select_positions_tiles_kernel_equals_plain(cuda, Q, alpha,
     args = (vp, vm, cost, boundary0, tend, vf, vt, islast, pos_base, k,
             alpha, state0, all_minima)
     assert _held(cuda, "select_candidates_tiles", args,
-                 myers_cuda.select_positions)
+                 myers_cuda.select_positions_tiles)
     part = tuple(x[..., 40:200] if isinstance(x, torch.Tensor)
                  and x.shape[-1] == T else x for x in args)
-    _held(cuda, "select_candidates_tiles", part, myers_cuda.select_positions)
+    _held(cuda, "select_candidates_tiles", part,
+          myers_cuda.select_positions_tiles)
 
 
 def test_select_kernels_on_empty_results(cuda, monkeypatch):
@@ -680,14 +681,17 @@ def test_select_kernels_on_empty_results(cuda, monkeypatch):
     boundary0 = torch.full((2, T), 99, dtype=torch.int32)
     assert _held(cuda, "select_candidates_tiles",
                  (vp, vm, cost, boundary0, tend, vf, vt, islast, pos_base,
-                  -1, 0.1, state0, False), myers_cuda.select_positions) == 0
+                  -1, 0.1, state0, False),
+                 myers_cuda.select_positions_tiles) == 0
     before = (myers_cuda.select_words.launches,
-              myers_cuda.select_positions.launches)
+              myers_cuda.select_positions.launches,
+              myers_cuda.select_positions_tiles.launches)
     none = tuple(x[..., :0].to(cuda) if isinstance(x, torch.Tensor)
                  else x for x in words)
     assert myers_cuda.select_words(*none).shape == (4, 0)
     assert (myers_cuda.select_words.launches,
-            myers_cuda.select_positions.launches) == before
+            myers_cuda.select_positions.launches,
+            myers_cuda.select_positions_tiles.launches) == before
 
 
 def test_select_kernels_reject_bad_inputs(cuda):

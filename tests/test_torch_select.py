@@ -28,7 +28,7 @@ from sassy_tpu import profiles as ref_profiles
 from sassy_tpu.ops import minima as ref_minima
 from sassy_tpu.ops import myers_xla
 from sassy_tpu.ops.myers_xla import XlaEngine
-from sassy_tpu_torch import profiles
+from sassy_tpu_torch import diagnostics, profiles
 from sassy_tpu_torch.ops import minima, myers_cuda, plan
 from sassy_tpu_torch.ops.batch import BatchEngine
 from sassy_tpu_torch.ops.myers_torch import TorchEngine
@@ -98,7 +98,8 @@ def _tile_args(Q=3, T=30, NW=4, k=6, alpha=0.1):
 
 def _kernel_counts():
     return (myers_cuda.select_words.launches,
-            myers_cuda.select_positions.launches)
+            myers_cuda.select_positions.launches,
+            myers_cuda.select_positions_tiles.launches)
 
 
 @pytest.mark.parametrize("entry", list(ENTRIES))
@@ -280,6 +281,100 @@ def test_selection_sources_are_built_and_hashed(monkeypatch, tmp_path):
         monkeypatch.setattr(myers_cuda, which, tuple(files))
         seen.add(myers_cuda.library_path())
     assert len(seen) == 4
+
+
+def test_kernel_library_is_built_and_loaded_once(monkeypatch):
+    """The wrappers' ``_lib()`` builds (or finds) and loads the library
+    once per process, whatever the number of launches; ``cache_clear``
+    starts over."""
+    calls = []
+    monkeypatch.setattr(myers_cuda, "build",
+                        lambda: calls.append("build") or "lib.so")
+    monkeypatch.setattr(myers_cuda, "load_library",
+                        lambda path: calls.append(path) or object())
+    myers_cuda._lib.cache_clear()
+    try:
+        first = myers_cuda._lib()
+        assert myers_cuda._lib() is first and myers_cuda._lib() is first
+        assert calls == ["build", "lib.so"]
+        myers_cuda._lib.cache_clear()
+        assert myers_cuda._lib() is not first
+        assert calls == ["build", "lib.so"] * 2
+    finally:
+        myers_cuda._lib.cache_clear()
+
+
+def _bound_bytes_by_enumeration(entry, args, n_out):
+    """The bytes a selection call must move, counted position by position
+    and word by word: what ``diagnostics.select_bound`` computes."""
+    if entry == "select_words_tiles_q":
+        (_, _, _, meta, vf, _, _, _, _, _, all_minima, tend, _,
+         n_prev) = args
+        scr = ((meta & 1) != 0).numpy()
+        strip, tiles, pairs = set(), set(), set()
+        for q, w, t in zip(*np.nonzero(scr)):
+            tiles.add(t)
+            pairs.add((q, t))
+            for ww in range(max(0, w - n_prev), w):
+                if not scr[q, ww, t] and 32 * ww + 32 > int(vf[t]):
+                    strip.add((q, ww, t))
+        state = not all_minima
+        return (4 * meta.numel() + 12 * int(scr.sum())
+                + 8 * len(strip) * state
+                + len(tiles) * (20 + 8 * (tend is not None))
+                + 4 * len(pairs) * state + 32 * n_out)
+    if entry == "select_candidates":
+        vp, W, max_pos = args[0], args[3], args[7]
+        all_minima = args[10]
+        min_pos, owned_end, state0 = (list(args[11:]) + [None] * 3)[:3]
+        p = np.arange(1, vp.shape[1] * W * 32 + 1)
+        need = p <= min(max_pos, owned_end or max_pos)
+        if state0 is not None or all_minima:
+            need &= p >= (min_pos or 0)
+        words = np.unique((p[need] - 1) // 32)
+        return 8 * len(words) + 4 * len(np.unique(words // W)) + 16 * n_out
+    vp, vf, vt, alpha, all_minima = (args[0], args[5], args[6], args[10],
+                                     args[12])
+    Q, NW, T = vp.shape
+    total = 0
+    for t in range(T):
+        p = np.arange(1, NW * 32 + 1)
+        words = len(np.unique((p[(p > int(vf[t])) & (p <= int(vt[t]))] - 1)
+                              // 32))
+        own0 = int(vf[t]) < 0 <= int(vt[t])
+        live = words > 0 or own0
+        total += (Q * (8 * words + 4 * (words > 0) + 4 * own0
+                       + 4 * live * (not all_minima))
+                  + live * (20 + 8 * (alpha != 0)))
+    return total + 32 * n_out
+
+
+@pytest.mark.parametrize("entry,case", [
+    ("select_words_tiles_q", False), ("select_words_tiles_q", True),
+    ("select_candidates", None), ("select_candidates", (700, 2900, 1)),
+    ("select_candidates", (700, 2900, None)),
+    ("select_candidates_tiles", False), ("select_candidates_tiles", True)])
+def test_select_bound_counts_what_the_selection_must_read(entry, case):
+    """The selections' bound (the kernels line's bound_ms) counts only the
+    words, tables and seeds a call must read: screened words and their
+    strips, owned positions' vp and vm with one cost a tile, the tables of
+    tiles in use; held to a count by enumeration."""
+    if entry == "select_words_tiles_q":
+        args = _word_args()
+        args = args[:10] + (case,) + args[11:]
+    elif entry == "select_candidates":
+        args = _position_args()[2]
+        if case is not None:
+            args += case
+    else:
+        args = _tile_args()
+        args = args[:12] + (case,)
+    n_out = getattr(minima, entry)(*args).shape[1]
+    got = diagnostics.select_bound(entry, args, {}, n_out)
+    assert got["bytes"] == _bound_bytes_by_enumeration(entry, args, n_out)
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(
+        got["bytes"] / diagnostics.MEM_BYTES_PER_S * 1e3)
 
 
 def test_minima_imports_without_cuda():
