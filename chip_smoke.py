@@ -65,13 +65,17 @@ the CUDA toolkit. Phases:
    timed; then Searcher("iupac", rc=True, alpha=0.1).search of it, with
    copies hanging 10 chars off both ends, checked as in phase 8; q1
    launched, q1meta never; the device memory peak; the select_positions
-   kernel on the planted text's q1 outputs;
+   kernel on the planted text's q1 outputs, and one call of it split by
+   CUDA events into its walk, scan, host read and writing launch;
 10. q2 vs plain: the q2 kernel against its plain version on the first
    dispatch chunk of phase 11b's position-level run (8 patterns of
    120 bp, k=10, alpha 0.1), bit for bit, each pattern's slice against
    q1; both timed; the select_positions_tiles kernel (the pieces' walk
-   in select_positions.cu) on the first tile range of the chunk as phase
-   11b selects it;
+   in select_positions.cu, the state chain inside) over the whole chunk
+   as phase 11b selects it on the card, in one call, against the plain
+   version chained over the CPU path's sub-ranges of the chunk with the
+   carry passed along (same order, same carry out), split as in phase 9;
+   then over the chunk's first sub-range alone against its plain version;
 11. batched overhang at the nanopore shape, 33,400 fresh random 10 kbp
    reads: (a) search_many of 96 x 24 bp barcodes, k=3, alpha 0.5, an
    exact barcode copy hanging 4 chars off the start or the end of every
@@ -212,7 +216,8 @@ selection ran and the selection kernel of its level launched; those
 launches are rows 10-11 of the kernels line (select_words;
 select_positions, with the pieces' kernel select_positions_tiles as a
 record of its own under the row's "pieces" key), whose times are phase
-2's (without all_minima), phase 9's and phase 10's. The sharded runs
+2's (without all_minima), phase 9's and phase 10's (the whole chunk; the
+first sub-range's under the record's "sub_range" key). The sharded runs
 that hold a selection to its plain version capture its arguments in a
 second, untimed run. The plain selections refuse to run wherever the
 plain scans do (phases 20 and 21).
@@ -434,7 +439,8 @@ def counts_zero():
 #: the selection entry points of ops/minima.py and their kernels' rows
 SELECT_ENTRIES = {"select_words_tiles_q": "select_words",
                   "select_candidates": "select_positions",
-                  "select_candidates_tiles": "select_positions_tiles"}
+                  "select_candidates_tiles": "select_positions_tiles",
+                  "select_candidates_chained": "select_positions_tiles"}
 #: launches of the selection kernels in the main path's runs (phases 3, 6,
 #: 8, 9, 11, 20 and 21a), rows 10-11 of the kernels line
 SELECTED = dict.fromkeys(SELECT_ENTRIES.values(), 0)
@@ -534,20 +540,22 @@ def hold_selection(label: str, name: str, call) -> dict:
     state = select_state()
     entry = getattr(minima, name)
     plain = getattr(minima, name + "_plain")
-    got = entry(*a, **kw).cpu().numpy()
+    got, got_carry = columns_and_carry(entry(*a, **kw))
     ref, plain_ms = cuda_once(lambda: plain(*a, **kw))
-    ref = ref.cpu().numpy()
+    ref, ref_carry = columns_and_carry(ref)
     ms = cuda_ms(lambda: entry(*a, **kw), REPS)
     select_restore(state)
     order = (slice(None), np.lexsort(got[::-1]))
     same = got.shape == ref.shape and bool(
         (got[order] == ref[(slice(None), np.lexsort(ref[::-1]))]).all())
+    same = same and (got_carry is None or (got_carry == ref_carry).all())
     rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
            "candidates": got.shape[1],
            **select_bound(name, a, kw, got.shape[1])}
     log(f"{label}: {SELECT_ENTRIES[name]} ({name}) vs plain: "
         f"{got.shape[1]} candidates, equal after a lexsort={same} (in the "
         f"same order={got.shape == ref.shape and bool((got == ref).all())})"
+        f"{'' if got_carry is None else ', carry out equal'}"
         f", kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     if not same:
@@ -556,10 +564,76 @@ def hold_selection(label: str, name: str, call) -> dict:
     return rec
 
 
-def hold_engine_select(label: str, run, keep=None) -> dict:
+def columns_and_carry(got):
+    """A selection's columns on the host, and its carry (the chained
+    entry's) or None."""
+    if isinstance(got, tuple):
+        return got[0].cpu().numpy(), got[1].cpu().numpy()
+    return got.cpu().numpy(), None
+
+
+#: the C entry point of each position-level entry point's kernel
+SPLIT_ENTRY = {"select_candidates": "sassy_select_positions",
+               "select_candidates_chained": "sassy_select_positions_tiles"}
+
+
+def select_split(label: str, name: str, call) -> dict:
+    """One call of a position-level selection entry point split by CUDA
+    events around each of its kernel's launches: the walk and the scan,
+    the gap before the writing launch (the host read of the total and
+    the output's allocation) and the writing launch, in ms. Leaves the
+    launch counts as it found them."""
+    import torch
+
+    from sassy_tpu_torch.ops import minima, myers_cuda
+
+    lib = myers_cuda._lib()
+    real = getattr(lib, SPLIT_ENTRY[name])
+    marks = []
+
+    class Marked:
+        def __getattr__(self, attr):
+            return getattr(lib, attr)
+
+    def launch(*a):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        err = real(*a)
+        ev[1].record()
+        marks.append(ev)
+        return err
+
+    marked = Marked()
+    setattr(marked, SPLIT_ENTRY[name], launch)
+    saved = myers_cuda._lib
+    state = select_state()
+    a, kw = call
+    getattr(minima, name)(*a, **kw)  # warm
+    torch.cuda.synchronize()
+    myers_cuda._lib = lambda: marked
+    try:
+        getattr(minima, name)(*a, **kw)
+        torch.cuda.synchronize()
+    finally:
+        myers_cuda._lib = saved
+        select_restore(state)
+    ms = lambda x, y: x.elapsed_time(y)  # noqa: E731
+    split = {"launches": len(marks), "walk": ms(*marks[0]),
+             "scan": ms(*marks[1]),
+             "read": ms(marks[1][1], marks[2][0]) if len(marks) > 2 else 0.0,
+             "write": ms(*marks[2]) if len(marks) > 2 else 0.0,
+             "call": ms(marks[0][0], marks[-1][1])}
+    log(f"{label}: one {name} call split by CUDA events: "
+        + ", ".join(f"{k} {v:.4f} ms" if k != "launches" else f"{v} launches"
+                    for k, v in split.items()))
+    return split
+
+
+def hold_engine_select(label: str, run, keep=None, with_call=False):
     """``run()`` (an engine's selection step) with its selection call
     captured, then that call held against its plain version; the launches
-    of ``run()`` are not counted."""
+    of ``run()`` are not counted. Returns the record (and, ``with_call``,
+    the call)."""
     state = select_state()
     with captured_selection(keep) as calls:
         run()
@@ -567,7 +641,8 @@ def hold_engine_select(label: str, run, keep=None) -> dict:
     if len(calls) != 1:
         fail(f"{label}: expected one selection call, got {list(calls)}")
     ((name, call),) = calls.items()
-    return hold_selection(label, name, call)
+    held = hold_selection(label, name, call)
+    return (held, call) if with_call else held
 
 
 def counts() -> dict:
@@ -1322,10 +1397,12 @@ def overhang_position_level(gen, text):
     # runs it
     inp = eng.build_inputs(iupac, iupac.encode(pattern),
                            eng.prepare(iupac, text), k, alpha)
-    record["select"] = hold_engine_select(
+    record["select"], call = hold_engine_select(
         "phase 9: the single position level, planted copies",
-        lambda: eng.select(inp, eng.scan(inp)))
-    del inp
+        lambda: eng.select(inp, eng.scan(inp)), with_call=True)
+    record["select"]["split"] = select_split(
+        "phase 9: the single position level", "select_candidates", call)
+    del inp, call
     single_strand_phases("phase 9", searcher, iupac, pattern, text, k)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1414,16 +1491,82 @@ def q2_vs_plain(reads, pats):
         f"equal q1={one}")
     if not (same and one):
         fail("q2 != plain or q1")
-    # the selection of the chunk's first tile range, as phase 11b runs it
-    s0, s1 = next(eng.select_ranges(g, pp, q1 - q0, t0, t1))
-    part = tuple(o[..., s0 - t0 : s1 - t0] for o in got)
     carry = torch.zeros((q1 - q0, 1), dtype=torch.int32, device=DEVICE)
-    held = hold_engine_select(
-        f"phase 10: phase 11b's selection of pieces {s0}..{s1}",
+    ranges = list(eng.select_ranges(g, pp, q1 - q0, t0, t1, "cpu"))
+    # the selection of the whole chunk, as phase 11b runs it on the card
+    if list(eng.select_ranges(g, pp, q1 - q0, t0, t1, "cuda")) != [(t0, t1)]:
+        fail("phase 10: the card's selection is not one call a chunk")
+    held = hold_chunk_selection(
+        "phase 10: phase 11b's selection of the whole chunk",
+        lambda: eng.select(got, g, pp, q0, t0, t1, k, False, carry),
+        [(s0 - t0, s1 - t0) for s0, s1 in ranges])
+    # and of its first sub-range alone, the shape the CPU path selects
+    s0, s1 = ranges[0]
+    part = tuple(o[..., s0 - t0 : s1 - t0] for o in got)
+    held["sub_range"] = hold_engine_select(
+        f"phase 10: the chunk's first sub-range, pieces {s0}..{s1}",
         lambda: eng.select(part, g, pp, q0, s0, s1, k, False, carry))
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             **bound(g.eq_mode, q1 - q0, g.pmasks.shape[1], win.shape, False),
             "select": held}
+
+
+def hold_chunk_selection(label: str, run, ranges) -> dict:
+    """``run()`` (BatchEngine.select over a whole dispatch chunk) with its
+    chained selection call captured; the kernel over the whole chunk
+    (timed over REPS calls) against the plain version chained over the
+    sub-ranges ``ranges`` (chunk-local), the carry passed along (timed
+    once): the columns in the same order and the carry out equal. The
+    call's split by CUDA events. Returns the record."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch.ops import minima
+
+    state = select_state()
+    with captured_selection() as calls:
+        run()
+    select_restore(state)
+    if list(calls) != ["select_candidates_chained"]:
+        fail(f"{label}: expected one chained selection call: {list(calls)}")
+    a, kw = calls["select_candidates_chained"]
+    T = a[0].shape[-1]
+
+    def plain_ranges():
+        cols, carry = [], a[12]
+        for s0, s1 in ranges:
+            part = [x[..., s0:s1] if i in (*range(9), 11) else x
+                    for i, x in enumerate(a)]
+            part[12] = carry
+            got, carry = minima.select_candidates_chained_plain(*part, **kw)
+            got[1] += s0
+            cols.append(got)
+        return torch.cat(cols, 1), carry
+
+    got, got_carry = columns_and_carry(
+        minima.select_candidates_chained(*a, **kw))
+    ref, plain_ms = cuda_once(plain_ranges)
+    ref, ref_carry = columns_and_carry(ref)
+    ms = cuda_ms(lambda: minima.select_candidates_chained(*a, **kw), REPS)
+    select_restore(state)
+    ref = ref[:, np.lexsort(ref[::-1])]
+    same = got.shape == ref.shape and bool((got == ref).all())
+    same_carry = bool((got_carry == ref_carry).all())
+    rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
+           "candidates": got.shape[1], "pieces": T,
+           "plain_ranges": len(ranges),
+           **select_bound("select_candidates_chained", a, kw, got.shape[1])}
+    log(f"{label}: select_positions_tiles (select_candidates_chained) over "
+        f"Q={a[0].shape[0]} x {T} pieces of {a[0].shape[1]} words vs plain "
+        f"chained over {len(ranges)} sub-ranges: {got.shape[1]} candidates, "
+        f"in the same order={same}, carry out equal={same_carry}, kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    if not (same and same_carry):
+        fail(f"{label}: the select_positions_tiles kernel over the chunk != "
+             f"its plain version over the sub-ranges")
+    rec["split"] = select_split(label, "select_candidates_chained", (a, kw))
+    return rec
 
 
 def batched_overhang(label, reads, pats, case, want, used, unused,
@@ -3517,11 +3660,15 @@ def main() -> int:
                  "sassy_tpu_torch/csrc/select_positions.cu",
                  "sassy_tpu/ops/minima.py:43", SELECTED["select_positions"],
                  head_q1["select"]),
-         "pieces": entry("select_positions_tiles",
-                         "sassy_tpu_torch/csrc/select_positions.cu",
-                         "sassy_tpu/ops/minima.py:1019",
-                         SELECTED["select_positions_tiles"],
-                         head_q2["select"])},
+         "pieces": {**entry("select_positions_tiles",
+                            "sassy_tpu_torch/csrc/select_positions.cu",
+                            "sassy_tpu/ops/minima.py:1019",
+                            SELECTED["select_positions_tiles"],
+                            head_q2["select"]),
+                    "sub_range": {
+                        key: head_q2["select"]["sub_range"][key]
+                        for key in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")}}},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

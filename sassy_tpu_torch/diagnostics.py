@@ -66,7 +66,8 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
     """bound_ms and bound_by (and the bytes and ops they come from) of one
     call of a selection entry point of
     ``ops/minima.py`` (``select_words_tiles_q``, ``select_candidates``,
-    ``select_candidates_tiles``) with these arguments, which returned
+    ``select_candidates_tiles``, ``select_candidates_chained``) with these
+    arguments, which returned
     ``n_out`` candidates. Bytes: what the function must read, once, and
     its int64 output columns; where that depends on the data, this call's
     data.
@@ -86,7 +87,9 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
       (valid_from, valid_to]), and one cost a tile (the cost at a tile's first such
       word; each next word's is that plus popc(vp) - popc(vm)); pieces
       also read their tables, boundary0 where they own position 0, and
-      ``state0`` unless ``all_minima``.
+      ``state0`` unless ``all_minima``; chained
+      (``select_candidates_chained``), ``is_start`` unless
+      ``all_minima`` instead of ``state0``, and the carry in and out.
 
     Operations: one integer operation per position examined (each is held
     against k): one per (pattern, word, tile) and 32 per screened or
@@ -99,7 +102,7 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
     from .ops import minima
 
     if entry not in ("select_words_tiles_q", "select_candidates",
-                     "select_candidates_tiles"):
+                     "select_candidates_tiles", "select_candidates_chained"):
         raise ValueError(f"no selection entry point {entry!r}")
     sig = inspect.signature(getattr(minima, entry + "_plain"))
     a = sig.bind(*args, **kwargs)
@@ -154,8 +157,12 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
         own0 = (vf < 0) & (vt >= 0)
         live = int(((nw > 0) | own0).sum())
         words = int(nw.sum())
+        if entry == "select_candidates_tiles":
+            seeds = 4 * Q * live if state else 0
+        else:  # the chain: is_start, the carry in and out
+            seeds = (live if state else 0) + 8 * Q
         nbytes = (Q * (8 * words + 4 * int((nw > 0).sum())
-                       + 4 * int(own0.sum()) + (4 * live if state else 0))
+                       + 4 * int(own0.sum())) + seeds
                   + live * (20 + (8 if a["alpha"] else 0)) + 32 * n_out)
         ops = Q * (words * WORD_BITS + int(own0.sum()))
     t_ops = ops / INT32_OPS_PER_S * 1e3

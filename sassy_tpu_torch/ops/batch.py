@@ -521,14 +521,17 @@ class BatchEngine:
                 yield q0, min(g.Q, q0 + q_chunk), t0, min(pp.T, t0 + t_chunk)
 
     @staticmethod
-    def select_ranges(g: _Group, pp: PiecePlan, n_q: int, t0: int, t1: int):
+    def select_ranges(g: _Group, pp: PiecePlan, n_q: int, t0: int, t1: int,
+                      device):
         """The tile ranges, in order, that the selection of the chunk of
-        ``n_q`` patterns over tiles t0..t1 runs over: the whole chunk on
-        the word-level path (only screened words expand); sub-ranges of at
-        most ``minima.POSITIONS_PER_CHUNK`` expanded (pattern, position)
-        pairs on the position-level path, which bound its temporaries."""
+        ``n_q`` patterns over tiles t0..t1 runs over, for scan outputs on
+        ``device``: the whole chunk on the word-level path (only screened
+        words expand) and on a CUDA device (the kernels keep no
+        temporaries); on the CPU, the position level's plain version in
+        sub-ranges of at most ``minima.POSITIONS_PER_CHUNK`` expanded
+        (pattern, position) pairs, which bound its temporaries."""
         step = t1 - t0
-        if not g.fast:
+        if not g.fast and torch.device(device).type == "cpu":
             step = max(1, minima.POSITIONS_PER_CHUNK
                        // (n_q * pp.NW * WORD_BITS))
         for s0 in range(t0, t1, step):
@@ -583,39 +586,31 @@ class BatchEngine:
         (Qc, 1) int32: the code after the previous tile range (0 at the
         first)."""
         vf, vt = pp.valid_from[t0:t1], pp.valid_to[t0:t1]
-        if g.fast:
-            vp, vm, cost, meta, final = outs
-        else:
-            vp, vm, cost = outs
-            final = minima.last_delta_codes(vp, vm, vf, vt)
-        if all_minima:
-            state0 = torch.zeros_like(final)
-        else:
-            # the previous chunk's state enters as a virtual tile before
-            # this chunk's first, and a virtual tile after its last reads
-            # the state carried on
-            edge = torch.zeros(1, dtype=torch.bool, device=final.device)
-            st = minima.tile_state_chain_codes(
-                torch.cat([carry, final, torch.zeros_like(carry)], 1),
-                torch.cat([edge, pp.true_start[t0:t1], edge]),
-            )
-            state0 = st[:, 1:-1]
-            carry = torch.where(st[:, -1:] == 1, 3, 0).to(torch.int32)
         tend = pp.text_end[t0:t1]
-        if g.fast:
-            cols = minima.select_words_tiles_q(
-                vp, vm, cost, meta, vf, vt, pp.islast_at[t0:t1],
-                pp.start_char[t0:t1], k, state0, all_minima,
-                tend if g.n_prev else None, g.alpha, g.n_prev,
-            )
-        else:
+        if not g.fast:
+            # the state chain, the previous range's carry entering before
+            # this range's first piece, runs inside the selection
+            vp, vm, cost = outs
             q1 = q0 + vp.shape[0]
             boundary0 = torch.where(pp.true_start[None, t0:t1],
                                     g.boundary_m[q0:q1, None],
                                     g.m_real[q0:q1, None])
-            cols = minima.select_candidates_tiles(
+            cols, carry = minima.select_candidates_chained(
                 vp, vm, cost, boundary0, tend, vf, vt, pp.islast_at[t0:t1],
-                pp.start_char[t0:t1], k, g.alpha, state0, all_minima,
+                pp.start_char[t0:t1], k, g.alpha, pp.true_start[t0:t1],
+                carry, all_minima,
+            )
+        else:
+            vp, vm, cost, meta, final = outs
+            if all_minima:
+                state0 = torch.zeros_like(final)
+            else:
+                state0, carry = minima.chain_range(
+                    final, pp.true_start[t0:t1], carry)
+            cols = minima.select_words_tiles_q(
+                vp, vm, cost, meta, vf, vt, pp.islast_at[t0:t1],
+                pp.start_char[t0:t1], k, state0, all_minima,
+                tend if g.n_prev else None, g.alpha, g.n_prev,
             )
         cols[0] = g.qidx[q0 + cols[0]]
         cols[1] = pp.text_idx[t0 + cols[1]]
@@ -643,7 +638,8 @@ class BatchEngine:
                 continue
             outs = self.scan(win, g, pp, q0, q1, t0, t1, k)
             del win
-            for s0, s1 in self.select_ranges(g, pp, q1 - q0, t0, t1):
+            for s0, s1 in self.select_ranges(g, pp, q1 - q0, t0, t1,
+                                             outs[0].device):
                 part = tuple(o[..., s0 - t0 : s1 - t0] for o in outs)
                 cols, carry = self.select(part, g, pp, q0, s0, s1, k,
                                           all_minima, carry)

@@ -13,20 +13,23 @@ positions:
   makes the decreasing state exact over the overshoot costs;
 - position level, for overhang searches whose overshoot spans more than
   four words: ``select_candidates`` over the flat positions of one text
-  (the single engine), ``select_candidates_tiles`` per piece (the batched
-  engine).
+  (the single engine), ``select_candidates_tiles`` per piece, and
+  ``select_candidates_chained``, the pieces with their state chained
+  across them and carried in and out (the batched engine).
 
 Each selection is an entry point that runs its plain version
 (``select_words_tiles_q_plain``, ``select_candidates_plain``,
-``select_candidates_tiles_plain``) for tensors on the CPU and its CUDA
-kernel (``myers_cuda.select_words``, ``select_positions``,
-``select_positions_tiles``; ``csrc/select_words.cu``,
-``csrc/select_positions.cu``) for tensors on a CUDA device, with no other
-fallback. The kernels give the plain versions' candidates in the same
-order; callers sort them. The plain position-level versions expand every
-position, so they work in bounded chunks; the kernels walk each tile's
-positions in one thread. Each plain version counts its calls in
-``.calls``.
+``select_candidates_tiles_plain``, ``select_candidates_chained_plain``)
+for tensors on the CPU and its CUDA kernel (``myers_cuda.select_words``,
+``select_positions``, ``select_positions_tiles``;
+``csrc/select_words.cu``, ``csrc/select_positions.cu``) for tensors on a
+CUDA device, with no other fallback. The kernels give the plain versions'
+candidates in the same order; callers sort them. The plain position-level
+versions expand every position, so they work in bounded chunks (the
+batched engine's callers cut a dispatch chunk into sub-ranges for them);
+the position-level kernels walk each tile's words once in one thread and
+chain the state across tiles in their own scan, so they take a whole
+chunk. Each plain version counts its calls in ``.calls``.
 
 Overshoot costs are ``floor(float32(alpha) * float32(overshoot))`` in
 float32 tensors, the reference's f32 rounding (``semantics.py``).
@@ -53,6 +56,7 @@ __all__ = [
     "word_min_prefix",
     "meta_from_words",
     "tile_state_chain_codes",
+    "chain_range",
     "last_delta_codes",
     "select_words_tiles_q",
     "select_words_tiles_q_plain",
@@ -62,6 +66,8 @@ __all__ = [
     "last_owned_code",
     "select_candidates_tiles",
     "select_candidates_tiles_plain",
+    "select_candidates_chained",
+    "select_candidates_chained_plain",
     "cummax_1d",
 ]
 
@@ -582,8 +588,8 @@ def select_candidates_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
     """Position-level candidate selection of Q patterns over pieces: the
     inputs and output of ``select_candidates_tiles_plain``, which runs for
     tensors on the CPU; for CUDA tensors the kernel
-    ``myers_cuda.select_positions_tiles`` runs, and raises on inputs it
-    does not take."""
+    ``myers_cuda.select_positions_tiles`` runs (every piece entering with
+    its ``state0``), and raises on inputs it does not take."""
     if vp_w.device.type == "cpu":
         return select_candidates_tiles_plain(
             vp_w, vm_w, cost_w, boundary0, text_end, valid_from, valid_to,
@@ -592,7 +598,71 @@ def select_candidates_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
 
     return myers_cuda.select_positions_tiles(
         vp_w, vm_w, cost_w, boundary0, text_end, valid_from, valid_to,
-        islast_at, pos_base, k, alpha, state0, all_minima)
+        islast_at, pos_base, k, alpha, state0, all_minima)[0]
+
+
+def chain_range(final, is_start, carry):
+    """The state entering each of a range of pieces ((Q, T) int32, 1 up)
+    and the (Q, 1) int32 code carried out of it (3 up, else 0), from each
+    piece's last-delta code ``final`` (Q, T), the pieces that start a
+    text ``is_start`` (T,) and the code carried in ``carry`` (Q, 1): the
+    carry enters as a virtual piece before the first, and a virtual piece
+    after the last reads the state carried on."""
+    edge = torch.zeros(1, dtype=torch.bool, device=final.device)
+    st = tile_state_chain_codes(
+        torch.cat([carry, final, torch.zeros_like(carry)], 1),
+        torch.cat([edge, is_start, edge]))
+    return st[:, 1:-1], torch.where(st[:, -1:] == 1, 3, 0).to(torch.int32)
+
+
+def select_candidates_chained(vp_w, vm_w, cost_w, boundary0, text_end,
+                              valid_from, valid_to, islast_at, pos_base, k,
+                              alpha, is_start, carry, all_minima: bool):
+    """``select_candidates_tiles`` with the state chained across the
+    pieces, as the batched engine selects a range of pieces: the inputs
+    and outputs of ``select_candidates_chained_plain``, which runs for
+    tensors on the CPU; for CUDA tensors the kernel
+    ``myers_cuda.select_positions_tiles`` runs, chain included, and raises
+    on inputs it does not take."""
+    if vp_w.device.type == "cpu":
+        return select_candidates_chained_plain(
+            vp_w, vm_w, cost_w, boundary0, text_end, valid_from, valid_to,
+            islast_at, pos_base, k, alpha, is_start, carry, all_minima)
+    from . import myers_cuda
+
+    return myers_cuda.select_positions_tiles(
+        vp_w, vm_w, cost_w, boundary0, text_end, valid_from, valid_to,
+        islast_at, pos_base, k, alpha, None, all_minima, is_start=is_start,
+        carry=carry)
+
+
+def select_candidates_chained_plain(vp_w, vm_w, cost_w, boundary0, text_end,
+                                    valid_from, valid_to, islast_at,
+                                    pos_base, k, alpha, is_start, carry,
+                                    all_minima: bool):
+    """``select_candidates_tiles_plain`` over pieces whose entering states
+    are chained, plain version. Piece t's state is the last raw delta
+    code of the pieces before it (``last_delta_codes`` over (valid_from,
+    valid_to]), reset to none at the pieces of ``is_start`` (T,) bool,
+    after ``carry`` (Q, 1) int32, the code entering piece 0 (0 none, 3
+    up): ``chain_range``. Returns the (4, N) columns of
+    ``select_candidates_tiles_plain`` and the (Q, 1) int32 code carried
+    out (3 up, else 0; with ``all_minima``, where no state is kept,
+    ``carry``)."""
+    select_candidates_chained_plain.calls += 1
+    if all_minima:
+        state0 = torch.zeros(vp_w.shape[0], vp_w.shape[-1],
+                             dtype=torch.int32, device=vp_w.device)
+    else:
+        state0, carry = chain_range(
+            last_delta_codes(vp_w, vm_w, valid_from, valid_to), is_start,
+            carry)
+    return select_candidates_tiles_plain(
+        vp_w, vm_w, cost_w, boundary0, text_end, valid_from, valid_to,
+        islast_at, pos_base, k, alpha, state0, all_minima), carry
+
+
+select_candidates_chained_plain.calls = 0
 
 
 def select_candidates_tiles_plain(vp_w, vm_w, cost_w, boundary0, text_end,

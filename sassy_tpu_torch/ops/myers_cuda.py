@@ -34,10 +34,13 @@ CUDA tensors:
   ``select_words_tiles``): the word-level selection;
   ``minima.select_words_tiles_q_plain``.
 - ``select_positions`` and ``select_positions_tiles``
-  (``csrc/select_positions.cu``) replace its ``select_candidates`` and
-  ``select_candidates_tiles``: the position-level selections of one text
-  and of the batched engine's pieces; ``minima.select_candidates_plain``,
-  ``minima.select_candidates_tiles_plain``.
+  (``csrc/select_positions.cu``, its walk in ``csrc/select_walk.cuh``)
+  replace its ``select_candidates`` and ``select_candidates_tiles``: the
+  position-level selections of one text and of the batched engine's
+  pieces, the state chain across tiles included (three launches around
+  one host read); ``minima.select_candidates_plain``,
+  ``minima.select_candidates_tiles_plain`` and
+  ``minima.select_candidates_chained_plain``.
 
 The scan sources share the row step of ``csrc/myers_step.cuh``, the
 selection sources ``csrc/select_common.cuh``. All are compiled with one
@@ -75,7 +78,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu", CSRC / "scan.cu",
            CSRC / "scan_q.cu", CSRC / "scan_qn.cu", CSRC / "scan_variants.cu",
            CSRC / "select_words.cu", CSRC / "select_positions.cu")
-HEADERS = (CSRC / "myers_step.cuh", CSRC / "select_common.cuh")
+HEADERS = (CSRC / "myers_step.cuh", CSRC / "select_common.cuh",
+           CSRC / "select_walk.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sassy_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -166,10 +170,12 @@ def load_library(path) -> ctypes.CDLL:
         big, real = ctypes.c_longlong, ctypes.c_float
         lib.sassy_select_words.argtypes = ([ptr] * 13 + [big] + [num] * 6
                                            + [real, num, ptr])
-        lib.sassy_select_positions.argtypes = ([ptr] * 8 + [big] * 7
-                                               + [num] * 6 + [real, num, ptr])
+        lib.sassy_select_positions.argtypes = ([ptr] * 5 + [big] * 7
+                                               + [num] * 7 + [real, num, ptr])
         lib.sassy_select_positions_tiles.argtypes = (
-            [ptr] * 13 + [big] * 3 + [num] * 5 + [real, num, ptr])
+            [ptr] * 15 + [big] * 3 + [num] * 5 + [real, num, ptr])
+        lib.sassy_select_scratch_words.argtypes = [big]
+        lib.sassy_select_scratch_words.restype = big
         lib.sassy_select_words_per_block.argtypes = []
         lib.sassy_select_words_per_block.restype = big
         for fn in (lib.sassy_scan_meta, lib.sassy_scan_q_meta, lib.sassy_scan,
@@ -797,6 +803,22 @@ def select_words(vp_w, vm_w, cost_w, meta, valid_from, valid_to, islast_at,
 select_words.launches = 0
 
 
+def _walk_scan_emit(launch, scratch, rows: int, device, emit_empty: bool):
+    """The position-level selections' three launches, with no PyTorch op
+    between them: ``launch(0)`` walks every tile once (its records),
+    ``launch(1)`` scans them (the offsets and the total, the last word of
+    ``scratch``); the one host read of the total sizes the (rows, N)
+    int64 output, which ``launch(2, out, N)`` fills (also at N = 0 with
+    ``emit_empty``, for the carry out)."""
+    launch(0)
+    launch(1)
+    N = int(scratch[-1])
+    out = torch.empty((rows, N), dtype=torch.int64, device=device)
+    if N or emit_empty:
+        launch(2, out, N)
+    return out
+
+
 def select_positions(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
                      n_text: int, max_pos: int, k: int, alpha,
                      all_minima: bool, min_pos: int | None = None,
@@ -805,10 +827,12 @@ def select_positions(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
     (``csrc/select_positions.cu``) on CUDA tensors: what
     ``minima.select_candidates_plain`` computes, with its inputs. vp_w,
     vm_w, cost_w (NW, T) int32 with the same strides, tiles adjacent,
-    NW >= halo + W. Without ``all_minima`` a first launch writes each
-    tile's last delta code and ``minima.tile_state_chain_codes`` chains
-    them (seeded by ``state0``). Returns (2, N) int64 [end position;
-    cost] in position order. Raises ValueError on other inputs."""
+    NW >= halo + W; each cost word is the scan's running sum (the walk
+    reads one a tile). The state chain across the tiles (seeded by
+    ``state0``) is the kernel's scan: at most three launches and one host
+    read (``_walk_scan_emit``; ``.passes`` counts the launches). Returns
+    (2, N) int64 [end position; cost] in position order. Raises
+    ValueError on other inputs."""
     if vp_w.dim() != 2:
         raise ValueError(f"vp_w: expected (NW, T), got {tuple(vp_w.shape)}")
     NW, T = vp_w.shape
@@ -826,48 +850,51 @@ def select_positions(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = torch.empty(lib.sassy_select_scratch_words(T),
+                              dtype=torch.int64, device=dev)
 
-        def launch(pass_, chain=None, codes=None, counts=None, ends=None,
-                   out=None, N=0):
+        def launch(pass_, out=None, N=0):
             _raise_on(lib.sassy_select_positions(
-                _ptr(vp_w), _ptr(vm_w), _ptr(cost_w), _ptr(chain),
-                _ptr(codes), _ptr(counts), _ptr(ends), _ptr(out),
-                vp_w.stride(0), boundary_m, n_text, max_pos,
+                _ptr(vp_w), _ptr(vm_w), _ptr(cost_w), _ptr(scratch),
+                _ptr(out), vp_w.stride(0), boundary_m, n_text, max_pos,
                 0 if min_pos is None else min_pos,
                 NO_END if owned_end is None else owned_end, N, T, W, halo, k,
-                int(all_minima), int(state0 is not None),
+                int(all_minima), int(state0 is not None), int(bool(state0)),
                 0.0 if alpha is None else alpha, pass_, stream,
             ), "select_positions")
+            select_positions.passes += 1
 
-        chain = None
-        if not all_minima:
-            codes = torch.empty(T, dtype=torch.int32, device=dev)
-            launch(0, codes=codes)
-            chain = minima.tile_state_chain_codes(
-                codes, torch.zeros(T, dtype=torch.bool, device=dev),
-                seed_code=3 if state0 else 0)
-        out = _count_then_emit(
-            lambda counts, ends, out, N: launch(
-                1 if out is None else 2, chain, None, counts, ends, out, N),
-            T, 2, dev)
+        out = _walk_scan_emit(launch, scratch, 2, dev, False)
     select_positions.launches += 1
     return out
 
 
 select_positions.launches = 0
+select_positions.passes = 0
 
 
 def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
                            valid_from, valid_to, islast_at, pos_base, k: int,
-                           alpha, state0, all_minima: bool):
+                           alpha, state0, all_minima: bool, is_start=None,
+                           carry=None):
     """The position-level selection kernel of Q patterns over pieces
-    (``csrc/select_positions.cu``) on CUDA tensors: what
-    ``minima.select_candidates_tiles_plain`` computes, with its inputs.
-    vp_w, vm_w, cost_w (Q, NW, T) int32 with the same strides, tiles
-    adjacent; boundary0, state0 (Q, T) int32; text_end, pos_base (T,)
-    int64; valid_from, valid_to, islast_at (T,) int32. Returns (4, N)
-    int64 [pattern; tile; end position; cost] in (pattern, tile,
-    position) order. Raises ValueError on other inputs."""
+    (``csrc/select_positions.cu``) on CUDA tensors. vp_w, vm_w, cost_w
+    (Q, NW, T) int32 with the same strides, tiles adjacent, each cost word
+    the scan's running sum; boundary0 (Q, T) int32; text_end, pos_base
+    (T,) int64; valid_from, valid_to, islast_at (T,) int32.
+
+    The state entering a piece: ``state0`` (Q, T) int32 (0 where None) at
+    the pieces that reset, which are those of ``is_start`` (T,) bool, or
+    every piece without it; else, at pattern q's first piece, ``carry``
+    (Q, 1) int32 (code 3 up; 0 where None); else the state the piece
+    before leaves. With ``state0`` alone this computes
+    ``minima.select_candidates_tiles_plain``; with ``is_start`` and
+    ``carry``, ``minima.select_candidates_chained_plain``. At most three
+    launches and one host read (``_walk_scan_emit``; ``.passes`` counts
+    the launches). Returns ((4, N) int64 [pattern; tile; end position;
+    cost] in (pattern, tile, position) order, the (Q, 1) int32 code of
+    the state leaving each pattern's last piece). Raises ValueError on
+    other inputs."""
     if vp_w.dim() != 3:
         raise ValueError(f"vp_w: expected (Q, NW, T), got {tuple(vp_w.shape)}")
     Q, NW, T = vp_w.shape
@@ -878,30 +905,43 @@ def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
         _check_strides(name, x, vp_w)
     dev = vp_w.device
     b0 = _small("boundary0", boundary0, torch.int32, (Q, T), dev)
-    s0 = _small("state0", state0, torch.int32, (Q, T), dev)
     te = _small("text_end", text_end, torch.int64, (T,), dev)
     vf = _small("valid_from", valid_from, torch.int32, (T,), dev)
     vt = _small("valid_to", valid_to, torch.int32, (T,), dev)
     il = _small("islast_at", islast_at, torch.int32, (T,), dev)
     pb = _small("pos_base", pos_base, torch.int64, (T,), dev)
-    if Q * NW * T == 0:
-        return torch.empty((4, 0), dtype=torch.int64, device=dev)
+    if state0 is not None:
+        state0 = _small("state0", state0, torch.int32, (Q, T), dev)
+    if is_start is not None:
+        is_start = _small("is_start", is_start, torch.bool, (T,), dev)
+    if carry is not None:
+        carry = _small("carry", carry, torch.int32, (Q, 1), dev)
+    carry_out = torch.zeros((Q, 1), dtype=torch.int32, device=dev)
+    if Q * T == 0:  # no piece: the carry passes
+        if carry is not None:
+            carry_out = (carry.clone() if all_minima else
+                         torch.where((carry & 3) == 3, 3, 0).to(torch.int32))
+        return torch.empty((4, 0), dtype=torch.int64, device=dev), carry_out
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = torch.empty(lib.sassy_select_scratch_words(Q * T),
+                              dtype=torch.int64, device=dev)
 
-        def launch(counts, ends, out, N):
+        def launch(pass_, out=None, N=0):
             _raise_on(lib.sassy_select_positions_tiles(
                 _ptr(vp_w), _ptr(vm_w), _ptr(cost_w), _ptr(b0), _ptr(te),
-                _ptr(vf), _ptr(vt), _ptr(il), _ptr(pb), _ptr(s0),
-                _ptr(counts), _ptr(ends), _ptr(out), vp_w.stride(0),
-                vp_w.stride(1), N, Q, NW, T, k, int(all_minima),
-                float(alpha), 1 if out is None else 2, stream,
+                _ptr(vf), _ptr(vt), _ptr(il), _ptr(pb), _ptr(state0),
+                _ptr(is_start), _ptr(carry), _ptr(carry_out), _ptr(scratch),
+                _ptr(out), vp_w.stride(0), vp_w.stride(1), N, Q, NW, T, k,
+                int(all_minima), float(alpha), pass_, stream,
             ), "select_positions_tiles")
+            select_positions_tiles.passes += 1
 
-        out = _count_then_emit(launch, Q * T, 4, dev)
+        out = _walk_scan_emit(launch, scratch, 4, dev, True)
     select_positions_tiles.launches += 1
-    return out
+    return out, carry_out
 
 
 select_positions_tiles.launches = 0
+select_positions_tiles.passes = 0

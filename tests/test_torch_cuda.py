@@ -299,9 +299,10 @@ def test_batched_overhang_cuda_equals_cpu_and_oracle(cuda, m, k, alpha,
 
 
 def test_batched_position_level_sub_ranges_cuda(cuda, monkeypatch):
-    """On the position-level path one q2 launch covers a dispatch chunk and
-    its selection runs over tile sub-ranges; small budgets for both give
-    the CPU path's and the oracle's Match lists."""
+    """On the position-level path one q2 launch covers a dispatch chunk,
+    and on the card so does one selection call (the chain inside the
+    kernel), whatever the CPU path's sub-range budget; small budgets for
+    both give the CPU path's and the oracle's Match lists."""
     rng = np.random.default_rng(5)
     bases = np.frombuffer(b"ACGT", np.uint8)
     pats = [rng.choice(bases, 104) for _ in range(3)]
@@ -320,9 +321,12 @@ def test_batched_position_level_sub_ranges_cuda(cuda, monkeypatch):
     n_chunks = len(list(batch.BatchEngine.chunks(g, pp)))
     assert not g.fast and n_chunks >= 3
     before = myers_cuda.scan_q.launches
+    selects = myers_cuda.select_positions_tiles.launches
     got = Searcher("iupac", rc=True, alpha=0.1, device="cuda").search_many(
         pats, texts, 10)
     assert myers_cuda.scan_q.launches == before + 2 * n_chunks  # 2 strands
+    assert (myers_cuda.select_positions_tiles.launches
+            == selects + 2 * n_chunks)
     assert got
     _same(got, want)
     _same(got, RefSearcher("iupac", rc=True, alpha=0.1,
@@ -733,3 +737,120 @@ def test_select_kernels_reject_bad_inputs(cuda):
     # a CUDA tensor beside a host one
     with pytest.raises(ValueError):
         myers_cuda.select_words(*good[:4], vf, *good[5:])
+
+
+def _sparse_words(g, shape, k, dev):
+    """Random vp, vm (few bits, never both) and the running costs a scan
+    gives them ((..., NW, T) int32 on ``dev``): each word's start cost is
+    the one before plus popc(vp) - popc(vm), from a start near k."""
+    def bits():
+        return g.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    vp = bits() & bits() & bits()
+    vm = bits() & bits() & bits() & ~vp
+    pc = lambda x: np.unpackbits(  # noqa: E731
+        x.view(np.uint8).reshape(*x.shape, 4), axis=-1).sum(-1)
+    step = (pc(vp).astype(np.int64) - pc(vm))
+    start = g.integers(k - 4, k + 12, shape[:-2] + (1,) + shape[-1:])
+    cost = start + np.concatenate(
+        [np.zeros_like(step[..., :1, :]), np.cumsum(step, -2)[..., :-1, :]],
+        -2)
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a).view(np.int32)).to(dev)
+    return t(vp), t(vm), t(cost.astype(np.int32))
+
+
+def _chained_pieces(cuda, Q, T, NW, k, alpha, seed, starts):
+    """Q patterns over T pieces on the card: select_candidates_chained's
+    arguments but the carry, past 2^31."""
+    g = np.random.default_rng(seed)
+    tile0, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 5 << 30)
+    tile0 = torch.from_numpy(g.random(T) < starts)
+    vf = torch.where(tile0, -1, vf.clamp(min=0))
+    vp, vm, cost = _sparse_words(g, (Q, NW, T), k, cuda)
+    boundary0 = cost[:, 0].clone()
+    return _to(cuda, (vp, vm, cost, boundary0, tend, vf, vt, islast,
+                      pos_base, k, alpha, tile0))
+
+
+#: (Q, T, NW, k, alpha, all_minima, starts): T not a multiple of the
+#: block, a chain across more blocks than the scan block has threads,
+#: resets in the middle, words past the text end (alpha), no candidate,
+#: every word skipped but the few that reach k
+CHAIN_CASES = [(3, 1000, 5, 8, 0.1, False, 0.05),
+               (8, 40_000, 3, 8, 0.5, False, 0.01),
+               (8, 40_000, 3, 8, 0.5, True, 0.01),
+               (1, 300_000, 2, 6, 0.0, False, 0.0),
+               (4, 777, 4, 6, 1.0, False, 0.3),
+               (3, 1000, 5, -50, 0.1, False, 0.05),
+               (3, 1000, 5, 0, 0.1, False, 0.05)]
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_select_positions_chained_kernel_equals_plain(cuda, case,
+                                                      monkeypatch):
+    """The pieces' kernel with the chain inside (is_start, carry in and
+    out) against select_candidates_chained_plain on the same CUDA
+    tensors, columns in the same order and carry out equal; at most three
+    launches, one host read, and neither tile_state_chain_codes nor
+    last_delta_codes."""
+    import warnings
+
+    Q, T, NW, k, alpha, all_minima, starts = case
+    args = _chained_pieces(cuda, Q, T, NW, k, alpha, Q + T, starts)
+    carry = torch.where(torch.arange(Q, device=cuda)[:, None] % 2 == 0, 3,
+                        0).to(torch.int32)
+    want, want_carry = minima.select_candidates_chained_plain(
+        *args, carry, all_minima)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the chain runs in the kernel")
+
+    monkeypatch.setattr(minima, "tile_state_chain_codes", refuse)
+    monkeypatch.setattr(minima, "last_delta_codes", refuse)
+    before = (myers_cuda.select_positions_tiles.launches,
+              myers_cuda.select_positions_tiles.passes)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got, got_carry = minima.select_candidates_chained(
+                *args, carry, all_minima)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches, passes = (myers_cuda.select_positions_tiles.launches,
+                        myers_cuda.select_positions_tiles.passes)
+    assert launches == before[0] + 1 and passes - before[1] <= 3
+    syncs = [str(w.message) for w in seen
+             if str(w.message).startswith("called a synchronizing")]
+    assert len(syncs) == 1, [str(w.message) for w in seen]
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(got_carry, want_carry)
+    assert want.shape[1] or k < 0
+
+
+@pytest.mark.parametrize("owned", [None, (1_000_000, 30_000_000, 1),
+                                   (1_000_000, 30_000_000, 0),
+                                   (25_000_000, None, 1)])
+@pytest.mark.parametrize("all_minima", [False, True])
+def test_select_positions_many_tiles_kernel_equals_plain(cuda, owned,
+                                                         all_minima):
+    """One text of 300,001 tiles (more blocks than the scan block has
+    threads, not a multiple of the block), positions past the text end,
+    the sharded owned range and incoming state: the kernel against
+    select_candidates_plain on the same CUDA tensors, in the same order,
+    in at most three launches."""
+    g = np.random.default_rng(11)
+    W, halo, T, k = 4, 1, 300_001, 6
+    vp, vm, cost = _sparse_words(g, (W + halo + 1, T), k, cuda)
+    n_text = T * W * 32 - 500
+    args = (vp, vm, cost, W, halo, 7, n_text, n_text + 100, k, 0.3,
+            all_minima) + (owned or ())
+    want = minima.select_candidates_plain(*args)
+    passes = myers_cuda.select_positions.passes
+    got = minima.select_candidates(*args)
+    assert myers_cuda.select_positions.passes - passes <= 3
+    assert got.shape == want.shape and want.shape[1]
+    assert torch.equal(got, want)

@@ -7,8 +7,11 @@ with CIGAR, both strands: the word-level path (q2meta's plain version)
 and the position-level path (q2's), unequal pattern lengths, and dispatch
 chunks that change no result."""
 
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 from sassy_tpu import Searcher as RefSearcher
 from sassy_tpu import profiles as ref_profiles
@@ -253,7 +256,8 @@ def test_dispatch_chunks_change_no_result(path, monkeypatch):
     pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
     chunks = list(batch.BatchEngine.chunks(g, pp))
     ranges = [r for q0, q1, t0, t1 in chunks
-              for r in batch.BatchEngine.select_ranges(g, pp, q1 - q0, t0, t1)]
+              for r in batch.BatchEngine.select_ranges(g, pp, q1 - q0, t0, t1,
+                                                       "cpu")]
     assert len(chunks) > 4
     assert len(ranges) > len(chunks) if path == "position" else (
         len(ranges) == len(chunks))
@@ -315,3 +319,98 @@ def test_each_path_runs_its_kernel(path, monkeypatch):
     used, unused = (("scan_q_meta", "scan_q") if path == "word"
                     else ("scan_q", "scan_q_meta"))
     assert calls[used] >= 2 and calls[unused] == 0
+
+
+def _position_group(monkeypatch, alpha=0.1, budget=None):
+    """A position-level group over a few texts on the CPU, its piece plan
+    and its first dispatch chunk, with ``POSITIONS_PER_CHUNK`` at
+    ``budget`` expanded positions."""
+    m, k = POSITION_LEVEL[alpha]
+    rng = np.random.default_rng(int(alpha * 100) + 3)
+    # pattern 0 against a run of A after an exact copy: its cost rises to
+    # a plateau <= k whose last position is no candidate, since the state
+    # there is the rise's, carried across pieces; the runs start at
+    # offsets spread over a piece's width
+    run = np.frombuffer(b"A" * (m - 4) + b"CCCC", np.uint8).copy()
+    pats = [run] + [rng.choice(BASES, m) for _ in range(2)]
+    texts = [np.concatenate([rng.choice(BASES, r), run,
+                             np.full(m - 20, ord("A"), np.uint8),
+                             rng.choice(BASES, 300)])
+             for r in range(100, 1400, 61)]
+    texts += _reads(4, pats, 6, 300, 1500, hang=3)
+    ts = batch.TextSet(texts, "cpu")
+    prof = profiles.Iupac()
+    (g,) = batch.BatchEngine("cpu").groups(
+        prof, [prof.encode(p) for p in pats], ts, k, alpha)
+    pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
+    if budget is not None:
+        monkeypatch.setattr(minima, "POSITIONS_PER_CHUNK",
+                            budget * g.Q * pp.NW * 32)
+    assert not g.fast
+    return prof, ts, g, pp, k, next(batch.BatchEngine.chunks(g, pp))
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", "cpu"])
+def test_select_ranges_one_range_a_chunk_on_cuda(device, monkeypatch):
+    """The position level's selection runs over the whole dispatch chunk
+    for scan outputs on a CUDA device (the kernel keeps no temporaries)
+    and over sub-ranges of at most POSITIONS_PER_CHUNK expanded positions,
+    in order, for CPU tensors; the word level always over the whole
+    chunk. Only the device is asked, so no card is needed."""
+    _, _, g, pp, _, (q0, q1, t0, t1) = _position_group(monkeypatch,
+                                                       budget=3)
+    assert t1 - t0 > 6
+    ranges = list(batch.BatchEngine.select_ranges(g, pp, q1 - q0, t0, t1,
+                                                  torch.device(device)))
+    if device == "cpu":
+        assert len(ranges) == -(-(t1 - t0) // 3)
+        assert all(b - a <= 3 for a, b in ranges)
+    else:
+        assert ranges == [(t0, t1)]
+    assert ranges[0][0] == t0 and ranges[-1][1] == t1
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    word = dataclasses.replace(g, n_prev=0)
+    assert word.fast
+    assert list(batch.BatchEngine.select_ranges(
+        word, pp, q1 - q0, t0, t1, torch.device(device))) == [(t0, t1)]
+
+
+SELECT_CASES = [(0.1, False, 0, False), (0.1, True, 3, False),
+                (0.1, False, 3, False), (0.25, False, 3, True),
+                (0.0, False, 0, True), (0.5, True, 0, True)]
+
+
+@pytest.mark.parametrize("alpha,all_minima,carry,reverse", SELECT_CASES)
+def test_select_whole_chunk_equals_sub_ranges(alpha, all_minima, carry,
+                                              reverse, monkeypatch):
+    """On the CPU, ``BatchEngine.select`` over a whole dispatch chunk (as
+    the card runs it) equals the chain of its calls over the sub-ranges
+    of ``select_ranges``, columns and carry out: overhang or not,
+    all_minima, pieces that start a text inside the range, a carry in,
+    and cost plateaus whose state crosses the pieces and the ranges."""
+    prof, ts, g, pp, k, (q0, q1, t0, t1) = _position_group(
+        monkeypatch, alpha, budget=2)
+    # from the first text's second piece: the carry in is its state
+    t0 += 1
+    assert not pp.true_start[t0] and pp.true_start[t0 + 1 : t1].any()
+    win = ts.windows(prof, pp, reverse, t0, t1)
+    outs = batch.BatchEngine.scan(win, g, pp, q0, q1, t0, t1, k)
+    carry_in = torch.full((q1 - q0, 1), carry, dtype=torch.int32)
+    carry_in[::2] = 3 - carry
+    whole, whole_carry = batch.BatchEngine.select(
+        outs, g, pp, q0, t0, t1, k, all_minima, carry_in)
+    parts, c = [], carry_in
+    ranges = list(batch.BatchEngine.select_ranges(g, pp, q1 - q0, t0, t1,
+                                                  "cpu"))
+    assert len(ranges) > 2
+    for s0, s1 in ranges:
+        part = tuple(o[..., s0 - t0 : s1 - t0] for o in outs)
+        cols, c = batch.BatchEngine.select(part, g, pp, q0, s0, s1, k,
+                                           all_minima, c)
+        parts.append(cols)
+    chained = torch.cat(parts, 1)
+    # the same candidates, each range's in (pattern, piece, position) order
+    key = lambda x: np.lexsort(x.numpy()[::-1])  # noqa: E731
+    assert whole.shape == chained.shape and whole.shape[1]
+    assert torch.equal(whole[:, key(whole)], chained[:, key(chained)])
+    assert torch.equal(whole_carry, c)
