@@ -14,9 +14,12 @@ the CUDA toolkit. Phases:
    version on the windows of a 1 GiB text (the H100 tile plan, a 23 bp
    pattern at k=3), bit for bit on all five outputs, for the pure, iupac
    and ascii eq and for a 100 bp pattern (M > 64); both timed; then the
-   select_words kernel on the pure outputs as the engine runs it, with
-   and without all_minima, against its plain version (every selection
-   comparison: the columns equal after a lexsort; both timed);
+   select_words kernel (the state chain inside) on the pure outputs as
+   the engine runs it, with and without all_minima, against its plain
+   version, the chain and the selection (every selection comparison: the
+   columns equal after a lexsort, the word level's in the same order;
+   both timed), and one call split by CUDA events into its counting and
+   scanning launches, the host read and the writing launch;
 3. end to end at full size: Searcher("dna", rc=True, device="cuda")
    .search over 1 GiB of random ACGT with mutated copies of the pattern
    planted on both strands; every copy must come back, through the
@@ -35,6 +38,10 @@ the CUDA toolkit. Phases:
    lengths for pure, iupac, ascii and 97-104 bp patterns (M > 64); each
    pattern's slice also against the q1meta kernel; both timed; the
    select_words kernel on the first case's outputs as phase 6 runs it;
+   then q2meta at evals/configs/off_targets_full.toml's dispatch chunk:
+   312 random 23 bp guides over ~28 Mbp made on the card, in pieces of
+   the width the batched engine gives 3.12 Gbp, one full chunk as
+   BatchEngine.scan launches it, bit for bit and timed beside its bound;
 6. end to end at full size, batched: the nanopore shape of
    evals/configs/nanopore_full.toml, 96 random 24 bp barcodes against
    33,400 random 10 kbp reads (334 Mbp), k=3, through
@@ -213,11 +220,13 @@ the CUDA toolkit. Phases:
 
 After each main-path run of phases 3, 6, 8, 9, 11, 20 and 21a no plain
 selection ran and the selection kernel of its level launched; those
-launches are rows 10-11 of the kernels line (select_words;
-select_positions, with the pieces' kernel select_positions_tiles as a
-record of its own under the row's "pieces" key), whose times are phase
-2's (without all_minima), phase 9's and phase 10's (the whole chunk; the
-first sub-range's under the record's "sub_range" key). The sharded runs
+launches are rows 10-11 of the kernels line (select_words, the chained
+call; select_positions, with the pieces' kernel select_positions_tiles
+as a record of its own under the row's "pieces" key), whose times are
+phase 2's (without all_minima), phase 9's and phase 10's (the whole
+chunk; the first sub-range's under the record's "sub_range" key). Row
+2's record of q2meta is phase 5's nanopore chunk, with the
+off_targets_full chunk under its "off_targets_full" key. The sharded runs
 that hold a selection to its plain version capture its arguments in a
 second, untimed run. The plain selections refuse to run wherever the
 plain scans do (phases 20 and 21).
@@ -260,6 +269,11 @@ BARCODE_LEN = 24
 N_READS = 33_400
 READ_LEN = 10_000
 PLANT_AT = 5_000
+#: phase 5's off_targets_full chunk: evals/configs/off_targets_full.toml's
+#: guides and genome, and the bases made on the card for one full chunk
+OFF_GUIDES = 312
+OFF_GENOME_BP = 3_120_000_000
+OFF_CHUNK_BP = 28_000_000
 #: phase 5's pattern batch, phase 6's reads checked on the CPU path, and
 #: phase 7's pairs
 Q_KERNEL = 8
@@ -436,8 +450,9 @@ def counts_zero():
     select_restore(dict.fromkeys(select_state(), 0))
 
 
-#: the selection entry points of ops/minima.py and their kernels' rows
-SELECT_ENTRIES = {"select_words_tiles_q": "select_words",
+#: the selection entry points of ops/minima.py that the engines call, and
+#: their kernels' rows
+SELECT_ENTRIES = {"select_words_chained": "select_words_chained",
                   "select_candidates": "select_positions",
                   "select_candidates_tiles": "select_positions_tiles",
                   "select_candidates_chained": "select_positions_tiles"}
@@ -558,6 +573,8 @@ def hold_selection(label: str, name: str, call) -> dict:
         f"{'' if got_carry is None else ', carry out equal'}"
         f", kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    if name == "select_words_chained":  # the kernels keep the plain order
+        same = same and got.shape == ref.shape and bool((got == ref).all())
     if not same:
         fail(f"{label}: the {SELECT_ENTRIES[name]} kernel != its plain "
              f"version: {got.shape} {ref.shape}")
@@ -572,17 +589,18 @@ def columns_and_carry(got):
     return got.cpu().numpy(), None
 
 
-#: the C entry point of each position-level entry point's kernel
+#: the C entry point of each chained entry point's kernel
 SPLIT_ENTRY = {"select_candidates": "sassy_select_positions",
-               "select_candidates_chained": "sassy_select_positions_tiles"}
+               "select_candidates_chained": "sassy_select_positions_tiles",
+               "select_words_chained": "sassy_select_words"}
 
 
 def select_split(label: str, name: str, call) -> dict:
-    """One call of a position-level selection entry point split by CUDA
-    events around each of its kernel's launches: the walk and the scan,
-    the gap before the writing launch (the host read of the total and
-    the output's allocation) and the writing launch, in ms. Leaves the
-    launch counts as it found them."""
+    """One call of a selection entry point split by CUDA events around
+    each of its kernel's launches: the walk (the word level: the count)
+    and the scan, the gap before the writing launch (the host read of the
+    total and the output's allocation) and the writing launch, in ms.
+    Leaves the launch counts as it found them."""
     import torch
 
     from sassy_tpu_torch.ops import minima, myers_cuda
@@ -618,7 +636,8 @@ def select_split(label: str, name: str, call) -> dict:
         myers_cuda._lib = saved
         select_restore(state)
     ms = lambda x, y: x.elapsed_time(y)  # noqa: E731
-    split = {"launches": len(marks), "walk": ms(*marks[0]),
+    first = "count" if name == "select_words_chained" else "walk"
+    split = {"launches": len(marks), first: ms(*marks[0]),
              "scan": ms(*marks[1]),
              "read": ms(marks[1][1], marks[2][0]) if len(marks) > 2 else 0.0,
              "write": ms(*marks[2]) if len(marks) > 2 else 0.0,
@@ -730,9 +749,12 @@ def kernel_vs_plain(gen, text_dev):
             # the selection of these outputs as the engine runs it
             for all_minima in (True, False):
                 inp.all_minima = all_minima
-                head_sw = hold_engine_select(
+                head_sw, call = hold_engine_select(
                     f"phase 2: {label}, all_minima={all_minima}",
-                    lambda: eng.select(inp, got))
+                    lambda: eng.select(inp, got), with_call=True)
+            head_sw["split"] = select_split(
+                f"phase 2: {label}", "select_words_chained", call)
+            del call
         del got, ref
     return head, head_sw
 
@@ -808,7 +830,7 @@ def end_to_end(gen):
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     launches = myers_cuda.scan_meta.launches
-    selected("phase 3", ("select_words",))
+    selected("phase 3", ("select_words_chained",))
     log(f"phase 3: Searcher.search, both strands, {N_TEXT >> 20} MiB: "
         f"{e2e:.3f} s, "
         f"{len(matches)} matches, scan kernel launches {launches}")
@@ -965,7 +987,63 @@ def q_kernel_vs_plain(reads, barcodes):
                     got, g, pp, q0, tiles.start, tiles.stop, K, False,
                     carry))
         del got
+    head["off_targets_full"] = off_targets_chunk()
     return head
+
+
+def off_targets_chunk() -> dict:
+    """Phase 5, last: q2meta against its plain version on one full dispatch
+    chunk of evals/configs/off_targets_full.toml's shape (OFF_GUIDES
+    guides of PATTERN_LEN bp over OFF_GENOME_BP, pieces of the width
+    _piece_width gives that text), over OFF_CHUNK_BP random bases made on
+    the card, bit for bit; timed beside its bound."""
+    import torch
+
+    from sassy_tpu_torch import profiles
+    from sassy_tpu_torch.ops import myers_cuda
+    from sassy_tpu_torch.ops.batch import BatchEngine, TextSet, _piece_width
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    dna = profiles.Dna()
+    guides = random_acgt(gen, OFF_GUIDES * PATTERN_LEN).cpu().numpy()
+    guides = [dna.encode(g) for g in guides.reshape(OFF_GUIDES, PATTERN_LEN)]
+    eng = BatchEngine(DEVICE)
+    ts = TextSet([random_acgt(gen, OFF_CHUNK_BP).cpu().numpy()], DEVICE)
+    (g,) = eng.groups(dna, guides, ts, K)
+    g.w_chars = _piece_width([OFF_GENOME_BP], 0, g.halo, g.Q, g.pair_bytes)
+    pp = ts.piece_plan(g.halo, g.w_chars)
+    q0, q1, t0, t1 = next(eng.chunks(g, pp))
+    if (q0, q1) != (0, g.Q) or t1 == pp.T:
+        fail(f"phase 5: {OFF_CHUNK_BP} bases hold no full chunk of "
+             f"{pp.T} pieces: {(q0, q1, t0, t1)}")
+    win = ts.windows(dna, pp, False, t0, t1)
+    args = (win, pp.true_start[t0:t1], pp.valid_from[t0:t1],
+            pp.valid_to[t0:t1], g.pmasks, g.is_pad, g.h_init, g.m_real,
+            g.boundary_m, K, g.eq_mode)
+    got = myers_cuda.scan_q_meta(*args)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
+    ref = myers_cuda.scan_q_meta_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_plain) * 1e3
+    err = max((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()
+              for a, b in zip(got, ref))
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    del got, ref
+    ms = cuda_ms(lambda: myers_cuda.scan_q_meta(*args), REPS)
+    rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           **bound(g.eq_mode, g.Q, g.pmasks.shape[1], win.shape, True)}
+    rec.update(share=rec["bound_ms"] / ms, Q=g.Q, NW=win.shape[0],
+               T=win.shape[2], threads=g.Q * win.shape[2])
+    log(f"phase 5: off_targets_full's chunk: eq={g.eq_mode} Q={g.Q} "
+        f"M={g.pmasks.shape[1]} NW={win.shape[0]} T={win.shape[2]} "
+        f"({rec['threads']} threads) kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bit-equal={same} max_abs_err={err}, bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+        f"{rec['share']:.1%} of it")
+    if not same:
+        fail("q2meta != plain at off_targets_full's chunk")
+    return rec
 
 
 def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha,
@@ -1081,7 +1159,7 @@ def batched_end_to_end(reads, barcodes):
     e2e = time.perf_counter() - t0
     launches = myers_cuda.scan_q_meta.launches
     single = myers_cuda.scan_meta.launches
-    selected("phase 6", ("select_words",))
+    selected("phase 6", ("select_words_chained",))
     log(f"phase 6: Searcher.search_many, both strands: {e2e:.3f} s, "
         f"{len(matches)} matches, q2meta launches {launches}, q1meta "
         f"launches {single}")
@@ -1329,7 +1407,7 @@ def overhang_single(gen, text):
             f"the end: {e2e:.3f} s, {len(matches)} matches, launches "
             f"{launched}")
         require(launched, ("q1meta",), ("q1", "q2", "q2meta"), "phase 8")
-        selected("phase 8", ("select_words",))
+        selected("phase 8", ("select_words_chained",))
         check_sites("phase 8", matches, sites, pattern, text, k, alpha)
 
 
@@ -3004,7 +3082,7 @@ def sharded_run(label: str, ss, text, pats, k: int, alpha, used: tuple,
     slots = ss.mesh.size
     require(launched, used, tuple(x for x in launched if x not in used),
             label, least=slots)
-    selected(label, ("select_words" if alpha is None
+    selected(label, ("select_words_chained" if alpha is None
                      else "select_positions",))
     steps = semantics.overhang_steps(len(pats[0]), k, alpha, None)
     n_cands = graft_entry.check_sharded_case(ss, got, want, n, steps)
@@ -3222,7 +3300,7 @@ def sharded_past_2g(gen) -> dict:
     got, launched = sharded_run(
         "phase 20b past 2^31", ss, text, pats, K, None, ("q2meta",), want, n,
         ("the slot past 2^31", last_slot,
-         lambda a, kw: int(a[7].max()) > past))
+         lambda a, kw: int(a[10].max()) > past))
     for q, end in enumerate(ends):
         if (end, 1) not in got[q]:
             fail(f"phase 20b: the copy ending at {end} (past {past}) did "
@@ -3571,7 +3649,8 @@ def main() -> int:
     head_q2 = q2_vs_plain(reads, long_)
     torch.cuda.empty_cache()
     batched_overhang("phase 11a", reads, barcodes, OH_WORD, want_a,
-                     ("q2meta",), ("q2", "q1", "q1meta"), "select_words")
+                     ("q2meta",), ("q2", "q1", "q1meta"),
+                     "select_words_chained")
     launched_b = batched_overhang("phase 11b", reads, long_, OH_POS, want_b,
                                   ("q2",), ("q2meta", "q1", "q1meta"),
                                   "select_positions_tiles")
@@ -3623,10 +3702,15 @@ def main() -> int:
         entry("scan_meta (q1meta)", "sassy_tpu_torch/csrc/scan_meta.cu",
               "sassy_tpu/ops/myers_pallas.py:201",
               launches + launches_20["q1meta"] + launches_21["q1meta"], head),
-        entry("scan_q_meta (q2meta)", "sassy_tpu_torch/csrc/scan_q_meta.cu",
-              "sassy_tpu/ops/myers_pallas.py:735",
-              launches_q + launches_20["q2meta"] + launches_21["q2meta"],
-              head_q),
+        {**entry("scan_q_meta (q2meta)",
+                 "sassy_tpu_torch/csrc/scan_q_meta.cu",
+                 "sassy_tpu/ops/myers_pallas.py:735",
+                 launches_q + launches_20["q2meta"] + launches_21["q2meta"],
+                 head_q),
+         "off_targets_full": {
+             key: head_q["off_targets_full"][key]
+             for key in ("ms", "plain_ms", "bound_ms", "bound_by", "share",
+                         "Q", "NW", "T")}},
         entry("scan (q1)", "sassy_tpu_torch/csrc/scan.cu",
               "sassy_tpu/ops/myers_pallas.py:49",
               head_q1["launches"] + launches_20["q1"] + launches_21["q1"],
@@ -3653,9 +3737,10 @@ def main() -> int:
         # rows 10-11: the JAX pipeline's XLA selection; launches of phases
         # 3, 6, 8, 9, 11, 20 and 21a, times from phases 2, 9 and (the
         # pieces' kernel of the same source, a record of its own) 10
-        entry("select_words", "sassy_tpu_torch/csrc/select_words.cu",
-              "sassy_tpu/ops/minima.py:662", SELECTED["select_words"],
-              head_sw),
+        {**entry("select_words", "sassy_tpu_torch/csrc/select_words.cu",
+                 "sassy_tpu/ops/minima.py:662",
+                 SELECTED["select_words_chained"], head_sw),
+         "split": head_sw["split"]},
         {**entry("select_positions",
                  "sassy_tpu_torch/csrc/select_positions.cu",
                  "sassy_tpu/ops/minima.py:43", SELECTED["select_positions"],

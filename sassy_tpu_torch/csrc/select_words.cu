@@ -1,275 +1,308 @@
-// Word-level candidate selection of Q patterns, for Hopper (sm_90a).
+// Word-level candidate selection of Q patterns, the state chain across
+// tiles inside, for Hopper (sm_90a).
 //
 // Replaces the XLA selection that the JAX pipeline runs in the same
 // compiled program as its meta scan kernels: minima.select_words_tiles_q
 // (sassy_tpu/ops/minima.py:662; select_words_tiles, :341, for one
-// pattern). It computes what the port's plain version,
-// minima.select_words_tiles_q_plain, computes: from the q1meta / q2meta
-// outputs vp, vm, cost and meta ((Q, NW, T) words of uint32 bits), the end
-// positions of every word whose screen bit (meta bit 0) is set that are
-// rightmost local minima of cost <= k (or, with all_minima, every such
-// position), as (4, N) int64 columns [pattern; tile; end position; cost].
-// Per screened word, positions w*32 .. w*32 + 32 of the tile's window:
-// column 0 stands only for the tile's boundary candidate (word 0 of a
-// tile that owns position 0). With overhang, costs past the tile's text
-// end add floor(float32(alpha) * float32(overshoot)), and the decreasing
-// state is rebuilt over the n_prev words before the word from the
+// pattern), with the state chain before it (minima.tile_state_chain_codes
+// from the kernels' final codes). It computes what the port's plain
+// versions compute (minima.select_words_chained_plain: the chain, then
+// select_words_tiles_q_plain; or, given each tile's state, the latter
+// alone): from the q1meta / q2meta outputs vp, vm, cost and meta ((Q, NW,
+// T) words of uint32 bits) and final ((Q, T), each tile's last owned
+// delta), the end positions of every word whose screen bit (meta bit 0)
+// is set that are rightmost local minima of cost <= k (or, with
+// all_minima, every such position), as (4, N) int64 columns [pattern;
+// tile; end position; cost], and the state code carried out of each
+// pattern's last tile. Per screened word, positions w*32 .. w*32 + 32 of
+// the tile's window: column 0 stands only for the tile's boundary
+// candidate. With overhang, costs past the tile's text end add
+// floor(float32(alpha) * float32(overshoot)), and the decreasing state is
+// rebuilt over the n_prev words before the word from the
 // overshoot-adjusted deltas, seeded by the meta code at the strip's start
-// (else by the cross-tile seed state0).
+// (else by the tile's entering state, the chain's). The grid, the
+// per-element work and the chain are in select_words.cuh.
 //
 // What bounds it on the H100: bytes. Every (pattern, word, tile) has its
-// meta word read once; only the few screened words read vp, vm and cost
-// (and the next word's and the strip's bits) and expand to 33 positions.
-// At 1 GiB and 23 bp that is ~134 MB of meta for a handful of candidates.
+// meta word read once, every (pattern, tile) its final code; only the few
+// screened words read vp, vm and cost (and the next word's and the
+// strip's bits) and expand to 33 positions. At 1 GiB and 23 bp that is
+// ~134 MB of meta for a handful of candidates.
 //
-// What the design does about it: the four arrays are contiguous, so the
-// flat element f = (q * NW + w) * T + t is also its address. A block takes
-// kWordsPerBlock consecutive elements, each thread every kSelThreads-th of
-// them, so a warp reads 32 adjacent meta words at a time; an element that
-// is not screened costs one load and one test, and only a screened one is
-// decoded into (q, w, t). Many words per thread keep the blocks few: at
-// one word per thread the blocks' own fixed cost, not the bytes, set the
-// time. Two launches of the same grid: the first counts the candidates
-// (at most 33 a word) and writes one sum per block; PyTorch's cumsum over
-// the block sums and one host read of the total size the output; the
-// second skips every block without a candidate and writes the candidates
-// of each round of kSelThreads words at the block's offset plus the
-// thread's exclusive prefix in the round, in the plain version's
-// (pattern, word, tile, position) order. Built by
-// sassy_tpu_torch/ops/myers_cuda.py with the scan kernels in one nvcc call.
+// What the design does about it: three launches around one 8-byte host
+// read, no PyTorch op between them. A tile's entering state matters only
+// to a screened word with no owned delta before it in the tile (its
+// strip's meta code is 0), and such words are rare.
+// 1. count: each block's elements lie side by side in memory; each thread
+//    issues the loads of all its kWordsPerThread meta words at once (a
+//    warp reads 32 adjacent words each round) and notes the screened
+//    ones. Only a block
+//    with a word that needs the state, or the first block of a segment,
+//    composes the segment's tile maps in shared memory (each thread a run
+//    of tiles, then a block scan of the maps); the first writes the
+//    segment's map. The screened words are counted for both states the
+//    segment may be entered with, summed over the block.
+// 2. scan, one block: the segments' maps composed in order (each pattern
+//    from its carry) give every segment its entering state and each
+//    pattern's carry out; then each block's count for its segment's state,
+//    summed in order, gives its output offset and the total.
+// 3. emit: a block with candidates composes its segment's maps again only
+//    if it must, and writes each round of kSelThreads elements' candidates
+//    at its offset plus the thread's exclusive prefix in the round, in the
+//    plain version's (pattern, word, tile, position) order, no atomics.
+// The wrapper (ops/myers_cuda.py) reads the total after launch 2 to size
+// the output. Built by sassy_tpu_torch/ops/myers_cuda.py with the scan
+// kernels in one nvcc call.
 
-#include "select_common.cuh"
+#include "select_words.cuh"
 
 namespace {
 
-constexpr int kSelWarps = kSelThreads / 32;
-constexpr int kWordsPerThread = 16;
-constexpr int64_t kWordsPerBlock = kSelThreads * kWordsPerThread;
+constexpr int kScanThreads = 1024;
 
-struct WordArgs {  // (Q, NW, T) arrays, contiguous
-  const uint32_t* vp;
-  const uint32_t* vm;
-  const int32_t* cost;
-  const int32_t* meta;
-  const int32_t* valid_from;  // (T,) window-local owned range (vf, vt]
-  const int32_t* valid_to;
-  const int32_t* islast;    // (T,) window-local last text position, or -1
-  const int64_t* pos_base;  // (T,) position of window position 0
-  const int32_t* state0;    // (Q, T) cross-tile seeds, 1 = last delta +1
-  const int64_t* text_end;  // (T,) window-local text end; null: no overhang
-  float alpha;
-  int n_prev;
-  int Q, NW, T, k;
-  bool all_minima;
-  int32_t* block_counts;       // (blocks,) the first pass's output
-  const int64_t* block_ends;   // (blocks,) their inclusive prefix sums
-  int64_t* out;                // (4, N)
-  int64_t N;
+__device__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+struct AddOp {
+  template <class V>
+  __device__ V operator()(V a, V b) const { return a + b; }
 };
 
-// The exclusive prefix sum of v over the block's threads in thread order;
-// *total gets the block's sum. Every thread of the block calls it; the
-// first barrier lets a block call it again in a loop.
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[kSelWarps];
+struct MapOp {
+  __device__ uint32_t operator()(uint32_t a, uint32_t b) const {
+    return map_then(a, b);
+  }
+};
+
+// The composition, by op (earlier, later), of the block's earlier
+// threads' values in thread order (identity for thread 0); *all gets the
+// whole block's. Every thread of the block calls it; the first barrier
+// lets a block call it again.
+template <class V, class Op>
+__device__ V block_exclusive(V mine, V identity, Op op, V* all) {
+  __shared__ V smem[32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
   __syncthreads();
-  int x = v;
+  V inc = mine;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-    if (lane >= d) x += y;
+    const V o = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+    if (lane >= d) inc = op(o, inc);
   }
-  if (lane == 31) warp_sums[warp] = x;
+  if (lane == 31) smem[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    int s = lane < kSelWarps ? warp_sums[lane] : 0;
+    V w = lane < warps ? smem[lane] : identity;
 #pragma unroll
-    for (int d = 1; d < kSelWarps; d <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, s, d);
-      if (lane >= d) s += y;
+    for (int d = 1; d < 32; d <<= 1) {
+      const V o = __shfl_up_sync(0xFFFFFFFFu, w, d);
+      if (lane >= d) w = op(o, w);
     }
-    if (lane < kSelWarps) warp_sums[lane] = s;
+    if (lane < warps) smem[lane] = w;  // inclusive over the warps
   }
   __syncthreads();
-  *total = warp_sums[kSelWarps - 1];
-  return x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
+  V ex = __shfl_up_sync(0xFFFFFFFFu, inc, 1);
+  if (lane == 0) ex = identity;
+  if (warp > 0) ex = op(smem[warp - 1], ex);
+  *all = smem[warps - 1];
+  return ex;
 }
 
-// The candidates of flat element f = (q * NW + w) * T + t: their count,
-// and with EMIT each written at out column o + i.
-template <bool EMIT>
-__device__ int word_candidates(const WordArgs& a, int64_t f, int64_t o) {
-  if ((a.meta[f] & 1) == 0) return 0;
-  const int64_t per_q = static_cast<int64_t>(a.NW) * a.T;
-  const int q = static_cast<int>(f / per_q);
-  const int64_t r = f - q * per_q;
-  const int w = static_cast<int>(r / a.T);
-  const int t = static_cast<int>(r - static_cast<int64_t>(w) * a.T);
-  const int64_t at = f;
-  const int64_t at_q = f - static_cast<int64_t>(w) * a.T;  // word 0 of (q, t)
-
-  const uint32_t vp = a.vp[at];
-  const uint32_t vm = a.vm[at];
-  const int64_t vf = a.valid_from[t];
-  const int64_t vt = a.valid_to[t];
-  const int64_t il = a.islast[t];
-  const bool over = a.text_end != nullptr;
-  const int64_t tend = over ? a.text_end[t] : 0;
-  const float alpha = a.alpha;
-  auto ovf = [over, tend, alpha](int64_t p) -> int64_t {
-    return over ? overshoot_floor(alpha, p - tend) : 0;
-  };
-  const int64_t w32 = static_cast<int64_t>(w) * 32;
-
-  bool up = false;  // the last nonzero owned delta so far was +1
-  if (!a.all_minima) {
-    // the state at the strip's start: its meta code if an owned delta came
-    // earlier in the tile, else the cross-tile seed; then the strip's
-    // overshoot-adjusted deltas
-    const int w0 = w - min(w, a.n_prev);
-    const int code = (a.meta[at_q + static_cast<int64_t>(w0) * a.T] >> 1) & 3;
-    up = code > 0 ? (code & 1) != 0
-                  : a.state0[static_cast<int64_t>(q) * a.T + t] != 0;
-    for (int ww = w0; ww < w; ++ww) {
-      const int64_t at_w = at_q + static_cast<int64_t>(ww) * a.T;
-      const uint32_t p = a.vp[at_w];
-      const uint32_t m = a.vm[at_w];
-      const int64_t l0 = static_cast<int64_t>(ww) * 32;
-      for (int b = 0; b < 32; ++b) {
-        const int64_t lp = l0 + b + 1;
-        if (lp <= vf) continue;  // halo deltas are restart artifacts
-        const int64_t d = bit_delta(p, m, b) + ovf(lp) - ovf(lp - 1);
-        if (d != 0) up = d > 0;
-      }
-    }
-  }
-
-  int n = 0;
-  auto take = [&](int j, int64_t c) {
-    if (EMIT) {
-      const int64_t i = o + n;
-      a.out[i] = q;
-      a.out[a.N + i] = t;
-      a.out[2 * a.N + i] = a.pos_base[t] + w32 + j;
-      a.out[3 * a.N + i] = c;
-    }
-    ++n;
-  };
-
-  // column j = position w32 + j; a candidate waits for the delta after it
-  int64_t ov_prev = ovf(w32);
-  int64_t raw_cost = a.cost[at];
-  int64_t pend_cost = raw_cost + ov_prev;
-  bool pend = w == 0 && vf < 0 && pend_cost <= a.k && (a.all_minima || !up);
-  for (int j = 1; j <= 32; ++j) {
-    const int64_t lp = w32 + j;
-    const int raw = bit_delta(vp, vm, j - 1);
-    const int64_t ov_j = ovf(lp);
-    const int64_t d = raw + ov_j - ov_prev;
-    if (pend && (a.all_minima || d >= 1 || lp - 1 == il)) take(j - 1, pend_cost);
-    raw_cost += raw;
-    const int64_t c = raw_cost + ov_j;
-    if (!a.all_minima && lp > vf && d != 0) up = d > 0;
-    pend = lp > vf && lp <= vt && c <= a.k && (a.all_minima || !up);
-    pend_cost = c;
-    ov_prev = ov_j;
-  }
-  if (pend) {
-    bool ok = a.all_minima || w32 + 32 == il;
-    if (!ok) {
-      // the next word's first delta; an artificial +1 past the window
-      int64_t next = 1;
-      if (w + 1 < a.NW) {
-        next = bit_delta(a.vp[at + a.T], a.vm[at + a.T], 0) +
-               ovf(w32 + 33) - ovf(w32 + 32);
-      }
-      ok = next >= 1;
-    }
-    if (ok) take(32, pend_cost);
-  }
-  return n;
+// Block part p's segment: each tile's entering map (from the segment's
+// entering state) into rel, each thread composing a run of tiles; returns
+// the segment's map. Every thread of the block calls it.
+__device__ uint32_t segment_chain(const WordArgs& a, const Part& p,
+                                  uint8_t* rel) {
+  const int per = (p.width() + kSelThreads - 1) / kSelThreads;
+  const int ta = p.t0 + min(static_cast<int>(threadIdx.x) * per, p.width());
+  const int tb = min(ta + per, p.t1);
+  const uint32_t run = chain_run(a, p.q, ta, tb, kIdentity, nullptr, 0);
+  uint32_t all;
+  const uint32_t ex = block_exclusive(run, kIdentity, MapOp(), &all);
+  chain_run(a, p.q, ta, tb, ex, rel, p.t0);
+  __syncthreads();
+  return all;
 }
 
-__global__ void __launch_bounds__(kSelThreads) count_words(const WordArgs a) {
-  const int64_t F = static_cast<int64_t>(a.Q) * a.NW * a.T;
-  const int64_t f0 = blockIdx.x * kWordsPerBlock + threadIdx.x;
-  int n = 0;
+// The block's screened elements (bit i: the thread's element of round i),
+// and whether one of them needs its tile's state. The rounds' loads are
+// independent, so all of a thread's are in flight at once.
+__device__ uint32_t screened(const WordArgs& a, const Part& p, bool* need) {
+  const int n = p.elems();
+  uint32_t mask = 0;
+#pragma unroll
   for (int i = 0; i < kWordsPerThread; ++i) {
-    const int64_t f = f0 + i * kSelThreads;
-    if (f < F) n += word_candidates<false>(a, f, 0);
+    const int e = threadIdx.x + i * kSelThreads;
+    if (e < n && (a.meta[p.base + e] & 1)) mask |= 1u << i;
   }
-  int total;
-  block_exclusive_scan(n, &total);
-  if (threadIdx.x == 0) a.block_counts[blockIdx.x] = total;
+  bool any = false;
+  for (uint32_t m = mask; m != 0; m &= m - 1) {
+    const int i = __ffs(m) - 1;
+    any = any || needs_state(a, p.base + threadIdx.x + i * kSelThreads);
+  }
+  *need = any;
+  return mask;
 }
 
-__global__ void __launch_bounds__(kSelThreads) emit_words(const WordArgs a) {
-  const int count = a.block_counts[blockIdx.x];
-  if (count == 0) return;  // the whole block leaves: no barrier is split
-  const int64_t F = static_cast<int64_t>(a.Q) * a.NW * a.T;
-  const int64_t f0 = blockIdx.x * kWordsPerBlock + threadIdx.x;
-  int64_t o = a.block_ends[blockIdx.x] - count;
-  for (int i = 0; i < kWordsPerThread; ++i) {
-    const int64_t f = f0 + i * kSelThreads;
-    const int n = f < F ? word_candidates<false>(a, f, 0) : 0;
+// Launch 1: each block's candidates for both entering states of its
+// segment; each segment's map.
+__global__ void __launch_bounds__(kSelThreads)
+    count_words(const WordArgs a, const Grid g, WordScratch sc) {
+  __shared__ uint8_t rel[kBlockElems];
+  const Part p = part_of(g, blockIdx.x);
+  bool need;
+  const uint32_t mask = screened(a, p, &need);
+  const bool first = p.w0 == 0;  // the segment's first block
+  uint32_t seg_map = kIdentity;
+  if (__syncthreads_or(need) || (first && !a.all_minima)) {
+    seg_map = segment_chain(a, p, rel);
+  }
+  int n[2] = {0, 0};
+  for (uint32_t m = mask; m != 0; m &= m - 1) {
+    const int e = threadIdx.x + (__ffs(m) - 1) * kSelThreads;
+    const int64_t f = p.base + e;
+    const uint32_t r = needs_state(a, f) ? rel[elem_tile(p, e)] : 0u;
+    const int n0 = count_at(a, f, r, 0);
+    n[0] += n0;
+    n[1] += map_at(r, 0) == map_at(r, 1) ? n0 : count_at(a, f, r, 1);
+  }
+  int64_t total;
+  block_exclusive(pack_counts(n[0], n[1]), int64_t{0}, AddOp(), &total);
+  if (threadIdx.x == 0) {
+    sc.counts[blockIdx.x] = total;
+    if (first) sc.segs[2 * p.seg] = static_cast<int32_t>(seg_map);
+  }
+}
+
+// Launch 2, one block: each segment's entering state and each pattern's
+// carry out; each block's offset, and the total.
+__global__ void __launch_bounds__(kScanThreads)
+    scan_words(const WordArgs a, const Grid g, WordScratch sc,
+               int32_t* carry_out) {
+  const int64_t S = g.segments();
+  const int64_t per = (S + kScanThreads - 1) / kScanThreads;
+  const int64_t s0 = min64(static_cast<int64_t>(threadIdx.x) * per, S);
+  const int64_t s1 = min64(s0 + per, S);
+  uint32_t run = kIdentity;
+  for (int64_t s = s0; s < s1; ++s) {
+    run = map_then(run, segment_elem(a, g, s, sc.segs[2 * s]));
+  }
+  uint32_t all;
+  uint32_t ex = block_exclusive(run, kIdentity, MapOp(), &all);
+  for (int64_t s = s0; s < s1; ++s) {
+    const int q = static_cast<int>(s / g.XB);
+    const uint32_t m = sc.segs[2 * s];
+    const int in = s % g.XB == 0 ? carry_state(a, q) : map_at(ex, 0);
+    sc.segs[2 * s + 1] = in;
+    ex = map_then(ex, segment_elem(a, g, s, m));
+    if (carry_out != nullptr && s % g.XB == g.XB - 1) {
+      carry_out[q] = carry_code(a, q, map_at(m, in));
+    }
+  }
+  __syncthreads();  // the entering states, read below by other threads
+  // each thread a run of blocks, their segments followed by counting
+  // (block b is chunk b % XB of pattern b / (G * XB))
+  const int64_t B = g.blocks();
+  const int64_t bper = (B + kScanThreads - 1) / kScanThreads;
+  const int64_t b0 = min64(static_cast<int64_t>(threadIdx.x) * bper, B);
+  const int64_t b1 = min64(b0 + bper, B);
+  const int64_t per_q = static_cast<int64_t>(g.G) * g.XB;
+  const int64_t q0 = b0 / per_q;
+  const int64_t r0 = b0 - q0 * per_q;
+  int64_t sum = 0;
+  {
+    int64_t q = q0, r = r0;
+    for (int64_t b = b0; b < b1; ++b) {
+      sum += lane_count(sc.counts[b], sc.segs[2 * (q * g.XB + r % g.XB) + 1]);
+      if (++r == per_q) r = 0, ++q;
+    }
+  }
+  int64_t total;
+  int64_t off = block_exclusive(sum, int64_t{0}, AddOp(), &total);
+  {
+    int64_t q = q0, r = r0;
+    for (int64_t b = b0; b < b1; ++b) {
+      sc.offsets[b] = off;
+      off += lane_count(sc.counts[b], sc.segs[2 * (q * g.XB + r % g.XB) + 1]);
+      if (++r == per_q) r = 0, ++q;
+    }
+  }
+  if (threadIdx.x == 0) *sc.total = total;
+}
+
+// Launch 3: the candidates of the blocks that have some.
+__global__ void __launch_bounds__(kSelThreads)
+    emit_words(const WordArgs a, const Grid g, WordScratch sc, int64_t* out,
+               int64_t N) {
+  __shared__ uint8_t rel[kBlockElems];
+  const Part p = part_of(g, blockIdx.x);
+  const int in = sc.segs[2 * p.seg + 1];
+  if (lane_count(sc.counts[blockIdx.x], in) == 0) return;  // the whole block
+  bool need;
+  const uint32_t mask = screened(a, p, &need);
+  if (__syncthreads_or(need)) segment_chain(a, p, rel);
+  int64_t o = sc.offsets[blockIdx.x];
+  const int rounds = (p.elems() + kSelThreads - 1) / kSelThreads;
+  for (int i = 0; i < rounds; ++i) {
+    int n = 0;
+    int64_t f = 0;
+    bool up = false;
+    if ((mask >> i) & 1u) {
+      const int e = threadIdx.x + i * kSelThreads;
+      f = p.base + e;
+      up = needs_state(a, f) && map_at(rel[elem_tile(p, e)], in) != 0;
+      n = word_candidates<false>(a, f, up, nullptr, 0, 0);
+    }
     int total;
-    const int before = block_exclusive_scan(n, &total);
-    if (n > 0) word_candidates<true>(a, f, o + before);
+    const int before = block_exclusive(n, 0, AddOp(), &total);
+    if (n > 0) word_candidates<true>(a, f, up, out, N, o + before);
     o += total;
   }
 }
 
 }  // namespace
 
-// The (pattern, word, tile) elements per block: the caller sizes
-// block_counts as ceil(Q * NW * T / this).
-extern "C" long long sassy_select_words_per_block() { return kWordsPerBlock; }
+// int64 words of scratch a call over (Q, NW, T) needs; the total (what
+// sizes the output) is the last.
+extern "C" long long sassy_select_words_scratch(int Q, int NW, int T) {
+  return word_scratch_words(grid_of(Q, NW, T));
+}
 
-// pass 0 counts (block_counts), pass 1 writes `out` (block_counts and
-// their inclusive prefix sums block_ends from pass 0). Launches on
-// `stream` without synchronising; returns the cudaError_t of the launch.
+// Pass 0 counts, pass 1 scans (the carry out, and the total: the last
+// word of `scratch`), pass 2 writes `out` ((4, N); nothing when N = 0).
+// final, is_start, state0, carry and carry_out may be null (see
+// select_words.cuh). Launches one kernel on `stream` without
+// synchronising; returns the cudaError_t of the launch.
 extern "C" int sassy_select_words(
     const void* vp, const void* vm, const void* cost, const void* meta,
     const void* valid_from, const void* valid_to, const void* islast,
-    const void* pos_base, const void* state0, const void* text_end,
-    void* block_counts, const void* block_ends, void* out, long long N,
-    int Q, int NW, int T, int k, int all_minima,
-    int n_prev, float alpha, int pass, void* stream) {
-  WordArgs a = {};
-  a.vp = static_cast<const uint32_t*>(vp);
-  a.vm = static_cast<const uint32_t*>(vm);
-  a.cost = static_cast<const int32_t*>(cost);
-  a.meta = static_cast<const int32_t*>(meta);
-  a.valid_from = static_cast<const int32_t*>(valid_from);
-  a.valid_to = static_cast<const int32_t*>(valid_to);
-  a.islast = static_cast<const int32_t*>(islast);
-  a.pos_base = static_cast<const int64_t*>(pos_base);
-  a.state0 = static_cast<const int32_t*>(state0);
-  a.text_end = static_cast<const int64_t*>(text_end);
-  a.alpha = alpha;
-  a.n_prev = n_prev;
-  a.Q = Q;
-  a.NW = NW;
-  a.T = T;
-  a.k = k;
-  a.all_minima = all_minima != 0;
-  a.block_counts = static_cast<int32_t*>(block_counts);
-  a.block_ends = static_cast<const int64_t*>(block_ends);
-  a.out = static_cast<int64_t*>(out);
-  a.N = N;
-  const long long F = static_cast<long long>(Q) * NW * T;
-  const long long blocks = (F + kWordsPerBlock - 1) / kWordsPerBlock;
-  if (F <= 0 || blocks > 0x7FFFFFFFLL || n_prev < 0 || pass < 0 || pass > 1 ||
-      (pass == 1 && (block_ends == nullptr || out == nullptr))) {
+    const void* pos_base, const void* text_end, const void* final,
+    const void* is_start, const void* state0, const void* carry,
+    void* carry_out, void* scratch, void* out, long long N, int Q, int NW,
+    int T, int k, int all_minima, int n_prev, float alpha, int pass,
+    void* stream) {
+  const WordArgs a = word_args(vp, vm, cost, meta, valid_from, valid_to,
+                               islast, pos_base, text_end, final, is_start,
+                               state0, carry, Q, NW, T, k, all_minima,
+                               n_prev, alpha);
+  if (Q <= 0 || NW <= 0 || T <= 0 || n_prev < 0 || scratch == nullptr ||
+      pass < 0 || pass > 2 || (pass == 2 && N > 0 && out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Grid g = grid_of(Q, NW, T);
+  if (g.blocks() > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const WordScratch sc = word_scratch_at(scratch, g);
+  const unsigned blocks = static_cast<unsigned>(g.blocks());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pass == 0) {
-    count_words<<<static_cast<unsigned>(blocks), kSelThreads, 0, s>>>(a);
+    count_words<<<blocks, kSelThreads, 0, s>>>(a, g, sc);
+  } else if (pass == 1) {
+    scan_words<<<1, kScanThreads, 0, s>>>(a, g, sc,
+                                           static_cast<int32_t*>(carry_out));
   } else {
-    emit_words<<<static_cast<unsigned>(blocks), kSelThreads, 0, s>>>(a);
+    emit_words<<<blocks, kSelThreads, 0, s>>>(a, g, sc,
+                                              static_cast<int64_t*>(out), N);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,8 +66,8 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
     """bound_ms and bound_by (and the bytes and ops they come from) of one
     call of a selection entry point of
     ``ops/minima.py`` (``select_words_tiles_q``, ``select_candidates``,
-    ``select_candidates_tiles``, ``select_candidates_chained``) with these
-    arguments, which returned
+    ``select_candidates_tiles``, ``select_candidates_chained``,
+    ``select_words_chained``) with these arguments, which returned
     ``n_out`` candidates. Bytes: what the function must read, once, and
     its int64 output columns; where that depends on the data, this call's
     data.
@@ -77,7 +77,10 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
       ``n_prev`` strip that lie past valid_from; the tile tables
       (valid_from, valid_to, islast_at, pos_base, text_end) of the tiles
       with a screened word and, unless ``all_minima``, ``state0`` of the
-      (pattern, tile) pairs with one.
+      (pattern, tile) pairs with one; chained (``select_words_chained``),
+      unless ``all_minima``, every ``final`` code and ``is_start`` flag
+      (the chain's inputs) instead of ``state0``, and the carry in and
+      out.
       The next word's first delta is read only for a candidate pending at
       a word's end, and is not counted.
     - Position level: vp and vm of every word that holds a position the
@@ -101,15 +104,16 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
 
     from .ops import minima
 
-    if entry not in ("select_words_tiles_q", "select_candidates",
-                     "select_candidates_tiles", "select_candidates_chained"):
+    if entry not in ("select_words_tiles_q", "select_words_chained",
+                     "select_candidates", "select_candidates_tiles",
+                     "select_candidates_chained"):
         raise ValueError(f"no selection entry point {entry!r}")
     sig = inspect.signature(getattr(minima, entry + "_plain"))
     a = sig.bind(*args, **kwargs)
     a.apply_defaults()
     a = a.arguments
     state = not a["all_minima"]
-    if entry == "select_words_tiles_q":
+    if entry in ("select_words_tiles_q", "select_words_chained"):
         meta = a["meta"]
         scr = (meta & 1) != 0
         screened = int(scr.sum())
@@ -125,11 +129,17 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
             strip &= ~scr & (w[:, None] >= vf[None, :])[None]
         n_strip = int(strip.sum())
         tiles = int(scr.any(dim=1).any(dim=0).sum())
-        pairs = int(scr.any(dim=1).sum()) if state else 0
+        if entry == "select_words_tiles_q":
+            seeds = 4 * int(scr.any(dim=1).sum()) if state else 0
+            chain = 0
+        else:  # the chain: final, is_start; the carry in and out
+            Q, T = a["final"].shape
+            chain = Q * T if state else 0
+            seeds = (4 * Q * T + T if state else 0) + 8 * Q
         nbytes = (4 * meta.numel() + 12 * screened + 8 * n_strip
                   + tiles * (20 + (8 if a["text_end"] is not None else 0))
-                  + 4 * pairs + 32 * n_out)
-        ops = meta.numel() + 33 * screened + WORD_BITS * n_strip
+                  + seeds + 32 * n_out)
+        ops = meta.numel() + 33 * screened + WORD_BITS * n_strip + chain
     elif entry == "select_candidates":
         T, W = a["vp_w"].shape[1], a["W"]
         hi = a["max_pos"]

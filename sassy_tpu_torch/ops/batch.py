@@ -2,7 +2,9 @@
 
 Port of ``sassy_tpu/ops/batch.py``. Texts are cut into pieces (whole short
 texts, or word-aligned, halo-overlapped segments of long ones:
-``_plan_pieces``); the pieces of all texts form the tile axis of one scan.
+``_plan_pieces``, cut as columns by ``_plan_columns``); the pieces of all
+texts form the tile axis of one scan, at a width (``_piece_width``) that
+lets a full dispatch chunk fill the card.
 A strand's texts are uploaded once and packed into bit-planes on the
 device (the reverse strand is derived there from the forward bytes; with
 overhang each text is followed by its 'N' overshoot positions); each
@@ -11,8 +13,9 @@ right context past the owned range), from those planes.
 
 Patterns are grouped by row bucket and overhang steps. A group whose
 overshoot spans at most three words (always, without overhang) takes the
-word-level path: the q2meta kernel (``myers_cuda.scan_q_meta``), the
-cross-piece state chain and ``minima.select_words_tiles_q``. A longer
+word-level path: the q2meta kernel (``myers_cuda.scan_q_meta``) and
+``minima.select_words_chained`` (the cross-piece state chain inside the
+selection). A longer
 overshoot takes the position-level path: the q2 kernel
 (``myers_cuda.scan_q``) and ``minima.select_candidates_tiles``, which
 expands every (pattern, position): one scan launch per dispatch chunk, its
@@ -138,6 +141,95 @@ def _plan_pieces(lens: list[int], steps: int, w_chars: int,
     return pieces
 
 
+#: ``_Piece``'s fields, the columns of ``_plan_columns``
+PIECE_FIELDS = tuple(f.name for f in fields(_Piece))
+
+
+def _plan_columns(lens: list[int], steps: int, w_chars: int,
+                  halo: int) -> dict[str, np.ndarray]:
+    """``_plan_pieces``' pieces as int64 columns, one per ``_Piece``
+    field, cut without an object per piece: every text that fits one piece
+    at once, and in a longer text each run of regular continuation pieces
+    (a word-aligned start ``hw`` chars before the piece's first owned
+    position, ``hw`` the halo rounded up to words, and ``w_chars - hw``
+    owned positions) as one ``arange``; the pieces around the overshoot
+    split and the text end as the loop cuts them. At 3.12 Gbp in pieces of
+    448 words that is ~218k pieces in a few loop steps. Equal to
+    ``_plan_pieces`` (the tests hold both to the JAX planner)."""
+    n = np.asarray(lens, np.int64).reshape(-1)
+    total = n + steps
+    blocks: list[dict] = []
+    prev = 0
+
+    def singles(t0: int, t1: int) -> None:
+        own = total[t0:t1]
+        blocks.append({
+            "text_idx": np.arange(t0, t1, dtype=np.int64),
+            "start_char": np.zeros(t1 - t0, np.int64),
+            "valid_from": np.full(t1 - t0, -1, np.int64), "valid_to": own,
+            "text_end": n[t0:t1], "islast_at": own,
+            "true_start": np.ones(t1 - t0, np.int64)})
+
+    for t in np.nonzero(total > w_chars)[0].tolist():
+        if t > prev:
+            singles(prev, t)
+        blocks.append(_cut_text(t, int(n[t]), steps, w_chars, halo))
+        prev = t + 1
+    if prev < len(n):
+        singles(prev, len(n))
+    if not blocks:
+        return {f: np.zeros(0, np.int64) for f in PIECE_FIELDS}
+    return {f: np.concatenate([b[f] for b in blocks]) for f in PIECE_FIELDS}
+
+
+def _cut_text(t: int, n: int, steps: int, w_chars: int,
+              halo: int) -> dict[str, np.ndarray]:
+    """The columns of text t's pieces (``_plan_pieces``' loop for one
+    text, its regular runs taken whole)."""
+    total = n + steps
+    hw = cdiv(halo, WORD_BITS) * WORD_BITS
+    stride = w_chars - hw
+    cols: dict[str, list] = {f: [] for f in PIECE_FIELDS}
+
+    def put(start, vfrom, vto, islast, first) -> None:
+        start = np.atleast_1d(np.asarray(start, np.int64))
+        for f, v in (("text_idx", t), ("start_char", start),
+                     ("valid_from", vfrom), ("valid_to", vto),
+                     ("text_end", n - start), ("islast_at", islast),
+                     ("true_start", int(first))):
+            cols[f].append(np.broadcast_to(np.asarray(v, np.int64),
+                                           start.shape))
+
+    o, first = 0, True
+    while True:
+        if first:
+            own, start_char, vfrom = min(total, w_chars), 0, -1
+        else:
+            if o % WORD_BITS == 0:
+                # from a word-aligned o, each piece starts hw chars back and
+                # owns ``stride`` positions until one would reach the
+                # overshoot split (positions up to n) or the text end
+                lim = n if steps and o < n else total - 1
+                runs = max(0, (lim - o - stride) // stride + 1)
+                if runs:
+                    at = o + stride * np.arange(runs, dtype=np.int64)
+                    put(at - hw, hw, w_chars, -1, False)
+                    o += runs * stride
+            start_char = (o - halo) // WORD_BITS * WORD_BITS
+            vfrom = o - start_char
+            own = min(total - o, w_chars - vfrom)
+        if steps and o < n and n < o + own < total:
+            own = n - o  # never split the overshoot span (see _plan_pieces)
+        last = o + own >= total
+        put(start_char, vfrom, vfrom + own if not first else own,
+            (vfrom if not first else 0) + own if last else -1, first)
+        o += own
+        first = False
+        if last:
+            break
+    return {f: np.concatenate(v) for f, v in cols.items()}
+
+
 def _w_lattice(cap: int) -> list[int]:
     """The shape-bucket lattice {4,5,6,7} * 2^j (>= 16) up to ``cap``."""
     vals = [16]
@@ -179,18 +271,28 @@ def _pick_w_words(lens: list[int], steps: int, halo: int, w_cap: int) -> int:
 
 
 def _piece_width(lens: list[int], steps: int, halo: int,
-                 n_patterns: int) -> int:
+                 n_patterns: int, pair_bytes: int) -> int:
     """Piece width in chars for one group: small enough that the pieces
     times the patterns fill the card (one thread per pair, the single
     path's ``plan.H100_TARGET_TILES``), wide enough to amortize the halo
-    re-scan (>= 4 halos), at most the longest text with its overshoot."""
+    re-scan (>= 4 halos), at most the longest text with its overshoot.
+
+    A dispatch chunk holds ``DISPATCH_BYTES // (pair_bytes * NW)`` pairs
+    (``BatchEngine.chunks``), so the window is also kept narrow enough
+    that a full chunk launches ``plan.H100_TARGET_TILES`` threads or more,
+    unless that would cut pieces below four halos: many patterns over a
+    long text otherwise reach ``W_MAX_WORDS`` and launch a small fraction
+    of the card (312 guides over 3.12 Gbp: 105 pieces a launch, 32,760
+    threads)."""
     tiles = cdiv(plan.H100_TARGET_TILES, n_patterns)
     target = max(4 * halo, cdiv(sum(lens) + steps * len(lens), tiles),
                  4 * WORD_BITS)
+    fill = DISPATCH_BYTES // (pair_bytes * plan.H100_TARGET_TILES) - 1
     w_cap = min(
         _bucket_words(max(cdiv(max(lens) + steps, WORD_BITS), 1)),
         _bucket_words(cdiv(target, WORD_BITS)),
         W_MAX_WORDS,
+        max(_w_lattice(fill)[-1], _bucket_words(cdiv(4 * halo, WORD_BITS))),
     )
     w_chars = _pick_w_words(lens, steps, halo, w_cap) * WORD_BITS
     if w_chars <= halo + WORD_BITS:
@@ -269,9 +371,7 @@ class TextSet:
         key = (halo, w_chars, steps)
         got = self._plans.get(key)
         if got is None:
-            pieces = _plan_pieces(self.lens, steps, w_chars, halo)
-            col = lambda f: np.array([getattr(p, f) for p in pieces],  # noqa: E731
-                                     np.int64)
+            col = _plan_columns(self.lens, steps, w_chars, halo).get
             tidx = col("text_idx")
             wstart = col("start_char") // WORD_BITS
             nw, wofs = self.layout(steps)
@@ -435,6 +535,12 @@ class _Group:
         most three words; the position-level path otherwise."""
         return self.n_prev <= 4
 
+    @property
+    def pair_bytes(self) -> int:
+        """Kernel output bytes per (pattern, window word): vp, vm, cost
+        and, on the word-level path, meta."""
+        return 16 if self.fast else 12
+
 
 class BatchEngine:
     """Cartesian-product candidate engine: Q patterns x N texts, batched.
@@ -486,17 +592,19 @@ class BatchEngine:
                  [per[q][3] for q in qidx]],
                 dtype=torch.int32, device=self.device,
             )
-            out.append(_Group(
+            g = _Group(
                 qidx=torch.tensor(qidx, dtype=torch.int64, device=self.device),
                 pmasks=pm, is_pad=pad, h_init=hi, m_real=scal[0],
-                boundary_m=scal[1], eq_mode=eq_mode, halo=M + k,
-                w_chars=_piece_width(ts.lens, steps, M + k, len(qidx)),
+                boundary_m=scal[1], eq_mode=eq_mode, halo=M + k, w_chars=0,
                 steps=steps, alpha=alpha,
                 n_prev=(cdiv(steps, WORD_BITS) + 1 if alpha is not None
                         else 0),
                 hier_s=self._hier_rows(
                     min(len(pattern_codes[q]) for q in qidx), M, k, alpha),
-            ))
+            )
+            g.w_chars = _piece_width(ts.lens, steps, g.halo, g.Q,
+                                     g.pair_bytes)
+            out.append(g)
         return out
 
     @staticmethod
@@ -513,7 +621,7 @@ class BatchEngine:
         one kernel launch of at most ``DISPATCH_BYTES`` of outputs. The
         tile chunks of one pattern range come in order, as the state chain
         needs."""
-        per_pair = (16 if g.fast else 12) * pp.NW
+        per_pair = g.pair_bytes * pp.NW
         q_chunk = max(1, min(g.Q, DISPATCH_BYTES // per_pair))
         t_chunk = max(1, DISPATCH_BYTES // (q_chunk * per_pair))
         for q0 in range(0, g.Q, q_chunk):
@@ -601,15 +709,9 @@ class BatchEngine:
                 carry, all_minima,
             )
         else:
-            vp, vm, cost, meta, final = outs
-            if all_minima:
-                state0 = torch.zeros_like(final)
-            else:
-                state0, carry = minima.chain_range(
-                    final, pp.true_start[t0:t1], carry)
-            cols = minima.select_words_tiles_q(
-                vp, vm, cost, meta, vf, vt, pp.islast_at[t0:t1],
-                pp.start_char[t0:t1], k, state0, all_minima,
+            cols, carry = minima.select_words_chained(
+                *outs, pp.true_start[t0:t1], carry, vf, vt,
+                pp.islast_at[t0:t1], pp.start_char[t0:t1], k, all_minima,
                 tend if g.n_prev else None, g.alpha, g.n_prev,
             )
         cols[0] = g.qidx[q0 + cols[0]]

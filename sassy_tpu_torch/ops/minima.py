@@ -7,10 +7,13 @@ the meta scan kernels compute in place), the cross-tile state chain
 ``last_delta_codes``), and the selection of rightmost-local-minimum end
 positions:
 
-- word level (``select_words_tiles_q`` over Q patterns,
-  ``select_words_tiles`` for one): only screened words expand to
-  positions; with overhang, a strip of the ``n_prev`` preceding words
-  makes the decreasing state exact over the overshoot costs;
+- word level (``select_words_chained``, the state chained across the
+  tiles from the scan's ``final`` codes and carried in and out, which all
+  three engines call; ``select_words_tiles_q`` over Q patterns and
+  ``select_words_tiles`` for one, each tile's state given): only screened
+  words expand to positions; with overhang, a strip of the ``n_prev``
+  preceding words makes the decreasing state exact over the overshoot
+  costs;
 - position level, for overhang searches whose overshoot spans more than
   four words: ``select_candidates`` over the flat positions of one text
   (the single engine), ``select_candidates_tiles`` per piece, and
@@ -18,18 +21,18 @@ positions:
   across them and carried in and out (the batched engine).
 
 Each selection is an entry point that runs its plain version
-(``select_words_tiles_q_plain``, ``select_candidates_plain``,
-``select_candidates_tiles_plain``, ``select_candidates_chained_plain``)
-for tensors on the CPU and its CUDA kernel (``myers_cuda.select_words``,
+(``select_words_chained_plain``, ``select_words_tiles_q_plain``,
+``select_candidates_plain``, ``select_candidates_tiles_plain``,
+``select_candidates_chained_plain``) for tensors on the CPU and its CUDA
+kernel (``myers_cuda.select_words_chained``, ``select_words``,
 ``select_positions``, ``select_positions_tiles``;
 ``csrc/select_words.cu``, ``csrc/select_positions.cu``) for tensors on a
 CUDA device, with no other fallback. The kernels give the plain versions'
 candidates in the same order; callers sort them. The plain position-level
 versions expand every position, so they work in bounded chunks (the
 batched engine's callers cut a dispatch chunk into sub-ranges for them);
-the position-level kernels walk each tile's words once in one thread and
-chain the state across tiles in their own scan, so they take a whole
-chunk. Each plain version counts its calls in ``.calls``.
+the kernels chain the state across tiles in their own scan, so they take
+a whole chunk. Each plain version counts its calls in ``.calls``.
 
 Overshoot costs are ``floor(float32(alpha) * float32(overshoot))`` in
 float32 tensors, the reference's f32 rounding (``semantics.py``).
@@ -58,6 +61,8 @@ __all__ = [
     "tile_state_chain_codes",
     "chain_range",
     "last_delta_codes",
+    "select_words_chained",
+    "select_words_chained_plain",
     "select_words_tiles_q",
     "select_words_tiles_q_plain",
     "select_words_tiles",
@@ -230,6 +235,57 @@ def _state_enc(delta, lpos):
     """Nonzero deltas encoded for a cummax: 2p + 1 up, 2p down, 0 none."""
     return torch.where(delta > 0, 2 * lpos + 1,
                        torch.where(delta < 0, 2 * lpos, 0))
+
+
+def select_words_chained(vp_w, vm_w, cost_w, meta, final, is_start, carry,
+                         valid_from, valid_to, islast_at, pos_base, k,
+                         all_minima: bool, text_end=None, alpha=None,
+                         n_prev: int = 0):
+    """Word-level candidate selection of Q patterns with the state chained
+    across the tiles: the inputs and outputs of
+    ``select_words_chained_plain``, which runs for tensors on the CPU; for
+    CUDA tensors the kernel ``myers_cuda.select_words_chained`` runs, chain
+    included, and raises on inputs it does not take."""
+    if vp_w.device.type == "cpu":
+        return select_words_chained_plain(
+            vp_w, vm_w, cost_w, meta, final, is_start, carry, valid_from,
+            valid_to, islast_at, pos_base, k, all_minima, text_end, alpha,
+            n_prev)
+    from . import myers_cuda
+
+    return myers_cuda.select_words_chained(
+        vp_w, vm_w, cost_w, meta, final, is_start, carry, valid_from,
+        valid_to, islast_at, pos_base, k, all_minima, text_end, alpha,
+        n_prev)
+
+
+def select_words_chained_plain(vp_w, vm_w, cost_w, meta, final, is_start,
+                               carry, valid_from, valid_to, islast_at,
+                               pos_base, k, all_minima: bool, text_end=None,
+                               alpha=None, n_prev: int = 0):
+    """``select_words_tiles_q_plain`` over tiles whose entering states are
+    chained, plain version. Tile t's state is the last owned delta of the
+    tiles before it (``final`` (Q, T) int32, the meta scans' codes), reset
+    to none at the tiles of ``is_start`` (T,) bool, after ``carry`` (Q, 1)
+    int32, the code entering tile 0 (0 none, 2 down, 3 up; None: 0):
+    ``chain_range``. Returns the (4, N) columns of
+    ``select_words_tiles_q_plain`` and the (Q, 1) int32 code carried out
+    (3 up, else 0; with ``all_minima``, where no state is kept, the carry
+    in)."""
+    select_words_chained_plain.calls += 1
+    if carry is None:
+        carry = torch.zeros((final.shape[0], 1), dtype=torch.int32,
+                            device=final.device)
+    if all_minima:
+        state0 = torch.zeros_like(final)
+    else:
+        state0, carry = chain_range(final, is_start, carry)
+    return select_words_tiles_q_plain(
+        vp_w, vm_w, cost_w, meta, valid_from, valid_to, islast_at, pos_base,
+        k, state0, all_minima, text_end, alpha, n_prev), carry
+
+
+select_words_chained_plain.calls = 0
 
 
 def select_words_tiles_q(vp_w, vm_w, cost_w, meta, valid_from, valid_to,

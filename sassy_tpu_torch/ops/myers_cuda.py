@@ -29,9 +29,12 @@ position scans, has two kernels of its own; ``ops/minima.py``'s entry
 points run their plain versions for tensors on the CPU and these for
 CUDA tensors:
 
-- ``select_words`` (``csrc/select_words.cu``) replaces
+- ``select_words_chained`` and ``select_words`` (``csrc/select_words.cu``,
+  its grid, per-word work and chain in ``csrc/select_words.cuh``) replace
   ``sassy_tpu/ops/minima.py``'s ``select_words_tiles_q`` (and
-  ``select_words_tiles``): the word-level selection;
+  ``select_words_tiles``): the word-level selection, with the state chain
+  across tiles inside or with each tile's state given (three launches
+  around one host read); ``minima.select_words_chained_plain`` and
   ``minima.select_words_tiles_q_plain``.
 - ``select_positions`` and ``select_positions_tiles``
   (``csrc/select_positions.cu``, its walk in ``csrc/select_walk.cuh``)
@@ -71,7 +74,8 @@ from . import minima, myers_torch
 __all__ = ["scan_meta", "scan_meta_plain", "scan_q_meta",
            "scan_q_meta_plain", "scan", "scan_plain", "scan_q",
            "scan_q_plain", "scan_qn", "scan_qn_plain", "scan_variant",
-           "scan_variant_plain", "select_words", "select_positions",
+           "scan_variant_plain", "select_words", "select_words_chained",
+           "select_positions",
            "select_positions_tiles", "build", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -79,7 +83,7 @@ SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu", CSRC / "scan.cu",
            CSRC / "scan_q.cu", CSRC / "scan_qn.cu", CSRC / "scan_variants.cu",
            CSRC / "select_words.cu", CSRC / "select_positions.cu")
 HEADERS = (CSRC / "myers_step.cuh", CSRC / "select_common.cuh",
-           CSRC / "select_walk.cuh")
+           CSRC / "select_walk.cuh", CSRC / "select_words.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sassy_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -168,7 +172,7 @@ def load_library(path) -> ctypes.CDLL:
         lib.sassy_scan_qn.argtypes = [ptr] * 11 + [num] * 9 + [ptr]
         lib.sassy_scan_variant.argtypes = [ptr] * 3 + [num] * 5 + [ptr]
         big, real = ctypes.c_longlong, ctypes.c_float
-        lib.sassy_select_words.argtypes = ([ptr] * 13 + [big] + [num] * 6
+        lib.sassy_select_words.argtypes = ([ptr] * 16 + [big] + [num] * 6
                                            + [real, num, ptr])
         lib.sassy_select_positions.argtypes = ([ptr] * 5 + [big] * 7
                                                + [num] * 7 + [real, num, ptr])
@@ -176,8 +180,8 @@ def load_library(path) -> ctypes.CDLL:
             [ptr] * 15 + [big] * 3 + [num] * 5 + [real, num, ptr])
         lib.sassy_select_scratch_words.argtypes = [big]
         lib.sassy_select_scratch_words.restype = big
-        lib.sassy_select_words_per_block.argtypes = []
-        lib.sassy_select_words_per_block.restype = big
+        lib.sassy_select_words_scratch.argtypes = [num] * 3
+        lib.sassy_select_words_scratch.restype = big
         for fn in (lib.sassy_scan_meta, lib.sassy_scan_q_meta, lib.sassy_scan,
                    lib.sassy_scan_q, lib.sassy_scan_qn,
                    lib.sassy_scan_variant, lib.sassy_select_words,
@@ -732,32 +736,39 @@ def _small(name: str, x, dtype, shape, device):
     return x.contiguous()
 
 
-def _count_then_emit(launch, n_counts: int, rows: int, device):
-    """The selection kernels' two steps: ``launch(counts, None, None, 0)``
-    writes ``n_counts`` int32 counts; their inclusive prefix sums size the
-    (rows, N) int64 output (the one host read), which ``launch(counts,
-    ends, out, N)`` fills."""
-    counts = torch.empty(n_counts, dtype=torch.int32, device=device)
-    launch(counts, None, None, 0)
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    N = int(ends[-1])
+def _three_passes(launch, scratch, rows: int, device, emit_empty: bool):
+    """The selections' three launches, with no PyTorch op between them:
+    ``launch(0)`` counts or walks (the records), ``launch(1)`` scans them
+    (the offsets, the carry out and the total, the last word of
+    ``scratch``); the one host read of the total sizes the (rows, N) int64
+    output, which ``launch(2, out, N)`` fills (also at N = 0 with
+    ``emit_empty``, for a carry out written there)."""
+    launch(0)
+    launch(1)
+    N = int(scratch[-1])
     out = torch.empty((rows, N), dtype=torch.int64, device=device)
-    if N:
-        launch(counts, ends, out, N)
+    if N or emit_empty:
+        launch(2, out, N)
     return out
 
 
-def select_words(vp_w, vm_w, cost_w, meta, valid_from, valid_to, islast_at,
-                 pos_base, k: int, state0, all_minima: bool, text_end=None,
-                 alpha=None, n_prev: int = 0):
-    """The word-level selection kernel (``csrc/select_words.cu``) on CUDA
-    tensors: what ``minima.select_words_tiles_q_plain`` computes, with its
-    inputs. vp_w, vm_w, cost_w, meta (Q, NW, T) int32, made contiguous
-    (the engines pass whole scan outputs, which are); valid_from,
-    valid_to, islast_at (T,) int32; pos_base (T,) int64;
-    state0 (Q, T) int32; text_end (T,) int64 or None. Returns (4, N) int64
-    [pattern; tile; end position; cost] in (pattern, word, tile, position)
-    order. Raises ValueError on other inputs."""
+def _carry_through(carry, Q: int, all_minima: bool, device):
+    """The code carried out of a call over no tile: the carry in (code 3
+    up, else 0; as it came with ``all_minima``), or 0."""
+    if carry is None:
+        return torch.zeros((Q, 1), dtype=torch.int32, device=device)
+    if all_minima:
+        return carry.clone()
+    return torch.where((carry & 3) == 3, 3, 0).to(torch.int32)
+
+
+def _select_words(counter, vp_w, vm_w, cost_w, meta, valid_from, valid_to,
+                  islast_at, pos_base, k: int, all_minima: bool, text_end,
+                  alpha, n_prev: int, state0=None, final=None, is_start=None,
+                  carry=None):
+    """The word-level selection kernel's three passes (``counter`` counts
+    the call in ``.launches`` and each launch in ``.passes``); see
+    ``select_words_chained``."""
     if vp_w.dim() != 3:
         raise ValueError(f"vp_w: expected (Q, NW, T), got {tuple(vp_w.shape)}")
     Q, NW, T = vp_w.shape
@@ -771,52 +782,88 @@ def select_words(vp_w, vm_w, cost_w, meta, valid_from, valid_to, islast_at,
     vt = _small("valid_to", valid_to, torch.int32, (T,), dev)
     il = _small("islast_at", islast_at, torch.int32, (T,), dev)
     pb = _small("pos_base", pos_base, torch.int64, (T,), dev)
-    s0 = _small("state0", state0, torch.int32, (Q, T), dev)
+    if state0 is not None:
+        state0 = _small("state0", state0, torch.int32, (Q, T), dev)
+    if final is not None:
+        final = _small("final", final, torch.int32, (Q, T), dev)
+    if is_start is not None:
+        is_start = _small("is_start", is_start, torch.bool, (T,), dev)
+    if carry is not None:
+        carry = _small("carry", carry, torch.int32, (Q, 1), dev)
     if text_end is not None:
         text_end = _small("text_end", text_end, torch.int64, (T,), dev)
         if alpha is None:
             raise ValueError("text_end needs alpha")
     if n_prev < 0:
         raise ValueError(f"n_prev = {n_prev} < 0")
-    if Q * NW * T == 0:
-        return torch.empty((4, 0), dtype=torch.int64, device=dev)
+    if Q * NW * T == 0:  # no element: the carry passes
+        return (torch.empty((4, 0), dtype=torch.int64, device=dev),
+                _carry_through(carry, Q, all_minima, dev))
     lib = _lib()
-    blocks = -(-(Q * NW * T) // lib.sassy_select_words_per_block())
+    carry_out = torch.empty((Q, 1), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = torch.empty(lib.sassy_select_words_scratch(Q, NW, T),
+                              dtype=torch.int64, device=dev)
 
-        def launch(counts, ends, out, N):
+        def launch(pass_, out=None, N=0):
             _raise_on(lib.sassy_select_words(
                 _ptr(vp_w), _ptr(vm_w), _ptr(cost_w), _ptr(meta), _ptr(vf),
-                _ptr(vt), _ptr(il), _ptr(pb), _ptr(s0), _ptr(text_end),
-                _ptr(counts), _ptr(ends), _ptr(out), N, Q, NW, T, k,
-                int(all_minima), n_prev,
-                0.0 if alpha is None else alpha, int(out is not None),
-                stream,
+                _ptr(vt), _ptr(il), _ptr(pb), _ptr(text_end), _ptr(final),
+                _ptr(is_start), _ptr(state0), _ptr(carry), _ptr(carry_out),
+                _ptr(scratch), _ptr(out), N, Q, NW, T, k, int(all_minima),
+                n_prev, 0.0 if alpha is None else alpha, pass_, stream,
             ), "select_words")
+            counter.passes += 1
 
-        out = _count_then_emit(launch, blocks, 4, dev)
-    select_words.launches += 1
-    return out
+        out = _three_passes(launch, scratch, 4, dev, False)
+    counter.launches += 1
+    return out, carry_out
+
+
+def select_words_chained(vp_w, vm_w, cost_w, meta, final, is_start, carry,
+                         valid_from, valid_to, islast_at, pos_base, k: int,
+                         all_minima: bool, text_end=None, alpha=None,
+                         n_prev: int = 0):
+    """The word-level selection kernel (``csrc/select_words.cu``) on CUDA
+    tensors, the state chain across the tiles inside: what
+    ``minima.select_words_chained_plain`` computes, with its inputs. vp_w,
+    vm_w, cost_w, meta (Q, NW, T) int32, made contiguous (the engines pass
+    whole scan outputs, which are); final (Q, T) int32, each tile's last
+    owned delta code; is_start (T,) bool, the tiles that enter with the
+    state reset; carry (Q, 1) int32 or None, the code entering tile 0 (3
+    or 2 + 1 up); valid_from, valid_to, islast_at (T,) int32; pos_base
+    (T,) int64; text_end (T,) int64 or None. At most three launches and
+    one host read, no PyTorch op between them (``.passes`` counts the
+    launches). Returns ((4, N) int64 [pattern; tile; end position; cost]
+    in (pattern, word, tile, position) order, the (Q, 1) int32 code
+    carried out: 3 up, else 0; with ``all_minima`` the carry in). Raises
+    ValueError on other inputs."""
+    return _select_words(select_words_chained, vp_w, vm_w, cost_w, meta,
+                         valid_from, valid_to, islast_at, pos_base, k,
+                         all_minima, text_end, alpha, n_prev, final=final,
+                         is_start=is_start, carry=carry)
+
+
+select_words_chained.launches = 0
+select_words_chained.passes = 0
+
+
+def select_words(vp_w, vm_w, cost_w, meta, valid_from, valid_to, islast_at,
+                 pos_base, k: int, state0, all_minima: bool, text_end=None,
+                 alpha=None, n_prev: int = 0):
+    """The word-level selection kernel with each tile's entering state
+    given, state0 (Q, T) int32 (1 up): what
+    ``minima.select_words_tiles_q_plain`` computes, with its inputs (those
+    of ``select_words_chained`` less the chain's). Returns the (4, N)
+    columns. Raises ValueError on other inputs."""
+    return _select_words(select_words, vp_w, vm_w, cost_w, meta, valid_from,
+                         valid_to, islast_at, pos_base, k, all_minima,
+                         text_end, alpha, n_prev, state0=state0)[0]
 
 
 select_words.launches = 0
-
-
-def _walk_scan_emit(launch, scratch, rows: int, device, emit_empty: bool):
-    """The position-level selections' three launches, with no PyTorch op
-    between them: ``launch(0)`` walks every tile once (its records),
-    ``launch(1)`` scans them (the offsets and the total, the last word of
-    ``scratch``); the one host read of the total sizes the (rows, N)
-    int64 output, which ``launch(2, out, N)`` fills (also at N = 0 with
-    ``emit_empty``, for the carry out)."""
-    launch(0)
-    launch(1)
-    N = int(scratch[-1])
-    out = torch.empty((rows, N), dtype=torch.int64, device=device)
-    if N or emit_empty:
-        launch(2, out, N)
-    return out
+select_words.passes = 0
 
 
 def select_positions(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
@@ -830,7 +877,7 @@ def select_positions(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
     NW >= halo + W; each cost word is the scan's running sum (the walk
     reads one a tile). The state chain across the tiles (seeded by
     ``state0``) is the kernel's scan: at most three launches and one host
-    read (``_walk_scan_emit``; ``.passes`` counts the launches). Returns
+    read (``_three_passes``; ``.passes`` counts the launches). Returns
     (2, N) int64 [end position; cost] in position order. Raises
     ValueError on other inputs."""
     if vp_w.dim() != 2:
@@ -864,7 +911,7 @@ def select_positions(vp_w, vm_w, cost_w, W: int, halo: int, boundary_m: int,
             ), "select_positions")
             select_positions.passes += 1
 
-        out = _walk_scan_emit(launch, scratch, 2, dev, False)
+        out = _three_passes(launch, scratch, 2, dev, False)
     select_positions.launches += 1
     return out
 
@@ -890,7 +937,7 @@ def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
     before leaves. With ``state0`` alone this computes
     ``minima.select_candidates_tiles_plain``; with ``is_start`` and
     ``carry``, ``minima.select_candidates_chained_plain``. At most three
-    launches and one host read (``_walk_scan_emit``; ``.passes`` counts
+    launches and one host read (``_three_passes``; ``.passes`` counts
     the launches). Returns ((4, N) int64 [pattern; tile; end position;
     cost] in (pattern, tile, position) order, the (Q, 1) int32 code of
     the state leaving each pattern's last piece). Raises ValueError on
@@ -916,12 +963,10 @@ def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
         is_start = _small("is_start", is_start, torch.bool, (T,), dev)
     if carry is not None:
         carry = _small("carry", carry, torch.int32, (Q, 1), dev)
-    carry_out = torch.zeros((Q, 1), dtype=torch.int32, device=dev)
     if Q * T == 0:  # no piece: the carry passes
-        if carry is not None:
-            carry_out = (carry.clone() if all_minima else
-                         torch.where((carry & 3) == 3, 3, 0).to(torch.int32))
-        return torch.empty((4, 0), dtype=torch.int64, device=dev), carry_out
+        return (torch.empty((4, 0), dtype=torch.int64, device=dev),
+                _carry_through(carry, Q, all_minima, dev))
+    carry_out = torch.zeros((Q, 1), dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -938,7 +983,7 @@ def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
             ), "select_positions_tiles")
             select_positions_tiles.passes += 1
 
-        out = _walk_scan_emit(launch, scratch, 4, dev, True)
+        out = _three_passes(launch, scratch, 4, dev, True)
     select_positions_tiles.launches += 1
     return out, carry_out
 

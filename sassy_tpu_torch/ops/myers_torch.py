@@ -11,8 +11,9 @@ cost).
 Two paths, as in the reference engine:
 
 - word level (no overhang, or an overshoot span of at most three words):
-  the q1meta scan with selection metadata, the cross-tile state chain and
-  ``minima.select_words_tiles``; with overhang one extra tail tile owns
+  the q1meta scan with selection metadata and
+  ``minima.select_words_chained`` (the cross-tile state chain inside the
+  selection); with overhang one extra tail tile owns
   the overshoot span;
 - position level (a longer overshoot span): the q1 scan and
   ``minima.select_candidates`` over every position.
@@ -641,19 +642,14 @@ class TorchEngine:
                 vp, vm, cost, inp.W, inp.halo, inp.boundary_m, inp.n_text,
                 inp.max_pos, inp.k, inp.alpha, inp.all_minima,
             )
-        vp, vm, cost, meta, final = outs
-        if inp.all_minima:
-            state0 = torch.zeros_like(final)
-        else:
-            # the chain resets at the text start only: the tail tile's
-            # window may start at the boundary, but the text does not
-            # restart there
-            state0 = minima.tile_state_chain_codes(final, inp.text_start)
-        return minima.select_words_tiles(
-            vp, vm, cost, meta, inp.valid_from, inp.valid_to, inp.islast,
-            inp.offset, inp.k, state0, inp.all_minima, inp.text_end,
-            inp.alpha, inp.n_prev,
+        # the chain resets at the text start only: the tail tile's window
+        # may start at the boundary, but the text does not restart there
+        cols, _ = minima.select_words_chained(
+            *(o[None] for o in outs), inp.text_start, None, inp.valid_from,
+            inp.valid_to, inp.islast, inp.offset, inp.k, inp.all_minima,
+            inp.text_end, inp.alpha, inp.n_prev,
         )
+        return cols[2:]
 
     def candidates(self, profile: Profile, pattern_codes: np.ndarray, text,
                    k: int, alpha, max_overhang, all_minima: bool):

@@ -516,15 +516,11 @@ class ShardedSearch:
         """Word-level selection of the slot, the state chain seeded by the
         shards before it (reference ``sharded.py:361-388``). Returns (3, N)
         int64 [slot-local pattern; end position; cost]."""
-        vp, vm, cost, meta, final = sl.outs
-        if all_minima:
-            st0 = torch.zeros_like(final)
-        else:
-            seed = torch.where(prev > 0, 2 + (prev & 1), 0).to(final.device)
-            st0 = minima.tile_state_chain_codes(final, sl.start,
-                                                seed_code=seed)
-        cols = minima.select_words_tiles_q(
-            vp, vm, cost, meta, sl.vf, sl.vt, sl.il, sl.pos_base, k, st0,
+        final = sl.outs[4]
+        seed = torch.where(prev > 0, 2 + (prev & 1), 0).to(
+            device=final.device, dtype=torch.int32)[:, None]
+        cols, _ = minima.select_words_chained(
+            *sl.outs, sl.start, seed, sl.vf, sl.vt, sl.il, sl.pos_base, k,
             all_minima)
         return cols[[0, 2, 3]]
 

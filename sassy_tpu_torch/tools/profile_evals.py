@@ -8,6 +8,10 @@ seeds, same bytes) and runs its two columns on the card, forward strand:
 
 - upload + pack: the text set's bytes to the card and their bit-planes
   (host clock, ended by a synchronise; untimed in the bench);
+- the tiling group's piece plan, which its first call pays (host clock):
+  the pieces cut by ``batch._plan_columns`` and, for comparison, by the
+  per-piece loop ``batch._plan_pieces``, and the width and dispatch
+  chunks it gives;
 - tiling: one warm call of all patterns in one dispatch;
 - search: one warm dispatch per pattern, all in flight before the first
   fetch, over the first ``SEARCH_PATTERNS`` patterns (the row's time
@@ -15,9 +19,11 @@ seeds, same bytes) and runs its two columns on the card, forward strand:
 
 Each column runs once under ``torch.profiler``: its wall, the device time
 of the q2meta kernel and of every other device op (window gathers, the
-state chain, the selection), the device's busy share, the kernel launches,
-and the top ops by device time (``--out`` writes the whole tables). Prints
-the card's name and power limit first.
+selection), the device's busy share, the kernel launches, and the top ops
+by device time (``--out`` writes the whole tables); for the tiling column
+also q2meta's launches, its time a launch and its share of its bound
+(``diagnostics.scan_bound`` summed over the dispatch chunks). Prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -28,8 +34,11 @@ import time
 from pathlib import Path
 
 import torch
+from torch.autograd import DeviceType
 
+from .. import diagnostics
 from ..evals import bench_suite
+from ..ops import batch
 from ..ops.batch import BatchEngine, TextSet
 from ..profiles import Iupac
 
@@ -37,10 +46,36 @@ BENCHES = ("nanopore", "nanopore_full", "off_targets", "off_targets_full")
 SEARCH_PATTERNS = 32
 
 
+def _plan(eng, prof, qcodes, ts, k) -> list:
+    """Cut the tiling group's pieces (the first call's planning) and print
+    its cost; returns the group's q2meta bounds, one a dispatch chunk."""
+    (g,) = eng.groups(prof, qcodes, ts, k)
+    t0 = time.perf_counter()
+    cols = batch._plan_columns(ts.lens, g.steps, g.w_chars, g.halo)
+    t_cols = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loop = batch._plan_pieces(ts.lens, g.steps, g.w_chars, g.halo)
+    t_loop = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
+    t_plan = (time.perf_counter() - t0) * 1e3
+    chunks = list(eng.chunks(g, pp))
+    threads = [(q1 - q0) * (t1 - t0) for q0, q1, t0, t1 in chunks]
+    print(f"piece plan: {pp.T} pieces of {g.w_chars // 32} words (NW "
+          f"{pp.NW}), {len(chunks)} dispatch chunks of up to "
+          f"{max(threads)} threads; first call's plan {t_plan:.1f} ms "
+          f"(the cut {t_cols:.1f} ms; the per-piece loop "
+          f"{t_loop:.1f} ms, {len(loop)} pieces, equal "
+          f"{len(loop) == len(cols['text_idx'])})", flush=True)
+    P = ts.planes(prof, False).shape[0]
+    return [diagnostics.scan_bound(g.eq_mode, q1 - q0, g.pmasks.shape[1],
+                                   (pp.NW, P, t1 - t0), True)["bound_ms"]
+            for q0, q1, t0, t1 in chunks]
+
+
 def _profiled(fn):
     """(wall ms, q2meta device ms, other device ms, kernel launches,
     key_averages) of one call of ``fn`` under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -95,6 +130,8 @@ def main(argv=None) -> int:
           f"{len(texts)} texts, {n_bytes} bytes, k={k}; upload + pack "
           f"{t_pack:.1f} ms", flush=True)
 
+    bounds = _plan(eng, prof, qcodes, ts, k)
+
     def tiling():
         return eng.candidates_many_flat(prof, qcodes, ts, k)
 
@@ -118,6 +155,13 @@ def main(argv=None) -> int:
               f"= q2meta {q2:.1f} + other ops {other:.1f}, busy "
               f"{(q2 + other) / wall:.1%}; {launches} kernel launches; "
               f"peak device memory {peak:.3f} GiB", flush=True)
+        if name == "tiling":
+            n_q2 = sum(e.count for e in avg if "scan_q_meta" in e.key
+                       and e.device_type == DeviceType.CUDA)
+            print(f"tiling: q2meta {n_q2} launches, {q2 / max(n_q2, 1):.3f} "
+                  f"ms a launch; bound {sum(bounds):.1f} ms over "
+                  f"{len(bounds)} chunks ({bounds[0]:.3f} ms the first), "
+                  f"{sum(bounds) / q2:.1%} of it", flush=True)
         print(avg.table(sort_by="self_device_time_total", row_limit=12))
         tables.append(f"== {name}\n" + avg.table(
             sort_by="self_device_time_total", row_limit=-1))

@@ -854,3 +854,167 @@ def test_select_positions_many_tiles_kernel_equals_plain(cuda, owned,
     assert myers_cuda.select_positions.passes - passes <= 3
     assert got.shape == want.shape and want.shape[1]
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the word-level selection with the state chain inside, and q2meta at a
+# width the dispatch bound caps
+
+
+def _chained_words(Q, T, NW, k, seed, starts=0.3, overhang=False,
+                   quiet=0.2):
+    """Random scan outputs on the host (sparse deltas, running costs near
+    k; a share ``quiet`` of the tiles without a delta) with their meta and
+    final codes, and piece tables: ``minima.select_words_chained``'s
+    arguments, the carry None."""
+    g = np.random.default_rng(seed)
+    vp, vm, cost = _sparse_words(g, (Q, NW, T), k, "cpu")
+    keep = torch.from_numpy(g.random((1, 1, T)) >= quiet)
+    vp, vm = vp * keep, vm * keep
+    _, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 0)
+    tile0 = torch.from_numpy(g.random(T) < starts)
+    vf = torch.where(tile0, -1, vf.clamp(min=0))
+    meta, final = minima.meta_from_words(vp, vm, cost, vf, vt, k)
+    return [vp, vm, cost, meta, final, tile0, None, vf, vt, islast,
+            pos_base, k, False, tend if overhang else None,
+            0.3 if overhang else None, 3 if overhang else 0]
+
+
+def _word_carry(kind, Q):
+    """The code entering tile 0: none (the single engine), the batched
+    carry (3 up, 0) or the sharded seed (2 + sign)."""
+    if kind is None:
+        return None
+    codes = {"carry": (3, 0), "seed": (3, 2)}[kind]
+    return torch.tensor([[codes[q % 2]] for q in range(Q)], dtype=torch.int32)
+
+
+#: (Q, T, NW, k, starts, overhang, all_minima, carry, quiet): the single
+#: engine's shape (one pattern, a text start at tile 0 only, rows of many
+#: tile chunks), the batched engine's (pieces with text starts, a carry
+#: in), the sharded engine's (a seed, no start), tiles without a delta
+WORDS_CASES = [(1, 300_000, 3, 5, 0.0, False, False, None, 0.3),
+               (1, 20_000, 4, 5, 0.0, True, False, None, 0.9),
+               (8, 9_000, 6, 5, 0.1, False, False, "carry", 0.2),
+               (8, 9_000, 6, 5, 0.1, True, True, "carry", 0.2),
+               (96, 300, 9, 5, 0.5, False, False, "carry", 0.1),
+               (4, 5_000, 5, 5, 0.0, False, False, "seed", 0.9),
+               (2, 1_000, 3, 5, 0.0, True, False, "seed", 0.5)]
+
+
+def _words_case(case):
+    Q, T, NW, k, starts, overhang, all_minima, kind, quiet = case
+    args = _chained_words(Q, T, NW, k, Q + T + NW, starts, overhang, quiet)
+    args[6] = _word_carry(kind, Q)
+    args[12] = all_minima
+    if kind is None:
+        args[5][0] = True
+    return args
+
+
+@pytest.mark.parametrize("case", WORDS_CASES)
+def test_select_words_chained_kernel_equals_plain(cuda, case, monkeypatch):
+    """The word-level kernel with the chain inside (is_start, carry in and
+    out) against select_words_chained_plain (the chain, then the
+    tile-state selection): columns in the same order, carry out equal;
+    one call, at most three launches (no more than four), one host read,
+    and neither the chain's PyTorch ops nor the plain versions."""
+    import warnings
+
+    args = _words_case(case)
+    want, want_carry = minima.select_words_chained_plain(*args)
+    dev = _to(cuda, args)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the chain runs in the kernel")
+
+    for name in ("tile_state_chain_codes", "chain_range",
+                 "select_words_tiles_q_plain"):
+        monkeypatch.setattr(minima, name, refuse)
+    before = (myers_cuda.select_words_chained.launches,
+              myers_cuda.select_words_chained.passes)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got, got_carry = minima.select_words_chained(*dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert myers_cuda.select_words_chained.launches == before[0] + 1
+    assert myers_cuda.select_words_chained.passes - before[1] <= 3
+    syncs = [str(w.message) for w in seen
+             if str(w.message).startswith("called a synchronizing")]
+    assert len(syncs) == 1, [str(w.message) for w in seen]
+    assert want.shape[1] and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_carry.cpu(), want_carry.to(torch.int32))
+
+
+@pytest.mark.parametrize("cut", [1, 4_500, 8_999])
+def test_select_words_chained_kernel_carries_across_ranges(cuda, cut):
+    """A batched dispatch split into two tile ranges, the carry out of the
+    first passed into the second, gives the whole range's candidates and
+    carry (the chunks' chain of BatchEngine.dispatch)."""
+    args = _words_case((4, 9_000, 5, 5, 0.001, True, False, "carry", 0.6))
+    want, want_carry = minima.select_words_chained_plain(*args)
+    dev = list(_to(cuda, args))
+    T = args[0].shape[-1]
+
+    def part(t0, t1, carry):
+        a = [x[..., t0:t1] if isinstance(x, torch.Tensor)
+             and x.shape[-1] == T else x for x in dev]
+        a[6] = carry
+        return minima.select_words_chained(*a)
+
+    first, carry = part(0, cut, dev[6])
+    second, carry = part(cut, T, carry)
+    second[1] += cut
+    got = torch.cat([first, second], 1)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(_lexsorted(got), _lexsorted(want))
+    assert torch.equal(carry.cpu(), want_carry.to(torch.int32))
+
+
+def test_q2meta_at_a_capped_width_equals_plain(cuda, monkeypatch):
+    """A group whose piece width the dispatch bound caps: a full chunk
+    launches at least H100_TARGET_TILES threads, its q2meta launch equals
+    the plain version bit for bit, and search_many on the card gives the
+    CPU path's Match lists."""
+    monkeypatch.setattr(plan, "H100_TARGET_TILES", 64)
+    rng = np.random.default_rng(12)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pats = [rng.choice(bases, 23) for _ in range(12)]
+    texts = [rng.choice(bases, 60_000), rng.choice(bases, 9_000)]
+    for i, t in enumerate(texts):
+        t[5000:5023] = pats[i]
+        t[5011] = ord("A") if t[5011] != ord("A") else ord("G")
+    dna = profiles.Dna()
+    codes = [dna.encode(p) for p in pats]
+    eng = batch.BatchEngine(cuda)
+    ts = batch.TextSet(texts, cuda)
+    (wide,) = eng.groups(dna, codes, ts, 3)
+    monkeypatch.setattr(batch, "DISPATCH_BYTES", 16 * 64 * 40)
+    (g,) = eng.groups(dna, codes, ts, 3)
+    assert g.w_chars < wide.w_chars
+    pp = ts.piece_plan(g.halo, g.w_chars)
+    q0, q1, t0, t1 = next(eng.chunks(g, pp))
+    assert (q1 - q0) * (t1 - t0) >= plan.H100_TARGET_TILES
+    win = ts.windows(dna, pp, False, t0, t1)
+    args = (win, pp.true_start[t0:t1], pp.valid_from[t0:t1],
+            pp.valid_to[t0:t1], g.pmasks[q0:q1], g.is_pad[q0:q1],
+            g.h_init[q0:q1], g.m_real[q0:q1], g.boundary_m[q0:q1], 3,
+            g.eq_mode)
+    before = myers_cuda.scan_q_meta.launches
+    got = myers_cuda.scan_q_meta(*args)
+    torch.cuda.synchronize()
+    assert myers_cuda.scan_q_meta.launches == before + 1
+    want = myers_cuda.scan_q_meta_plain(*_to("cpu", args))
+    for name, a, b in zip(("vp", "vm", "cost", "meta", "final"), got, want):
+        assert torch.equal(a.cpu(), b), name
+    found = Searcher("dna", rc=True, device="cuda").search_many(pats, texts,
+                                                                 3)
+    assert found
+    _same(found, Searcher("dna", rc=True, device="cpu").search_many(
+        pats, texts, 3))

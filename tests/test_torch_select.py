@@ -58,6 +58,19 @@ def _word_args(Q=3, T=50, NW=6, k=5, seed=1, overhang=True):
             0.3 if overhang else None, 2 if overhang else 0)
 
 
+def _chained_word_args():
+    """``_word_args``' outputs with their final codes, piece starts and a
+    carry: select_words_chained's arguments."""
+    (vp, vm, cost, meta, vf, vt, islast, pos_base, k, _, all_minima, tend,
+     alpha, n_prev) = _word_args()
+    Q, _, T = vp.shape
+    final = minima.meta_from_words(vp, vm, cost, vf, vt, k)[1]
+    is_start = vf < 0
+    carry = torch.tensor([[3], [0], [2]], dtype=torch.int32)[:Q]
+    return (vp, vm, cost, meta, final, is_start, carry, vf, vt, islast,
+            pos_base, k, all_minima, tend, alpha, n_prev)
+
+
 def _position_args():
     """A position-level single search's q1 outputs (120 bp, alpha 0.1):
     select_candidates' arguments."""
@@ -98,6 +111,7 @@ def _tile_args(Q=3, T=30, NW=4, k=6, alpha=0.1):
 
 def _kernel_counts():
     return (myers_cuda.select_words.launches,
+            myers_cuda.select_words_chained.launches,
             myers_cuda.select_positions.launches,
             myers_cuda.select_positions_tiles.launches)
 
@@ -214,9 +228,10 @@ def test_long_single_row_chains_equal_reference(shape):
 
 def _permuting(monkeypatch):
     """Every selection entry point returns its columns in a random order
-    (the chained one beside its carry)."""
+    (the chained ones beside their carry)."""
     gen = torch.Generator().manual_seed(0)
-    for name in (*ENTRIES, "select_candidates_chained"):
+    for name in (*ENTRIES, "select_candidates_chained",
+                 "select_words_chained"):
         fn = getattr(minima, name)
 
         def permuted(*a, _fn=fn, **kw):
@@ -266,19 +281,20 @@ def test_callers_do_not_depend_on_selection_order(caller, alpha, m, k,
 
 
 def test_selection_sources_are_built_and_hashed(monkeypatch, tmp_path):
-    """Both kernel sources, their shared header and the position level's
-    walk go to the one nvcc call, and the library's name changes with
-    each of their bytes."""
+    """Both kernel sources, their shared header, the position level's
+    walk and the word level's grid and chain go to the one nvcc call, and
+    the library's name changes with each of their bytes."""
     names = {f.name for f in myers_cuda.SOURCES}
     assert {"select_words.cu", "select_positions.cu"} <= names
-    assert {"select_common.cuh", "select_walk.cuh"} <= {
+    assert {"select_common.cuh", "select_walk.cuh", "select_words.cuh"} <= {
         f.name for f in myers_cuda.HEADERS}
     assert str(len(myers_cuda.SOURCES)) in myers_cuda.NVCC_FLAGS
     seen = {myers_cuda.library_path()}
     for which, name in (("SOURCES", "select_words.cu"),
                         ("SOURCES", "select_positions.cu"),
                         ("HEADERS", "select_common.cuh"),
-                        ("HEADERS", "select_walk.cuh")):
+                        ("HEADERS", "select_walk.cuh"),
+                        ("HEADERS", "select_words.cuh")):
         files = list(getattr(myers_cuda, which))
         i = [f.name for f in files].index(name)
         copy = tmp_path / f"{len(seen)}_{name}"
@@ -286,7 +302,7 @@ def test_selection_sources_are_built_and_hashed(monkeypatch, tmp_path):
         files[i] = copy
         monkeypatch.setattr(myers_cuda, which, tuple(files))
         seen.add(myers_cuda.library_path())
-    assert len(seen) == 5
+    assert len(seen) == 6
 
 
 def test_kernel_library_is_built_and_loaded_once(monkeypatch):
@@ -313,7 +329,10 @@ def test_kernel_library_is_built_and_loaded_once(monkeypatch):
 def _bound_bytes_by_enumeration(entry, args, n_out):
     """The bytes a selection call must move, counted position by position
     and word by word: what ``diagnostics.select_bound`` computes."""
-    if entry == "select_words_tiles_q":
+    if entry in ("select_words_tiles_q", "select_words_chained"):
+        if entry == "select_words_chained":
+            final = args[4]
+            args = args[:4] + args[7:12] + (None,) + args[12:]
         (_, _, _, meta, vf, _, _, _, _, _, all_minima, tend, _,
          n_prev) = args
         scr = ((meta & 1) != 0).numpy()
@@ -325,10 +344,15 @@ def _bound_bytes_by_enumeration(entry, args, n_out):
                 if not scr[q, ww, t] and 32 * ww + 32 > int(vf[t]):
                     strip.add((q, ww, t))
         state = not all_minima
+        if entry == "select_words_chained":
+            Q, T = final.shape
+            seeds = (4 * Q * T + T) * state + 8 * Q
+        else:
+            seeds = 4 * len(pairs) * state
         return (4 * meta.numel() + 12 * int(scr.sum())
                 + 8 * len(strip) * state
                 + len(tiles) * (20 + 8 * (tend is not None))
-                + 4 * len(pairs) * state + 32 * n_out)
+                + seeds + 32 * n_out)
     if entry == "select_candidates":
         vp, W, max_pos = args[0], args[3], args[7]
         all_minima = args[10]
@@ -358,6 +382,7 @@ def _bound_bytes_by_enumeration(entry, args, n_out):
 
 @pytest.mark.parametrize("entry,case", [
     ("select_words_tiles_q", False), ("select_words_tiles_q", True),
+    ("select_words_chained", False), ("select_words_chained", True),
     ("select_candidates", None), ("select_candidates", (700, 2900, 1)),
     ("select_candidates", (700, 2900, None)),
     ("select_candidates_tiles", False), ("select_candidates_tiles", True),
@@ -371,6 +396,9 @@ def test_select_bound_counts_what_the_selection_must_read(entry, case):
     if entry == "select_words_tiles_q":
         args = _word_args()
         args = args[:10] + (case,) + args[11:]
+    elif entry == "select_words_chained":
+        args = _chained_word_args()
+        args = args[:12] + (case,) + args[13:]
     elif entry == "select_candidates":
         args = _position_args()[2]
         if case is not None:
