@@ -7,9 +7,10 @@ from the root of a checkout, on a machine with an sm_90a GPU (H100) and
 the CUDA toolkit. Phases:
 
 1. the card (nvidia-smi), the toolchain (features()), and the build of
-   the eight kernel sources (q1meta, q2meta, q1, q2, the qN family, the
+   the nine kernel sources (q1meta, q2meta, q1, q2, the qN family, the
    row-step ablations, the word-level and the position-level candidate
-   selections) from sassy_tpu_torch/csrc/ with one nvcc call;
+   selections, the text pack) from sassy_tpu_torch/csrc/ with one nvcc
+   call;
 2. kernel vs plain: the q1meta scan kernel against its plain PyTorch
    version on the windows of a 1 GiB text (the H100 tile plan, a 23 bp
    pattern at k=3), bit for bit on all five outputs, for the pure, iupac
@@ -19,12 +20,16 @@ the CUDA toolkit. Phases:
    version, the chain and the selection (every selection comparison: the
    columns equal after a lexsort, the word level's in the same order;
    both timed), and one call split by CUDA events into its counting and
-   scanning launches, the host read and the writing launch;
+   scanning launches, the host read and the writing launch; then the
+   pack kernel against its plain version, bit for bit, for DNA, IUPAC
+   and ascii with and without case folding, on that 1 GiB of ACGT and on
+   1 GiB of every byte value, and for DNA on 2^31 + 33 bytes of every
+   value (made on the card, freed after), each timed beside pack_bound;
 3. end to end at full size: Searcher("dna", rc=True, device="cuda")
    .search over 1 GiB of random ACGT with mutated copies of the pattern
    planted on both strands; every copy must come back, through the
    kernel, with the cost and CIGAR of its one planted substitution; the
-   phases of one strand are timed;
+   phases of one strand are timed (the upload and the pack apart);
 4. end to end, the card against the port's CPU path (the plain version
    of the kernel) on a 50 kbp slice: search and search_all at k in
    {0, 1, 3}, Match for Match with CIGAR. The CPU path is held to the
@@ -219,17 +224,20 @@ the CUDA toolkit. Phases:
    phase 20's in rows 1-4 of the kernels line.
 
 After each main-path run of phases 3, 6, 8, 9, 11, 20 and 21a no plain
-selection ran and the selection kernel of its level launched; those
-launches are rows 10-11 of the kernels line (select_words, the chained
-call; select_positions, with the pieces' kernel select_positions_tiles
+selection and no plain pack ran, and the selection kernel of its level
+launched (the pack kernel too in phases 3 and 6, and over phase 20's
+runs); the pack kernel's launches there are row 12 of the kernels line
+(times from phase 2: DNA on 1 GiB of ACGT, the other cases under the
+row's "profiles" key), the selections' rows 10-11 (select_words, the
+chained call; select_positions, with the pieces' kernel select_positions_tiles
 as a record of its own under the row's "pieces" key), whose times are
 phase 2's (without all_minima), phase 9's and phase 10's (the whole
 chunk; the first sub-range's under the record's "sub_range" key). Row
 2's record of q2meta is phase 5's nanopore chunk, with the
 off_targets_full chunk under its "off_targets_full" key. The sharded runs
 that hold a selection to its plain version capture its arguments in a
-second, untimed run. The plain selections refuse to run wherever the
-plain scans do (phases 20 and 21).
+second, untimed run. The plain selections and the plain pack refuse to
+run wherever the plain scans do (phases 20 and 21).
 
 The script imports neither JAX nor anything of the reference package.
 
@@ -437,17 +445,23 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def counts_zero():
-    """Set every kernel's launch count, and the plain selections' call
-    counts, to 0."""
-    from sassy_tpu_torch.ops import myers_cuda
+    """Set every kernel's launch count, and the plain selections' and the
+    plain pack's call counts, to 0."""
+    from sassy_tpu_torch.ops import myers_cuda, myers_torch
 
     for fn in (myers_cuda.scan_meta, myers_cuda.scan_q_meta, myers_cuda.scan,
                myers_cuda.scan_q, myers_cuda.scan_qn,
-               myers_cuda.scan_variant):
+               myers_cuda.scan_variant, myers_cuda.pack):
         fn.launches = 0
     myers_cuda.scan_qn.members = {}
     myers_cuda.scan_variant.members = {}
+    myers_torch.pack_plain.calls = 0
     select_restore(dict.fromkeys(select_state(), 0))
+
+
+#: launches of the pack kernel in the main path's runs (phases 3, 6, 8, 9,
+#: 11, 20 and 21a), row 12 of the kernels line
+PACKED = {"launches": 0}
 
 
 #: the selection entry points of ops/minima.py that the engines call, and
@@ -485,7 +499,10 @@ def select_restore(state: dict) -> None:
 def selected(what: str, used: tuple) -> dict:
     """After a main-path run that began with ``counts_zero()``: no plain
     selection ran, each kernel ``used`` launched; the launches join
-    ``SELECTED``."""
+    ``SELECTED``; no plain pack ran, and the pack kernel's launches join
+    ``PACKED`` (under the result's "pack" key)."""
+    from sassy_tpu_torch.ops import myers_cuda, myers_torch
+
     got = select_state()
     plain = {k: v for k, v in got.items() if k.endswith("_plain") and v}
     if plain:
@@ -495,6 +512,11 @@ def selected(what: str, used: tuple) -> dict:
             fail(f"{what} launched no {name} kernel")
     for name in SELECTED:
         SELECTED[name] += got[name]
+    if myers_torch.pack_plain.calls:
+        fail(f"{what} ran the plain pack {myers_torch.pack_plain.calls} "
+             "times")
+    got["pack"] = myers_cuda.pack.launches
+    PACKED["launches"] += got["pack"]
     return got
 
 
@@ -759,6 +781,110 @@ def kernel_vs_plain(gen, text_dev):
     return head, head_sw
 
 
+#: phase 2's pack profiles: DNA and IUPAC (table5), ascii folded and not
+#: (byte, with the validity plane)
+PACK_PROFILES = ("dna", "iupac", "ascii_fold", "ascii")
+#: phase 2's text past 2^31 positions (made on the card, freed after)
+PACK_PAST = (1 << 31) + 33
+
+
+def pack_profile(name: str):
+    from sassy_tpu_torch import profiles
+
+    return {"dna": profiles.Dna(), "iupac": profiles.Iupac(),
+            "ascii_fold": profiles.Ascii(case_sensitive=False),
+            "ascii": profiles.Ascii(case_sensitive=True)}[name]
+
+
+def random_bytes(gen, n: int):
+    """``n`` bytes of every value on the card, drawn 2^28 at a time."""
+    import torch
+
+    out = torch.empty(n, dtype=torch.uint8, device=DEVICE)
+    for c0 in range(0, n, 1 << 28):
+        c1 = min(n, c0 + (1 << 28))
+        out[c0:c1] = torch.randint(0, 256, (c1 - c0,), generator=gen,
+                                   device=DEVICE, dtype=torch.uint8)
+    return out
+
+
+def hold_pack(label: str, text, prof) -> dict:
+    """The pack kernel (``myers_torch.pack`` on the card) against
+    ``pack_plain`` on the same text, bit for bit, as ``PreparedText``
+    calls it (the n bytes, the bucketed words); the kernel timed over REPS
+    launches and the plain version once, both with CUDA events, beside
+    ``pack_bound``. Leaves the launch counts as it found them."""
+    import torch
+
+    from sassy_tpu_torch.diagnostics import pack_bound
+    from sassy_tpu_torch.ops import myers_cuda, myers_torch, plan
+
+    n = text.numel()
+    gw = plan._bucket_words(plan.cdiv(n, 32) + plan.TAIL_RESERVE_WORDS)
+    args = (text, n // 32, n % 32, prof.planes, prof.eq_mode == "ascii",
+            prof.pack_mode, prof.pack_shift, prof.pack_mask,
+            tuple(prof.pack_plane_masks), prof.pack_fold_case, gw)
+    launches = myers_cuda.pack.launches
+    calls = myers_torch.pack_plain.calls
+    got = myers_torch.pack(*args)
+    ref, plain_ms = cuda_once(lambda: myers_torch.pack_plain(*args))
+    same = torch.equal(got, ref)
+    err = 0 if same else int((got.to(torch.int64) - ref.to(torch.int64))
+                             .abs().max())
+    del got, ref
+    ms = cuda_ms(lambda: myers_torch.pack(*args), REPS)
+    myers_cuda.pack.launches = launches
+    myers_torch.pack_plain.calls = calls
+    rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           **pack_bound(n, prof.planes, prof.eq_mode == "ascii", gw)}
+    log(f"{label}: pack ({prof.name}, planes {prof.planes}"
+        f"{' + validity' if prof.eq_mode == 'ascii' else ''}) of {n} bytes "
+        f"vs plain: bit-equal={same}, kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), {rec['bound_ms'] / ms:.1%} of it")
+    if not same:
+        fail(f"{label}: the pack kernel != its plain version, max abs "
+             f"difference {err}")
+    return rec
+
+
+def pack_vs_plain(gen, text_dev) -> dict:
+    """Phase 2's pack: the kernel against its plain version at 1 GiB for
+    the four profiles, on phase 2's ACGT text and on bytes of every value,
+    then on a text of PACK_PAST bytes of every value made on the card.
+    Returns the DNA record on the ACGT text (row 12), with the others
+    under its "profiles" key."""
+    import torch
+
+    head = None
+    others = {}
+    noise = random_bytes(gen, N_TEXT)
+    for name in PACK_PROFILES:
+        prof = pack_profile(name)
+        rec = hold_pack(f"phase 2: {name}, {N_TEXT >> 20} MiB of ACGT",
+                        text_dev, prof)
+        others[name] = {key: rec[key] for key in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}
+        rec_noise = hold_pack(f"phase 2: {name}, {N_TEXT >> 20} MiB of "
+                              "every byte value", noise, prof)
+        others[name + ", every byte"] = {
+            key: rec_noise[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")}
+        if head is None:
+            head = rec
+    del noise
+    torch.cuda.empty_cache()
+    big = random_bytes(gen, PACK_PAST)
+    rec = hold_pack(f"phase 2: dna, {PACK_PAST} bytes (past 2^31)", big,
+                    pack_profile("dna"))
+    others[f"dna, {PACK_PAST} bytes"] = {key: rec[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}
+    del big
+    torch.cuda.empty_cache()
+    head["profiles"] = others
+    return head
+
+
 def mutated(pattern):
     """A copy with one substitution at ``MUT_AT``, as bench.py plants."""
     out = pattern.copy()
@@ -785,6 +911,7 @@ def end_to_end(gen):
 
     from sassy_tpu_torch import Searcher, Strand, profiles
     from sassy_tpu_torch.ops import myers_cuda
+    from sassy_tpu_torch.ops.myers_torch import _upload
 
     dna = profiles.Dna()
     pattern = random_acgt(gen, PATTERN_LEN).cpu().numpy()
@@ -797,7 +924,7 @@ def end_to_end(gen):
 
     # the phases of the forward strand, each ended by a synchronise; the
     # first run pays one-time costs (allocator growth, first launches)
-    names = ("upload+pack", "windows", "scan kernel", "selection",
+    names = ("upload", "pack", "windows", "scan kernel", "selection",
              "traceback")
     for run in ("cold", "warm"):
         marks = [time.perf_counter()]
@@ -806,7 +933,9 @@ def end_to_end(gen):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
 
-        prep = eng.prepare(dna, text)
+        text_dev = _upload(text, eng.device)
+        mark()
+        prep = eng.prepare(dna, text_dev)
         mark()
         inp = eng.build_inputs(dna, pcodes, prep, K)
         mark()
@@ -822,7 +951,7 @@ def end_to_end(gen):
             + ", ".join(f"{nm} {(b - a) * 1e3:.1f} ms"
                         for nm, a, b in zip(names, marks, marks[1:]))
             + f" ({len(ends)} candidates)")
-        del prep, inp, outs
+        del text_dev, prep, inp, outs
 
     counts_zero()
     t0 = time.perf_counter()
@@ -830,10 +959,13 @@ def end_to_end(gen):
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     launches = myers_cuda.scan_meta.launches
-    selected("phase 3", ("select_words_chained",))
+    n_pack = selected("phase 3", ("select_words_chained",))["pack"]
     log(f"phase 3: Searcher.search, both strands, {N_TEXT >> 20} MiB: "
         f"{e2e:.3f} s, "
-        f"{len(matches)} matches, scan kernel launches {launches}")
+        f"{len(matches)} matches, scan kernel launches {launches}, pack "
+        f"kernel launches {n_pack}")
+    if n_pack < 2:
+        fail(f"phase 3: the search launched the pack kernel {n_pack} times")
     if launches < 2:
         fail(f"the search launched the scan kernel {launches} times")
 
@@ -1159,13 +1291,13 @@ def batched_end_to_end(reads, barcodes):
     e2e = time.perf_counter() - t0
     launches = myers_cuda.scan_q_meta.launches
     single = myers_cuda.scan_meta.launches
-    selected("phase 6", ("select_words_chained",))
+    n_pack = selected("phase 6", ("select_words_chained",))["pack"]
     log(f"phase 6: Searcher.search_many, both strands: {e2e:.3f} s, "
         f"{len(matches)} matches, q2meta launches {launches}, q1meta "
-        f"launches {single}")
-    if launches < 2 or single:
-        fail(f"search_many launched q2meta {launches} and q1meta {single} "
-             "times")
+        f"launches {single}, pack kernel launches {n_pack}")
+    if launches < 2 or single or n_pack < 2:
+        fail(f"search_many launched q2meta {launches}, q1meta {single} and "
+             f"the pack kernel {n_pack} times")
 
     want_cigar = f"{MUT_AT}=1X{BARCODE_LEN - MUT_AT - 1}="
     planted = {}
@@ -3032,14 +3164,15 @@ def plant_edges(text, pats, span: int, halo: int, Dt: int,
 
 @contextlib.contextmanager
 def no_plain(what: str = "phase 20"):
-    """The plain scans and selections refuse to run: phase 20's sharded
-    runs and phase 21's tools go through the kernels only."""
-    from sassy_tpu_torch.ops import minima, myers_cuda
+    """The plain scans, selections and pack refuse to run: phase 20's
+    sharded runs and phase 21's tools go through the kernels only."""
+    from sassy_tpu_torch.ops import minima, myers_cuda, myers_torch
 
     names = [(myers_cuda, name) for name in (
         "scan_meta_plain", "scan_q_meta_plain", "scan_plain",
         "scan_q_plain")]
     names += [(minima, name + "_plain") for name in SELECT_ENTRIES]
+    names += [(myers_torch, "pack_plain")]
     saved = {(mod, name): getattr(mod, name) for mod, name in names}
 
     def refuse(name):
@@ -3524,11 +3657,16 @@ def sharded() -> dict:
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
     total = dict.fromkeys(counts(), 0)
+    packed_before = PACKED["launches"]
     for part in (sharded_one_process(gen), sharded_past_2g(gen),
                  sharded_processes(gen), sharded_entry_points()):
         for key, v in part.items():
             total[key] += v
-    log(f"phase 20: {time.perf_counter() - t0:.1f} s, launches {total}")
+    n_pack = PACKED["launches"] - packed_before
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s, launches {total}, "
+        f"pack kernel launches {n_pack} (the runs of 20a and 20b)")
+    if not n_pack:
+        fail("phase 20: the sharded runs launched no pack kernel")
     return total
 
 
@@ -3617,6 +3755,8 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     text_dev = random_acgt(gen, N_TEXT)
     head, head_sw = kernel_vs_plain(gen, text_dev)
+    head_pack = pack_vs_plain(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 2), text_dev)
     del text_dev
     torch.cuda.empty_cache()
 
@@ -3754,6 +3894,13 @@ def main() -> int:
                         key: head_q2["select"]["sub_range"][key]
                         for key in ("ms", "plain_ms", "bound_ms",
                                     "bound_by")}}},
+        # row 12: the JAX pipeline's XLA pack; launches of phases 3, 6, 8,
+        # 9, 11, 20 and 21a, times from phase 2 (1 GiB of ACGT, DNA; the
+        # other profiles and texts under "profiles")
+        {**entry("pack", "sassy_tpu_torch/csrc/pack.cu",
+                 "sassy_tpu/ops/myers_xla.py:172", PACKED["launches"],
+                 head_pack),
+         "profiles": head_pack["profiles"]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

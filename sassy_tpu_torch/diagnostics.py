@@ -1,6 +1,7 @@
 """Diagnostics and profiling on the port's device: the reference's
 `sassy test` (features and a throughput smoke, lib.rs:187-281), a
-profiler trace, and the least time the H100 could take for a scan.
+profiler trace, and the least time the H100 could take for a scan, a
+selection or a text pack.
 
 The port's counterpart of ``sassy_tpu/diagnostics.py``: ``self_test``
 runs the port's ``Searcher`` on ``device``, ``trace`` records a
@@ -20,7 +21,8 @@ from .ops.bitpack import WORD_BITS
 from .ops.plan import _bucket_rows, cdiv, halo_words, plan_tiles
 
 __all__ = ["self_test", "trace", "cost_model", "scan_bound", "select_bound",
-           "MEM_BYTES_PER_S", "INT32_OPS_PER_S", "ROW_OPS", "WORD_OPS"]
+           "pack_bound", "MEM_BYTES_PER_S", "INT32_OPS_PER_S", "ROW_OPS",
+           "WORD_OPS"]
 
 #: The least time of a scan kernel: the larger of its bytes over the
 #: H100's 3.35 TB/s and its integer ALU-pipe instructions over that pipe's
@@ -175,6 +177,22 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
                        + 4 * int(own0.sum())) + seeds
                   + live * (20 + (8 if a["alpha"] else 0)) + 32 * n_out)
         ops = Q * (words * WORD_BITS + int(own0.sum()))
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops}
+
+
+def pack_bound(n_bytes: int, planes: int, with_valid: bool,
+               gw: int | None = None) -> dict:
+    """bound_ms and bound_by (and the bytes and ops they come from) of one
+    text pack: ``n_bytes`` bytes read once and the (planes + with_valid,
+    gw) int32 words written once (gw defaults to the words that hold the
+    bytes), against one operation a byte (its code's lookup)."""
+    gw = cdiv(n_bytes, WORD_BITS) if gw is None else gw
+    nbytes = n_bytes + 4 * (planes + int(bool(with_valid))) * gw
+    ops = n_bytes
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),

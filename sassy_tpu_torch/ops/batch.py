@@ -5,8 +5,10 @@ texts, or word-aligned, halo-overlapped segments of long ones:
 ``_plan_pieces``, cut as columns by ``_plan_columns``); the pieces of all
 texts form the tile axis of one scan, at a width (``_piece_width``) that
 lets a full dispatch chunk fill the card.
-A strand's texts are uploaded once and packed into bit-planes on the
-device (the reverse strand is derived there from the forward bytes; with
+A strand's texts are uploaded once (one host buffer, through the pinned
+staging of ``myers_torch._upload``) and packed into bit-planes on the
+device by the pack kernel (the reverse strand's bytes are gathered there
+from the forward bytes; with
 overhang each text is followed by its 'N' overshoot positions); each
 dispatch chunk gathers its piece windows, NW = W + 1 words (one word of
 right context past the owned range), from those planes.
@@ -62,7 +64,8 @@ from ..profiles import Profile, as_bytes_array
 from . import minima, myers_cuda, plan
 from .bitpack import WORD_BITS
 from .minima import FULL, i32
-from .myers_torch import dispatch_async, engine_device, pack, state_from_numpy
+from .myers_torch import (_upload, dispatch_async, engine_device, pack,
+                          state_from_numpy)
 from .plan import _bucket_words, _masks_pure_np, cdiv, pattern_inputs_np
 
 __all__ = ["BatchEngine", "TextSet", "DISPATCH_BYTES", "W_MAX_WORDS"]
@@ -394,14 +397,19 @@ class TextSet:
             self._plans[key] = got
         return got
 
+    def _host_bytes(self) -> np.ndarray:
+        """The texts' bytes in one host buffer, text t at byte
+        32 * wofs[t], zero elsewhere (the last word too)."""
+        buf = np.zeros(WORD_BITS * (self.words() + 1), np.uint8)
+        for t, w in zip(self.texts, self._wofs.tolist()):
+            buf[WORD_BITS * w : WORD_BITS * w + len(t)] = t
+        return buf
+
     def _bytes(self) -> torch.Tensor:
-        """The texts' bytes on the device, text t at byte 32 * wofs[t]
-        (one host buffer, one upload; cached for the reverse strand)."""
+        """The texts' bytes on the device (``_host_bytes``, one upload;
+        cached for the reverse strand)."""
         if self._fwd_bytes is None:
-            buf = np.zeros(WORD_BITS * (self.words() + 1), np.uint8)
-            for t, w in zip(self.texts, self._wofs.tolist()):
-                buf[WORD_BITS * w : WORD_BITS * w + len(t)] = t
-            self._fwd_bytes = torch.from_numpy(buf).to(self.device)
+            self._fwd_bytes = _upload(self._host_bytes(), self.device)
         return self._fwd_bytes
 
     def _rev_bytes(self) -> torch.Tensor:

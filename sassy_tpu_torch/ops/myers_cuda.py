@@ -45,6 +45,13 @@ CUDA tensors:
   ``minima.select_candidates_tiles_plain`` and
   ``minima.select_candidates_chained_plain``.
 
+The text pack, the XLA code before the JAX pipeline's scans, has a
+kernel too: ``pack`` (``csrc/pack.cu``, its per-word code in
+``csrc/pack.cuh``) replaces ``sassy_tpu/ops/myers_xla.py``'s jitted
+``pack`` (``:172``): bytes -> the engine's bit-planes, one launch a call;
+``myers_torch.pack`` runs ``myers_torch.pack_plain`` for a text on the CPU
+and this for a text on a CUDA device.
+
 The scan sources share the row step of ``csrc/myers_step.cuh``, the
 selection sources ``csrc/select_common.cuh``. All are compiled with one
 ``nvcc`` call for ``sm_90a`` at first use into one library in
@@ -76,14 +83,16 @@ __all__ = ["scan_meta", "scan_meta_plain", "scan_q_meta",
            "scan_q_plain", "scan_qn", "scan_qn_plain", "scan_variant",
            "scan_variant_plain", "select_words", "select_words_chained",
            "select_positions",
-           "select_positions_tiles", "build", "nvcc_path"]
+           "select_positions_tiles", "pack", "build", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu", CSRC / "scan.cu",
            CSRC / "scan_q.cu", CSRC / "scan_qn.cu", CSRC / "scan_variants.cu",
-           CSRC / "select_words.cu", CSRC / "select_positions.cu")
+           CSRC / "select_words.cu", CSRC / "select_positions.cu",
+           CSRC / "pack.cu")
 HEADERS = (CSRC / "myers_step.cuh", CSRC / "select_common.cuh",
-           CSRC / "select_walk.cuh", CSRC / "select_words.cuh")
+           CSRC / "select_walk.cuh", CSRC / "select_words.cuh",
+           CSRC / "pack.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sassy_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -106,6 +115,9 @@ QN_UNROLL_ROWS = (24, 64)
 VARIANTS = {"full": 0, "noeq": 1, "nomem": 2, "nostore": 3}
 #: owned_end of a position-level selection without one: past every position
 NO_END = 1 << 62
+#: the pack kernel's modes (csrc/pack.cuh) and most code planes
+PACK_MODES = {"table5": 0, "byte": 1}
+PACK_MAX_PLANES = 8
 
 _LIBS: dict = {}
 
@@ -182,11 +194,14 @@ def load_library(path) -> ctypes.CDLL:
         lib.sassy_select_scratch_words.restype = big
         lib.sassy_select_words_scratch.argtypes = [num] * 3
         lib.sassy_select_words_scratch.restype = big
+        lib.sassy_pack.argtypes = ([ptr, big, ptr] + [big] * 3 + [num] * 6
+                                   + [ctypes.POINTER(ctypes.c_uint), num,
+                                      ptr])
         for fn in (lib.sassy_scan_meta, lib.sassy_scan_q_meta, lib.sassy_scan,
                    lib.sassy_scan_q, lib.sassy_scan_qn,
                    lib.sassy_scan_variant, lib.sassy_select_words,
                    lib.sassy_select_positions,
-                   lib.sassy_select_positions_tiles):
+                   lib.sassy_select_positions_tiles, lib.sassy_pack):
             fn.restype = num
         _LIBS[path] = lib
     return lib
@@ -990,3 +1005,72 @@ def select_positions_tiles(vp_w, vm_w, cost_w, boundary0, text_end,
 
 select_positions_tiles.launches = 0
 select_positions_tiles.passes = 0
+
+
+# -- the text pack -----------------------------------------------------------
+
+
+def _check_pack(text_u8, nw: int, nb: int, planes: int, mode: str,
+                shift: int, mask: int, pmasks, gw: int) -> None:
+    """What the pack kernel takes: a contiguous 1-D uint8 text on a CUDA
+    device holding every position < n = 32 nw + nb, and gw >= n / 32."""
+    if not isinstance(text_u8, torch.Tensor) or text_u8.dtype != torch.uint8:
+        raise ValueError(f"text: expected a torch.uint8 tensor, got "
+                         f"{getattr(text_u8, 'dtype', type(text_u8))}")
+    if text_u8.dim() != 1:
+        raise ValueError(f"text: expected 1-D, got {tuple(text_u8.shape)}")
+    if text_u8.device.type != "cuda":
+        raise ValueError(f"the pack kernel runs on cpu or cuda, not "
+                         f"{text_u8.device}")
+    if not text_u8.is_contiguous():
+        raise ValueError("text must be contiguous")
+    if mode not in PACK_MODES:
+        raise ValueError(f"unknown pack mode {mode!r}")
+    if not 1 <= planes <= PACK_MAX_PLANES:
+        raise ValueError(f"{planes} planes: the pack takes 1 to "
+                         f"{PACK_MAX_PLANES}")
+    if nw < 0 or not 0 <= nb < 32:
+        raise ValueError(f"n = 32 * {nw} + {nb}: expected nw >= 0, "
+                         f"0 <= nb < 32")
+    n = 32 * nw + nb
+    if n > text_u8.numel() or n > 32 * gw:
+        raise ValueError(f"n = {n} positions: the text holds "
+                         f"{text_u8.numel()}, {gw} words hold {32 * gw}")
+    if mode == "table5" and (len(pmasks) < planes or not 0 <= shift <= 7
+                             or not 0 <= mask <= 31):
+        raise ValueError(f"table5 takes a plane mask a plane, shift 0-7 and "
+                         f"mask 0-31: got {len(pmasks)} masks for {planes} "
+                         f"planes, shift {shift}, mask {mask}")
+
+
+def pack(text_u8, nw: int, nb: int, planes: int, with_valid: bool,
+         mode: str, shift: int, mask: int, pmasks, fold: bool,
+         gw: int | None = None):
+    """The pack kernel (``csrc/pack.cu``) on a CUDA tensor: what
+    ``myers_torch.pack_plain`` computes, bit for bit. text_u8 (L,) uint8,
+    contiguous, holding positions 0 .. n - 1 (n = 32 nw + nb <= L; the
+    kernel reads no byte at or past n); returns (planes + with_valid, gw)
+    int32, gw defaulting to L // 32 (>= n / 32). One launch; raises
+    ValueError before any build or launch on other inputs."""
+    gw = text_u8.shape[0] // 32 if gw is None else int(gw)
+    _check_pack(text_u8, nw, nb, planes, mode, shift, mask, pmasks, gw)
+    dev = text_u8.device
+    out = torch.empty((planes + int(bool(with_valid)), gw), dtype=torch.int32,
+                      device=dev)
+    if gw == 0:
+        return out
+    pm = (ctypes.c_uint * PACK_MAX_PLANES)(
+        *[int(v) & 0xFFFFFFFF for v in tuple(pmasks)[:planes]])
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(lib.sassy_pack(
+            _ptr(text_u8) if text_u8.numel() else None, text_u8.numel(),
+            _ptr(out), gw, 0, nw, nb, planes, int(bool(with_valid)),
+            PACK_MODES[mode], shift, mask, pm, int(bool(fold)), stream,
+        ), "pack")
+    pack.launches += 1
+    return out
+
+
+pack.launches = 0

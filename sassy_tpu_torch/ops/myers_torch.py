@@ -1,12 +1,13 @@
 """The single-pattern search pipeline in PyTorch.
 
 Port of ``sassy_tpu/ops/myers_xla.py``: text bytes -> P bit-planes of
-32-position words (``pack``; with overhang, ``overlay_n_tail`` sets the
-'N' positions past the text end) -> halo-tiled windows in the (NW, P, T)
-layout (``build_windows``) -> the transposed Myers'99 word scan (the CUDA
-kernels of ``myers_cuda``; ``scan_core`` is their plain version) ->
-candidate selection (``minima``) -> a sorted host list of (end position,
-cost).
+32-position words (``pack``: the pack kernel of ``myers_cuda`` on the
+card, ``pack_plain`` its plain version; with overhang,
+``overlay_n_tail`` sets the 'N' positions past the text end) ->
+halo-tiled windows in the (NW, P, T) layout (``build_windows``) -> the
+transposed Myers'99 word scan (the CUDA kernels of ``myers_cuda``;
+``scan_core`` is their plain version) -> candidate selection
+(``minima``) -> a sorted host list of (end position, cost).
 
 Two paths, as in the reference engine:
 
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import warnings
 import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, replace
@@ -63,6 +65,7 @@ from .plan import (
 
 __all__ = [
     "pack",
+    "pack_plain",
     "overlay_n_tail",
     "build_windows",
     "scan_core",
@@ -75,8 +78,9 @@ __all__ = [
     "dispatch_async",
 ]
 
-#: Words packed per pass: the per-char expansion of a chunk takes
-#: 4 bytes per char, so 2^20 words keep it at 128 MiB for any text size.
+#: Words ``pack_plain`` packs per pass: the per-char expansion of a chunk
+#: takes 4 bytes per char, so 2^20 words keep it at 128 MiB for any text
+#: size (the kernel needs no chunks).
 PACK_CHUNK_WORDS = 1 << 20
 
 _WORKER: ThreadPoolExecutor | None = None
@@ -136,16 +140,40 @@ def _signed32(v: int) -> int:
 
 def pack(text_u8: torch.Tensor, nw: int, nb: int, planes: int,
          with_valid: bool, mode: str, shift: int, mask: int,
-         pmasks: tuple, fold: bool) -> torch.Tensor:
-    """(GW*32,) uint8 raw text, zero tail -> (P[+1], GW) int32 bit-planes
-    of the engine codes: bit i of word w of plane p = bit p of the code of
-    char 32*w + i. ``mode`` "table5": code bit p of byte b = bit
-    ``(b >> shift) & mask`` of ``pmasks[p]``; "byte": the (case-folded with
-    ``fold``) byte's own bits. Positions >= n = nw*32 + nb are zero; the
-    optional validity plane marks positions < n. n arrives split in words
-    and bits, as in the reference, so no position needs more than int32."""
-    gw = text_u8.shape[0] // WORD_BITS
+         pmasks: tuple, fold: bool, gw: int | None = None) -> torch.Tensor:
+    """Raw text bytes -> (P[+1], GW) int32 bit-planes of the engine codes
+    (``pack_plain`` says what they hold). Runs ``pack_plain`` for a text on
+    the CPU and the pack kernel (``myers_cuda.pack``, ``csrc/pack.cu``) for
+    a text on a CUDA device, which raises on inputs it does not take; no
+    fallback. ``gw`` defaults to the text's whole words."""
+    if text_u8.device.type == "cpu":
+        return pack_plain(text_u8, nw, nb, planes, with_valid, mode, shift,
+                          mask, pmasks, fold, gw)
+    return myers_cuda.pack(text_u8, nw, nb, planes, with_valid, mode, shift,
+                           mask, pmasks, fold, gw)
+
+
+def pack_plain(text_u8: torch.Tensor, nw: int, nb: int, planes: int,
+               with_valid: bool, mode: str, shift: int, mask: int,
+               pmasks: tuple, fold: bool,
+               gw: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the pack kernel. (GW*32,) uint8 raw text
+    (or the first bytes of it: a shorter text reads as zero-padded) ->
+    (P[+1], GW) int32 bit-planes of the engine codes: bit i of word w of
+    plane p = bit p of the code of char 32*w + i. ``mode`` "table5": code
+    bit p of byte b = bit ``(b >> shift) & mask`` of ``pmasks[p]``;
+    "byte": the (case-folded with ``fold``) byte's own bits. Positions >=
+    n = nw*32 + nb are zero; the optional validity plane marks positions
+    < n. n arrives split in words and bits, as in the reference, so no
+    position needs more than int32. ``gw`` defaults to
+    ``len(text_u8) // 32``."""
+    pack_plain.calls += 1
+    gw = text_u8.shape[0] // WORD_BITS if gw is None else gw
     dev = text_u8.device
+    if text_u8.shape[0] < gw * WORD_BITS:
+        buf = torch.zeros(gw * WORD_BITS, dtype=torch.uint8, device=dev)
+        buf[: text_u8.shape[0]] = text_u8
+        text_u8 = buf
     out = torch.empty((planes + int(with_valid), gw), dtype=torch.int32,
                       device=dev)
     byte_w = torch.arange(8, dtype=torch.uint8, device=dev)
@@ -175,6 +203,9 @@ def pack(text_u8: torch.Tensor, nw: int, nb: int, planes: int,
         # the validity plane IS the n-mask
         out[planes] = nmask
     return out
+
+
+pack_plain.calls = 0
 
 
 def overlay_n_tail(planes: torch.Tensor, n: int, e: int) -> torch.Tensor:
@@ -299,18 +330,102 @@ def scan_core(windows, pmasks, is_pad, hp0, hm0, cost0, eq_mode: str):
     return vp_out, vm_out, cost_out
 
 
+#: bytes of each of the two page-locked staging buffers of an upload to
+#: the card
+STAGE_BYTES = 64 << 20
+
+
+class _Staging:
+    """Two page-locked host buffers of ``STAGE_BYTES`` and a copy stream
+    of one CUDA device, made once a process: an upload's chunks alternate
+    between the buffers, so the host copy of chunk i + 1 overlaps the
+    direct memory access of chunk i, and an event recorded after each
+    chunk's copy guards its buffer's reuse."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.bufs = [torch.empty(STAGE_BYTES, dtype=torch.uint8,
+                                 pin_memory=True) for _ in range(2)]
+        self.events = [torch.cuda.Event() for _ in range(2)]
+        self.stream = torch.cuda.Stream(device)
+        self.lock = threading.Lock()  # one upload at a time
+
+    def begin(self, out: torch.Tensor) -> None:
+        # the copies follow out's allocation on the caller's stream
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def wait(self, slot: int) -> None:
+        self.events[slot].synchronize()
+
+    def send(self, slot: int, dst: torch.Tensor, n: int) -> None:
+        with torch.cuda.stream(self.stream):
+            dst.copy_(self.bufs[slot][:n], non_blocking=True)
+            self.events[slot].record(self.stream)
+
+    def end(self, out: torch.Tensor) -> None:
+        # the caller's stream (the pack) waits for the last copy
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        out.record_stream(self.stream)
+
+
+_STAGINGS: dict = {}
+_STAGINGS_LOCK = threading.Lock()
+
+
+def _staging_for(device: torch.device) -> _Staging | None:
+    """The staging of a CUDA device (made at its first upload), or None:
+    other devices take the bytes as they are."""
+    if device.type != "cuda":
+        return None
+    key = torch.cuda.current_device() if device.index is None else device.index
+    with _STAGINGS_LOCK:
+        got = _STAGINGS.get(key)
+        if got is None:
+            got = _STAGINGS[key] = _Staging(torch.device("cuda", key))
+        return got
+
+
+def _stage_chunks(src: torch.Tensor, out: torch.Tensor, st) -> None:
+    """Copy the (n,) uint8 host tensor ``src`` into ``out`` through the two
+    staging buffers of ``st``, ``STAGE_BYTES`` a chunk, each byte once, in
+    order: wait until the buffer's last chunk has left it, copy the host
+    bytes into it (PyTorch's copy uses every intra-op thread), send it."""
+    n = src.shape[0]
+    st.begin(out)
+    for i, c0 in enumerate(range(0, n, STAGE_BYTES)):
+        c1 = min(n, c0 + STAGE_BYTES)
+        slot = i % 2
+        st.wait(slot)
+        st.bufs[slot][: c1 - c0].copy_(src[c0:c1])
+        st.send(slot, out[c0:c1], c1 - c0)
+    st.end(out)
+
+
 def _upload(text, device: torch.device) -> torch.Tensor:
-    """Raw text bytes -> a uint8 tensor on ``device``."""
+    """Raw text bytes -> a contiguous 1-D uint8 tensor on ``device``: to a
+    CUDA device through the pinned staging buffers (``_stage_chunks``),
+    on the CPU as they are."""
     if isinstance(text, torch.Tensor):
-        return text.to(device=device, dtype=torch.uint8)
+        return text.to(device=device, dtype=torch.uint8).contiguous()
     a = as_bytes_array(text)
     if a.strides[0] < 0:
         # a reversed view (the reverse strand): upload the forward bytes
         # and reverse on the device instead of copying on the host
         return _upload(a[::-1], device).flip(0)
-    if not a.flags.writeable:
-        a = a.copy()
-    return torch.from_numpy(a).to(device)
+    device = torch.device(device)
+    st = _staging_for(device) if a.shape[0] else None
+    if st is None:
+        if not a.flags.writeable:
+            a = a.copy()
+        return torch.from_numpy(a).to(device)
+    with warnings.catch_warnings():
+        # a read-only array (bytes) is only read: no host copy of it
+        warnings.simplefilter("ignore", UserWarning)
+        src = torch.from_numpy(a)
+    out = torch.empty(a.shape[0], dtype=torch.uint8, device=device)
+    with st.lock:
+        _stage_chunks(src, out, st)
+    return out
 
 
 class PreparedText:
@@ -322,14 +437,13 @@ class PreparedText:
         self.device = torch.device(device)
         self.n = len(text)
         self.gw = _bucket_words(cdiv(self.n, WORD_BITS) + TAIL_RESERVE_WORDS)
-        buf = torch.zeros(self.gw * WORD_BITS, dtype=torch.uint8,
-                          device=self.device)
-        buf[: self.n] = _upload(text, self.device)
+        # the n uploaded bytes as they are: the pack zeroes words past them
         self.planes = pack(
-            buf, self.n // WORD_BITS, self.n % WORD_BITS, profile.planes,
-            profile.eq_mode == "ascii", profile.pack_mode, profile.pack_shift,
-            profile.pack_mask, tuple(profile.pack_plane_masks),
-            profile.pack_fold_case,
+            _upload(text, self.device), self.n // WORD_BITS,
+            self.n % WORD_BITS, profile.planes, profile.eq_mode == "ascii",
+            profile.pack_mode, profile.pack_shift, profile.pack_mask,
+            tuple(profile.pack_plane_masks), profile.pack_fold_case,
+            self.gw,
         )
         self._wins: dict = {}
         self._overlay: tuple | None = None

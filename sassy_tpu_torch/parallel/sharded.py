@@ -188,12 +188,11 @@ class ShardedText:
         prof = self.profile
         c0 = d * S * WB
         n_d = min(max(self.n - c0, 0), S * WB)
-        buf = torch.zeros(S * WB, dtype=torch.uint8, device=device)
-        if n_d:
-            buf[:n_d] = _upload(self.raw[c0 : c0 + n_d], device)
-        planes = pack(buf, n_d // WB, n_d % WB, prof.planes, False,
-                      prof.pack_mode, prof.pack_shift, prof.pack_mask,
-                      tuple(prof.pack_plane_masks), prof.pack_fold_case)
+        # the shard's n_d bytes as they are: the pack zeroes the words past
+        planes = pack(_upload(self.raw[c0 : c0 + n_d], device), n_d // WB,
+                      n_d % WB, prof.planes, False, prof.pack_mode,
+                      prof.pack_shift, prof.pack_mask,
+                      tuple(prof.pack_plane_masks), prof.pack_fold_case, S)
         lo, hi = max(self.n - c0, 0), min(self.n + steps - c0, S * WB)
         if steps and hi > lo and prof.overhang_pad_code:
             # plane p of the pad code's positions = bit p of the pad code

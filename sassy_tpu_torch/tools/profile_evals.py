@@ -6,8 +6,16 @@
 Makes the bench's data as ``sassy_tpu_torch.evals.bench_suite`` does (same
 seeds, same bytes) and runs its two columns on the card, forward strand:
 
-- upload + pack: the text set's bytes to the card and their bit-planes
-  (host clock, ended by a synchronise; untimed in the bench);
+- the text set's preparation, untimed in the bench (host clock, each
+  step ended by a synchronise): the host buffer's assembly
+  (``TextSet._host_bytes``), its upload (``_upload``: two pinned staging
+  buffers), then in ``profile_path.UPLOAD_TURNS`` turns against a
+  pageable copy (``torch.from_numpy(a).to(device)``), the reverse
+  strand's bytes gathered on the card (``TextSet._rev_bytes``), each
+  strand's pack (the pack kernel; the reverse strand's after its
+  gather), and the forward planes regathered with ``OVERSHOOT_STEPS``
+  'N' positions a text (``TextSet._with_overshoot``, an overhang
+  search's);
 - the tiling group's piece plan, which its first call pays (host clock):
   the pieces cut by ``batch._plan_columns`` and, for comparison, by the
   per-piece loop ``batch._plan_pieces``, and the width and dispatch
@@ -38,12 +46,16 @@ from torch.autograd import DeviceType
 
 from .. import diagnostics
 from ..evals import bench_suite
+from . import profile_path
 from ..ops import batch
 from ..ops.batch import BatchEngine, TextSet
 from ..profiles import Iupac
 
 BENCHES = ("nanopore", "nanopore_full", "off_targets", "off_targets_full")
 SEARCH_PATTERNS = 32
+#: the overhang steps whose planes' regather is timed: a 24 bp pattern at
+#: k=3 and alpha 0.5 (chip_smoke.py's OH_WORD)
+OVERSHOOT_STEPS = 7
 
 
 def _plan(eng, prof, qcodes, ts, k) -> list:
@@ -71,6 +83,49 @@ def _plan(eng, prof, qcodes, ts, k) -> list:
     return [diagnostics.scan_bound(g.eq_mode, q1 - q0, g.pmasks.shape[1],
                                    (pp.NW, P, t1 - t0), True)["bound_ms"]
             for q0, q1, t0, t1 in chunks]
+
+
+def _ms(fn):
+    """(result, host ms) of ``fn``, ended by a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    return got, (time.perf_counter() - t0) * 1e3
+
+
+def prepare(ts, prof) -> None:
+    """The text set's preparation split into its steps (see the module's
+    doc), printed; leaves both strands' planes cached."""
+    from ..ops.myers_torch import _upload, pack
+
+    buf, t_host = _ms(ts._host_bytes)
+    dev_bytes, t_up = _ms(lambda: _upload(buf, ts.device))
+    ts._fwd_bytes = dev_bytes
+    turns = profile_path.upload_turns(buf, ts.device)
+    rev, t_rev = _ms(ts._rev_bytes)
+    del rev
+    gw = ts.words() + 1
+
+    def packed(b):
+        return pack(b, gw, 0, prof.planes, prof.eq_mode == "ascii",
+                    prof.pack_mode, prof.pack_shift, prof.pack_mask,
+                    tuple(prof.pack_plane_masks), prof.pack_fold_case)
+
+    _, t_pack = _ms(lambda: packed(dev_bytes))
+    _, t_fwd = _ms(lambda: ts.planes(prof, False))
+    _, t_rev_planes = _ms(lambda: ts.planes(prof, True))
+    over, t_over = _ms(lambda: ts.planes(prof, False, OVERSHOOT_STEPS))
+    del over
+    ts._planes.pop((prof.name, None, False, OVERSHOOT_STEPS), None)
+    print(f"preparation: host buffer {t_host:.1f} ms, upload {t_up:.1f} ms "
+          f"({len(buf) / t_up / 1e6:.2f} GB/s), reverse gather "
+          f"{t_rev:.1f} ms, pack {t_pack:.1f} ms; forward planes (pack and "
+          f"the text ends) {t_fwd:.1f} ms, reverse planes (gather, pack, "
+          f"ends) {t_rev_planes:.1f} ms; the overshoot regather "
+          f"(_with_overshoot, {OVERSHOOT_STEPS} steps) {t_over:.1f} ms",
+          flush=True)
+    profile_path.print_turns(turns, len(buf))
 
 
 def _profiled(fn):
@@ -121,14 +176,9 @@ def main(argv=None) -> int:
     qcodes = [prof.encode(q) for q in queries]
     eng = BatchEngine("cuda")
     ts = TextSet(texts, eng.device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ts.planes(prof, False)
-    torch.cuda.synchronize()
-    t_pack = (time.perf_counter() - t0) * 1e3
     print(f"{args.bench}: {len(queries)} patterns x "
-          f"{len(texts)} texts, {n_bytes} bytes, k={k}; upload + pack "
-          f"{t_pack:.1f} ms", flush=True)
+          f"{len(texts)} texts, {n_bytes} bytes, k={k}", flush=True)
+    prepare(ts, prof)
 
     bounds = _plan(eng, prof, qcodes, ts, k)
 

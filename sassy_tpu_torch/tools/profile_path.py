@@ -8,12 +8,20 @@ limit, then, for each phase of one strand, the host-clock time of a cold
 first call and the mean of ``--reps`` warm calls, each ended by a
 synchronise:
 
-- upload: the pageable host-to-device copy of the text bytes;
-- pack: bytes on the device -> bit-planes (``PreparedText``);
+- upload: the host-to-device copy of the text bytes (``_upload``: two
+  pinned staging buffers, the host copy of one chunk overlapping the
+  transfer of the other);
+- pack: bytes on the device -> bit-planes (``PreparedText``: the pack
+  kernel);
 - windows: the (NW, P, T) halo tiles (``build_windows``);
 - scan: the q1meta kernel;
 - selection: the state chain, the screened-word expansion and the one
   device-to-host copy of the candidates.
+
+Then the upload in ``UPLOAD_TURNS`` turns against a pageable copy
+(``torch.from_numpy(a).to(device)``, one PyTorch call): pageable,
+staged, staged, pageable, ..., each ended by a synchronise; every time
+and the medians.
 
 Then the host split of one warm ``candidates`` call on the prepared text
 (the call ``tools.bench`` times, here on this tool's text): the median,
@@ -41,6 +49,8 @@ import torch
 PATTERN_LEN = 23
 K = 3
 SPLIT_CALLS = 20
+#: turns of the staged upload against the pageable one
+UPLOAD_TURNS = 5
 
 
 def _timed(fn, reps: int):
@@ -90,6 +100,35 @@ def split_call(eng, profile, codes, text, k: int, sync,
     out["rest"] = {"median": out["call"]["median"] - sum(
         out[name]["median"] for name in names[:-1])}
     return out
+
+
+def upload_turns(text, dev, turns: int = UPLOAD_TURNS) -> dict:
+    """{"pageable": ms, "staged": ms} lists of ``turns`` uploads each of
+    the host array ``text``, in turns (pageable, staged, staged,
+    pageable, ...), each ended by a synchronise."""
+    from sassy_tpu_torch.ops.myers_torch import _upload
+
+    ways = {"pageable": lambda: torch.from_numpy(text).to(dev),
+            "staged": lambda: _upload(text, dev)}
+    out = {name: [] for name in ways}
+    for i in range(2 * turns):
+        name = ("pageable", "staged")[(i + i // 2) % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ways[name]()
+        torch.cuda.synchronize()
+        out[name].append((time.perf_counter() - t0) * 1e3)
+        del got
+    return out
+
+
+def print_turns(turns: dict, n_bytes: int) -> None:
+    for name, times in turns.items():
+        med = sorted(times)[len(times) // 2]
+        print(f"upload turns, {name}: "
+              + ", ".join(f"{t:.3f}" for t in times)
+              + f" ms (median {med:.3f}, {n_bytes / med / 1e6:.2f} GB/s)",
+              flush=True)
 
 
 def main(argv=None) -> int:
@@ -142,6 +181,7 @@ def main(argv=None) -> int:
         cold, warm = _timed(fn, args.reps)
         print(f"{name}: cold {cold:.3f} ms, warm {warm:.3f} ms "
               f"(mean of {args.reps})", flush=True)
+    print_turns(upload_turns(text, dev), n)
     split = split_call(eng, dna, codes, prep, K, torch.cuda.synchronize)
     for name, sp in split.items():
         print(f"candidates split, {name}: median {sp['median']:.3f} ms"

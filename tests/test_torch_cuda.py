@@ -2,7 +2,9 @@
 q2meta (and q2meta's pattern slices against q1meta), q1 and q2 (and q2's
 slices against q1), every built member of the kernel-design family
 (scan_qn, also against q2) and the four row-step ablations (full's vp
-against q1's); and the port's Searcher on the card, single and batched,
+against q1's); the text pack kernel against ``pack_plain`` (the four
+pack descriptors, every nb, unaligned inputs, the three engines' calls,
+its refusals); and the port's Searcher on the card, single and batched,
 with and without overhang, ascii, and with the suffix prefilter forced
 on, against its CPU path and the numpy oracle.
 
@@ -1018,3 +1020,119 @@ def test_q2meta_at_a_capped_width_equals_plain(cuda, monkeypatch):
     assert found
     _same(found, Searcher("dna", rc=True, device="cpu").search_many(
         pats, texts, 3))
+
+
+# -- the text pack kernel ----------------------------------------------------
+
+#: the four pack descriptors: DNA and IUPAC (table5), ascii with and
+#: without case folding (byte, with the validity plane)
+PACK_PROFILES = {"dna": profiles.Dna(), "iupac": profiles.Iupac(),
+                 "ascii_fold": profiles.Ascii(case_sensitive=False),
+                 "ascii": profiles.Ascii(case_sensitive=True)}
+
+
+def _pack_kw(prof) -> dict:
+    return dict(planes=prof.planes, with_valid=prof.eq_mode == "ascii",
+                mode=prof.pack_mode, shift=prof.pack_shift,
+                mask=prof.pack_mask, pmasks=tuple(prof.pack_plane_masks),
+                fold=prof.pack_fold_case)
+
+
+@pytest.mark.parametrize("name", list(PACK_PROFILES))
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1000, 4133, 1_000_003])
+def test_pack_kernel_equals_plain(cuda, name, n):
+    """Random bytes of all 256 values: the kernel given the n bytes alone
+    (the engines' upload), a whole buffer with garbage past n, and a view
+    one byte into a buffer (not 16-byte aligned), against ``pack_plain``
+    on the buffer, bit for bit; one launch each."""
+    from sassy_tpu_torch.ops import myers_torch
+
+    kw = _pack_kw(PACK_PROFILES[name])
+    gw = plan._bucket_words(plan.cdiv(n, 32) + plan.TAIL_RESERVE_WORDS)
+    buf = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 256, gw * 32 + 1, dtype=np.uint8))
+    want = myers_torch.pack_plain(buf[: gw * 32], n // 32, n % 32, **kw)
+    dev = buf.to(cuda)
+    shifted = torch.empty(n + 1, dtype=torch.uint8, device=cuda)
+    shifted[1:] = dev[:n]  # the n bytes one past an aligned address
+    before = myers_cuda.pack.launches
+    for text in (dev[:n].clone(), dev[: gw * 32], shifted[1:]):
+        got = myers_cuda.pack(text, n // 32, n % 32, gw=gw, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+    assert myers_cuda.pack.launches == before + 3
+
+
+@pytest.mark.parametrize("name", list(PACK_PROFILES))
+def test_pack_kernel_every_nb(cuda, name):
+    """n = 32 * 9 + nb for every nb over two shuffled copies of 0..255,
+    garbage past n."""
+    from sassy_tpu_torch.ops import myers_torch
+
+    kw = _pack_kw(PACK_PROFILES[name])
+    rng = np.random.default_rng(9)
+    buf = torch.from_numpy(np.concatenate(
+        [rng.permutation(256), rng.permutation(256)]).astype(np.uint8))
+    dev = buf.to(cuda)
+    for nb in range(32):
+        n = 32 * 9 + nb
+        want = myers_torch.pack_plain(buf, 9, nb, **kw)
+        assert torch.equal(myers_cuda.pack(dev[:n], 9, nb, gw=16,
+                                           **kw).cpu(), want), nb
+
+
+def test_pack_engines_launch_the_kernel(cuda):
+    """The single engine's ``prepare`` (DNA and ascii), the batched
+    ``TextSet.planes`` (both strands) and the sharded ``planes_sharded``
+    pack through the kernel on the card, never ``pack_plain``, and equal
+    their CPU paths' planes."""
+    from sassy_tpu_torch.ops import myers_torch
+    from sassy_tpu_torch.parallel import ShardedText
+
+    rng = np.random.default_rng(3)
+    text = rng.choice(np.frombuffer(b"ACGTacgtNRY", np.uint8), 70_001)
+    texts = [rng.choice(np.frombuffer(b"ACGT", np.uint8), n)
+             for n in (1000, 33, 4133, 0, 64)]
+    plain = myers_torch.pack_plain.calls
+    before = myers_cuda.pack.launches
+    for prof in (profiles.Dna(), profiles.Ascii(case_sensitive=False)):
+        got = myers_torch.PreparedText(prof, text, cuda)
+        want = myers_torch.PreparedText(prof, text, "cpu")
+        assert torch.equal(got.planes.cpu(), want.planes)
+    assert myers_cuda.pack.launches == before + 2
+    dna = profiles.Dna()
+    ts, ts_cpu = batch.TextSet(texts, cuda), batch.TextSet(texts, "cpu")
+    for reverse in (False, True):
+        assert torch.equal(ts.planes(dna, reverse).cpu(),
+                           ts_cpu.planes(dna, reverse))
+    assert myers_cuda.pack.launches == before + 4
+    iupac = profiles.Iupac()
+    got = ShardedText(iupac, text).planes_sharded(4, 600, 5, [0, 3], cuda)
+    want = ShardedText(iupac, text).planes_sharded(4, 600, 5, [0, 3], "cpu")
+    for d in (0, 3):
+        assert torch.equal(got[d].cpu(), want[d])
+    assert myers_cuda.pack.launches == before + 6
+    # the CPU paths above ran the plain version; the card's never did
+    assert myers_torch.pack_plain.calls == plain + 2 + 2 + 2
+
+
+@pytest.mark.parametrize("bad", ["dtype", "strided", "short", "words",
+                                 "nb", "2d", "planes", "shift"])
+def test_pack_kernel_refuses_bad_inputs(cuda, bad):
+    """ValueError before any launch: another dtype, a strided text, n
+    past the text or past gw words, nb outside 0..31, a 2-D text, more
+    than 8 planes, a table5 shift past 7."""
+    kw = _pack_kw(profiles.Dna())
+    text = torch.zeros(256, dtype=torch.uint8, device=cuda)
+    args = {"dtype": (text.to(torch.int32), 2, 0, {}),
+            "strided": (text[::2], 2, 0, {}),
+            "short": (text[:40], 2, 0, {}),
+            "words": (text, 9, 0, {"gw": 8}),
+            "nb": (text, 2, 32, {}),
+            "2d": (text.view(8, 32), 2, 0, {}),
+            "planes": (text, 2, 0, {"planes": 9}),
+            "shift": (text, 2, 0, {"shift": 9})}[bad]
+    before = myers_cuda.pack.launches
+    with pytest.raises(ValueError):
+        myers_cuda.pack(args[0], args[1], args[2], **{**kw, **args[3]})
+    assert myers_cuda.pack.launches == before
