@@ -8,7 +8,9 @@
 // last pattern row's vertical delta words (vp, vm) and its cost at the word
 // start; with META also meta (bit 0: the word is owned and its exact
 // minimum cost is <= k; bits 1-2: the decreasing-state code at the word
-// start) and, per tile, `final`, the code after the last word.
+// start) and, per tile, `final`, the code after the last word. The window
+// is read straight from the packed planes (window_read.cuh): a tile is
+// two numbers, wstart and wend, not a copy of its words.
 
 #pragma once
 
@@ -17,9 +19,18 @@
 
 #include <cuda_runtime.h>
 
+#include "window_read.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+
+// Blocks of the four search-path scan kernels an SM must hold at once, the
+// second argument of their __launch_bounds__. At 1 the compiler gives the
+// ascii eq's register ring 127-140 registers; the one-argument form capped
+// it at 128 and cost it 13-15%, 2 the same, 3 (85 registers and spills)
+// 60%; 4 made no other kernel faster.
+constexpr int kScanMinBlocks = 1;
 constexpr int kEqIupac = 0;  // eq = pad | OR_p (plane_p & mask_p)
 constexpr int kEqPure = 1;   // eq = pad | the row's one plane (ACGT rows)
 constexpr int kEqAscii = 2;  // eq = pad | (valid & ~OR_p (plane_p ^ mask_p))
@@ -137,7 +148,11 @@ __device__ __forceinline__ void scan_rows(
 
 // One pattern over the tiles of one launch.
 struct Args {
-  const uint32_t* win;     // (NW, P, T) text plane words
+  const uint32_t* planes;  // (P, L) text plane words (WindowDesc)
+  const int64_t* wstart;   // (T,) plane word of each tile's window word 0
+  const int64_t* wend;     // (T,) exclusive end of the words it may read
+  int64_t L;               // words a plane
+  const uint32_t* win;     // (NW, P, T) window words: scan_qn.cu only
   const uint8_t* tile0;    // (T,) bool: the tile owns the text start
   const int32_t* vfrom;    // (T,) window-local owned range (vfrom, vto];
   const int32_t* vto;      // (T,) META only
@@ -211,12 +226,8 @@ __device__ __forceinline__ void scan_block(const Args& a, int block) {
 
   int cost = lane0 ? a.boundary_m : a.m_real;
   int code = 0;
-  for (int w = 0; w < a.NW; ++w) {
-    uint32_t x[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      x[p] = a.win[(static_cast<size_t>(w) * P + p) * T + t];
-    }
+  const WindowDesc d = {a.planes, a.wstart, a.wend, a.L};
+  for_each_window_word<P>(d, t, a.NW, [&](int w, const uint32_t (&x)[P]) {
     uint32_t vp = 0u;
     uint32_t vm = 0u;
     if (REG) {
@@ -267,12 +278,12 @@ __device__ __forceinline__ void scan_block(const Args& a, int block) {
       code = new_code;
     }
     cost += pc_p - pc_m;
-  }
+  });
   if (META) a.final_out[t] = code;
 }
 
-// Q patterns over the same windows: `base` holds the shared windows and
-// tile vectors, and the pointers of pattern 0.
+// Q patterns over the same windows: `base` holds the shared planes, window
+// descriptors and tile vectors, and the pointers of pattern 0.
 struct QArgs {
   Args base;
   const int32_t* m_real;      // (Q,) unpadded pattern lengths
@@ -282,7 +293,7 @@ struct QArgs {
 
 // Block b of a Q-pattern grid scans pattern b % Q over the tiles of block
 // b / Q: the Q blocks of one tile range run next to each other, so a
-// window word comes from device memory once and from L2 for the other
+// plane word comes from device memory once and from L2 for the other
 // Q - 1 patterns. The pointers of pattern 0 are offset to pattern q's.
 template <int EQ, bool REG, bool META>
 __device__ __forceinline__ void scan_q_block(const QArgs& qa) {
@@ -334,8 +345,7 @@ cudaError_t launch_blocks(Kernel kernel, const A& a, size_t smem,
   return cudaGetLastError();
 }
 
-// The planes of the windows that eq_mode takes, and for pure a plane
-// index per row.
+// The planes that eq_mode takes, and for pure a plane index per row.
 inline bool eq_inputs_ok(int eq_mode, int P, const void* pidx) {
   switch (eq_mode) {
     case kEqIupac:
@@ -347,6 +357,24 @@ inline bool eq_inputs_ok(int eq_mode, int P, const void* pidx) {
     default:
       return false;
   }
+}
+
+// What the window read takes (window_read.cuh): planes, descriptors, and
+// rows of a multiple of kPlaneAlignWords words, 16-byte aligned.
+inline bool window_inputs_ok(const void* planes, const void* wstart,
+                             const void* wend, long long L) {
+  return planes != nullptr && wstart != nullptr && wend != nullptr && L > 0 &&
+         L % kPlaneAlignWords == 0 &&
+         reinterpret_cast<uintptr_t>(planes) % (4 * kPlaneAlignWords) == 0;
+}
+
+// Sets the shared planes and window descriptors of a launch.
+inline void set_windows(Args& a, const void* planes, const void* wstart,
+                        const void* wend, long long L) {
+  a.planes = static_cast<const uint32_t*>(planes);
+  a.wstart = static_cast<const int64_t*>(wstart);
+  a.wend = static_cast<const int64_t*>(wend);
+  a.L = L;
 }
 
 }  // namespace

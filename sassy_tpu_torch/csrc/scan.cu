@@ -16,18 +16,20 @@
 // 12 bytes per word where q1meta writes 16.
 //
 // It is q1meta's per-tile scan (myers_step.cuh's scan_block) with the
-// metadata switched off at compile time: one thread per tile, (NW, P, T)
-// windows, carries bit-packed in registers for M <= 64 and in device
-// memory beyond, pattern rows in shared memory; the iupac, pure and ascii
-// eq. Built by sassy_tpu_torch/ops/myers_cuda.py with one nvcc call,
-// together with the other scan kernels.
+// metadata switched off at compile time: one thread per tile, its window
+// read from the packed planes (window_read.cuh), carries bit-packed in
+// registers for M <= 64 and in device memory beyond, pattern rows in
+// shared memory; the iupac, pure and ascii eq. Built by
+// sassy_tpu_torch/ops/myers_cuda.py with one nvcc call, together with the
+// other scan kernels.
 
 #include "myers_step.cuh"
 
 namespace {
 
 template <int EQ, bool REG>
-__global__ void __launch_bounds__(kThreads) scan_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, kScanMinBlocks)
+scan_kernel(const Args a) {
   scan_block<EQ, REG, false>(a, blockIdx.x);
 }
 
@@ -45,12 +47,13 @@ cudaError_t launch_eq(const Args& a, cudaStream_t stream) {
 // Launches the scan on `stream` without synchronising; returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int sassy_scan(
-    const void* win, const void* tile0, const void* pmasks,
+    const void* planes, const void* wstart, const void* wend, long long L,
+    const void* tile0, const void* pmasks,
     const void* is_pad, const void* h_init, const void* pidx, void* vp_out,
     void* vm_out, void* cost_out, void* carries, int T, int NW, int P, int M,
     int m_real, int boundary_m, int eq_mode, void* stream) {
   Args a = {};
-  a.win = static_cast<const uint32_t*>(win);
+  set_windows(a, planes, wstart, wend, L);
   a.tile0 = static_cast<const uint8_t*>(tile0);
   a.pmasks = static_cast<const uint32_t*>(pmasks);
   a.is_pad = static_cast<const uint32_t*>(is_pad);
@@ -69,7 +72,8 @@ extern "C" int sassy_scan(
   if ((M > kRegRows) != (carries != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!eq_inputs_ok(eq_mode, P, pidx)) {
+  if (!eq_inputs_ok(eq_mode, P, pidx) ||
+      !window_inputs_ok(planes, wstart, wend, L)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

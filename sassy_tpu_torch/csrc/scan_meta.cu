@@ -17,9 +17,13 @@
 //
 // What the design does about it:
 // - one thread per tile (the plan in sassy_tpu_torch/ops/plan.py puts
-//   ~0.5M tiles in flight for a 1 GiB text), the text window in the
-//   (NW, P, T) layout, so a warp's loads and stores of one word are 32
-//   adjacent tiles: every byte crosses the memory bus once;
+//   ~0.5M tiles in flight for a 1 GiB text); the outputs in the (NW, T)
+//   layout, so a warp's stores of one word are 32 adjacent tiles;
+// - the text read straight from the packed planes (window_read.cuh): a
+//   tile is two numbers (wstart, wend), so no window copy of the planes
+//   is made, kept or gathered; a thread holds its next words in a
+//   register ring of vector loads, one a plane every few words, since its
+//   neighbours' windows lie W words away;
 // - the per-row horizontal carries hp/hm stay bit-packed in registers,
 //   bit j = row j, for M <= 64 (two words each); longer patterns keep them
 //   per thread in device memory laid out [word][tile], so those accesses
@@ -40,7 +44,8 @@
 namespace {
 
 template <int EQ, bool REG>
-__global__ void __launch_bounds__(kThreads) scan_meta_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, kScanMinBlocks)
+scan_meta_kernel(const Args a) {
   scan_block<EQ, REG, true>(a, blockIdx.x);
 }
 
@@ -58,13 +63,14 @@ cudaError_t launch_eq(const Args& a, cudaStream_t stream) {
 // Launches the scan on `stream` without synchronising; returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int sassy_scan_meta(
-    const void* win, const void* tile0, const void* vfrom, const void* vto,
+    const void* planes, const void* wstart, const void* wend, long long L,
+    const void* tile0, const void* vfrom, const void* vto,
     const void* pmasks, const void* is_pad, const void* h_init,
     const void* pidx, void* vp_out, void* vm_out, void* cost_out,
     void* meta_out, void* final_out, void* carries, int T, int NW, int P,
     int M, int m_real, int boundary_m, int k, int eq_mode, void* stream) {
-  Args a;
-  a.win = static_cast<const uint32_t*>(win);
+  Args a = {};
+  set_windows(a, planes, wstart, wend, L);
   a.tile0 = static_cast<const uint8_t*>(tile0);
   a.vfrom = static_cast<const int32_t*>(vfrom);
   a.vto = static_cast<const int32_t*>(vto);
@@ -88,7 +94,8 @@ extern "C" int sassy_scan_meta(
   if ((M > kRegRows) != (carries != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!eq_inputs_ok(eq_mode, P, pidx)) {
+  if (!eq_inputs_ok(eq_mode, P, pidx) ||
+      !window_inputs_ok(planes, wstart, wend, L)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -15,9 +15,10 @@
 // word) writes 12 bytes of outputs.
 //
 // It is q2meta's grid (myers_step.cuh's scan_q_block: one thread per
-// (tile, pattern), the Q blocks of a tile range adjacent, so window words
-// come from L2 for all but the first pattern) with the metadata switched
-// off at compile time. Q need not be even: where the TPU ran two patterns
+// (tile, pattern), the Q blocks of a tile range adjacent, so plane words
+// come from L2 for all but the first pattern; the windows read from the
+// packed planes, window_read.cuh) with the metadata switched off at
+// compile time. Q need not be even: where the TPU ran two patterns
 // per program over (8, 128) lane blocks, the card takes any Q.
 
 #include "myers_step.cuh"
@@ -25,7 +26,8 @@
 namespace {
 
 template <int EQ, bool REG>
-__global__ void __launch_bounds__(kThreads) scan_q_kernel(const QArgs qa) {
+__global__ void __launch_bounds__(kThreads, kScanMinBlocks)
+scan_q_kernel(const QArgs qa) {
   scan_q_block<EQ, REG, false>(qa);
 }
 
@@ -43,14 +45,15 @@ cudaError_t launch_eq(const QArgs& qa, unsigned blocks, cudaStream_t stream) {
 // Launches the scan of Q patterns on `stream` without synchronising;
 // returns the cudaError_t of the launch (0 = success).
 extern "C" int sassy_scan_q(
-    const void* win, const void* tile0, const void* pmasks,
+    const void* planes, const void* wstart, const void* wend, long long L,
+    const void* tile0, const void* pmasks,
     const void* is_pad, const void* h_init, const void* pidx,
     const void* m_real, const void* boundary_m, void* vp_out, void* vm_out,
     void* cost_out, void* carries, int T, int NW, int P, int M, int Q,
     int eq_mode, void* stream) {
   QArgs qa = {};
   Args& a = qa.base;
-  a.win = static_cast<const uint32_t*>(win);
+  set_windows(a, planes, wstart, wend, L);
   a.tile0 = static_cast<const uint8_t*>(tile0);
   a.pmasks = static_cast<const uint32_t*>(pmasks);
   a.is_pad = static_cast<const uint32_t*>(is_pad);
@@ -72,7 +75,8 @@ extern "C" int sassy_scan_q(
   if ((M > kRegRows) != (carries != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!eq_inputs_ok(eq_mode, P, pidx)) {
+  if (!eq_inputs_ok(eq_mode, P, pidx) ||
+      !window_inputs_ok(planes, wstart, wend, L)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned nb = q_blocks(T, Q);

@@ -15,11 +15,13 @@
 //
 // What the design does about it:
 // - one thread per (tile, pattern): a block is 256 adjacent tiles of one
-//   pattern, so a warp's loads and stores are 32 adjacent tiles, and the
-//   pattern's rows sit in the block's shared memory (myers_step.cuh);
+//   pattern, so a warp's stores are 32 adjacent tiles, and the pattern's
+//   rows sit in the block's shared memory (myers_step.cuh);
+// - each tile's words read straight from the packed planes through its
+//   (wstart, wend) descriptor (window_read.cuh): no window copy;
 // - the grid runs the Q blocks of one tile range next to each other
 //   (block b: pattern b % Q, tiles b / Q; myers_step.cuh's scan_q_block),
-//   so a window word comes from device memory once and from the 50 MB L2
+//   so a plane word comes from device memory once and from the 50 MB L2
 //   for the other Q - 1 patterns;
 // - carries bit-packed in registers for M <= 64, in device memory laid
 //   out [pattern][word][tile] beyond that.
@@ -33,7 +35,8 @@
 namespace {
 
 template <int EQ, bool REG>
-__global__ void __launch_bounds__(kThreads) scan_q_meta_kernel(const QArgs qa) {
+__global__ void __launch_bounds__(kThreads, kScanMinBlocks)
+scan_q_meta_kernel(const QArgs qa) {
   scan_q_block<EQ, REG, true>(qa);
 }
 
@@ -52,15 +55,16 @@ cudaError_t launch_eq(const QArgs& qa, unsigned blocks, cudaStream_t stream) {
 // Launches the scan of Q patterns on `stream` without synchronising;
 // returns the cudaError_t of the launch (0 = success).
 extern "C" int sassy_scan_q_meta(
-    const void* win, const void* tile0, const void* vfrom, const void* vto,
+    const void* planes, const void* wstart, const void* wend, long long L,
+    const void* tile0, const void* vfrom, const void* vto,
     const void* pmasks, const void* is_pad, const void* h_init,
     const void* pidx, const void* m_real, const void* boundary_m,
     void* vp_out, void* vm_out, void* cost_out, void* meta_out,
     void* final_out, void* carries, int T, int NW, int P, int M, int Q,
     int k, int eq_mode, void* stream) {
-  QArgs qa;
+  QArgs qa = {};
   Args& a = qa.base;
-  a.win = static_cast<const uint32_t*>(win);
+  set_windows(a, planes, wstart, wend, L);
   a.tile0 = static_cast<const uint8_t*>(tile0);
   a.vfrom = static_cast<const int32_t*>(vfrom);
   a.vto = static_cast<const int32_t*>(vto);
@@ -89,7 +93,8 @@ extern "C" int sassy_scan_q_meta(
   if ((M > kRegRows) != (carries != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!eq_inputs_ok(eq_mode, P, pidx)) {
+  if (!eq_inputs_ok(eq_mode, P, pidx) ||
+      !window_inputs_ok(planes, wstart, wend, L)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned nb = q_blocks(T, Q);

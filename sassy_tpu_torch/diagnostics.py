@@ -51,7 +51,11 @@ def scan_bound(eq_mode: str, Q: int, M: int, windows_shape, meta: bool,
     (pad rows included: the kernel scans them) over (NW, P, T) windows.
     Bytes: the windows read once, the outputs written once (vp, vm, cost
     and, with meta, meta and final; ``vp_only``: the ablations' one word
-    per window word, and no text-start flags)."""
+    per window word, and no text-start flags). The four search-path
+    kernels read the windows in place, from the planes through each
+    tile's descriptor: the same NW x P x T words are counted (the halo
+    words a neighbour also reads included), so the work and the shares
+    compare with those of the kernels that read window tensors."""
     NW, P, T = windows_shape
     word_ops = 2 if vp_only else WORD_OPS[meta]
     n_out = 1 if vp_only else 4 if meta else 3

@@ -9,9 +9,11 @@ A strand's texts are uploaded once (one host buffer, through the pinned
 staging of ``myers_torch._upload``) and packed into bit-planes on the
 device by the pack kernel (the reverse strand's bytes are gathered there
 from the forward bytes; with
-overhang each text is followed by its 'N' overshoot positions); each
-dispatch chunk gathers its piece windows, NW = W + 1 words (one word of
-right context past the owned range), from those planes.
+overhang each text is followed by its 'N' overshoot positions); the scan
+kernels read each piece's window, NW = W + 1 words (one word of right
+context past the owned range), straight from those planes through the
+piece's descriptor (``TextSet.descriptor``: its first plane word and the
+end of its text's words), so no dispatch gathers windows.
 
 Patterns are grouped by row bucket and overhang steps. A group whose
 overshoot spans at most three words (always, without overhang) takes the
@@ -64,8 +66,8 @@ from ..profiles import Profile, as_bytes_array
 from . import minima, myers_cuda, plan
 from .bitpack import WORD_BITS
 from .minima import FULL, i32
-from .myers_torch import (_upload, dispatch_async, engine_device, pack,
-                          state_from_numpy)
+from .myers_torch import (Windows, _upload, aligned_words, dispatch_async,
+                          engine_device, pack, state_from_numpy)
 from .plan import _bucket_words, _masks_pure_np, cdiv, pattern_inputs_np
 
 __all__ = ["BatchEngine", "TextSet", "DISPATCH_BYTES", "W_MAX_WORDS"]
@@ -317,8 +319,8 @@ class PiecePlan:
     text_end: torch.Tensor  # int64, piece-local text end
     start_char: torch.Tensor  # int64, text-local position of piece position 0
     text_idx: torch.Tensor  # int64
-    word0: torch.Tensor  # int64, flat plane word of the piece start
-    words_left: torch.Tensor  # int64, text words from the piece start
+    wstart: torch.Tensor  # int64, flat plane word of the piece start
+    wend: torch.Tensor  # int64, the end of its text's plane words
 
     @property
     def T(self) -> int:
@@ -341,11 +343,13 @@ class TextSet:
     overhang steps) and bit-planes per (profile, strand, steps), reusable
     across patterns and k.
 
-    The planes of a strand are one flat (P, GW + 1) array: text t owns
-    words [wofs[t], wofs[t] + ceil((n_t + steps) / 32)), 'N' (every plane
-    bit set) at its ``steps`` overshoot positions and zero past them; the
-    last word is all-zero, the one that window words past a text end
-    read. "cuda" without a CUDA device raises."""
+    The planes of a strand are one flat (P, L) array: text t owns words
+    [wofs[t], wofs[t] + ceil((n_t + steps) / 32)), 'N' (every plane bit
+    set) at its ``steps`` overshoot positions and zero past them; the
+    words from GW on are all-zero, L = GW + 1 rounded up to a multiple of
+    ``myers_torch.PLANE_ALIGN_WORDS`` (the rows the scan kernels read). A
+    piece reads zero past its text's words (its descriptor's ``wend``).
+    "cuda" without a CUDA device raises."""
 
     def __init__(self, texts, device="cuda"):
         self.texts = [as_bytes_array(t) for t in texts]
@@ -391,8 +395,8 @@ class TextSet:
                 text_end=i64(col("text_end")),
                 start_char=i64(col("start_char")),
                 text_idx=i64(tidx),
-                word0=i64(wofs[tidx] + wstart),
-                words_left=i64(nw[tidx] - wstart),
+                wstart=i64(wofs[tidx] + wstart),
+                wend=i64(wofs[tidx] + nw[tidx]),
             )
             self._plans[key] = got
         return got
@@ -448,11 +452,12 @@ class TextSet:
             self._planes[key] = got
         if got is None:
             buf = self._rev_bytes() if reverse else self._bytes()
-            gw = self.words() + 1
             got = pack(
-                buf, gw, 0, profile.planes, profile.eq_mode == "ascii",
-                profile.pack_mode, profile.pack_shift, profile.pack_mask,
+                buf, self.words() + 1, 0, profile.planes,
+                profile.eq_mode == "ascii", profile.pack_mode,
+                profile.pack_shift, profile.pack_mask,
                 tuple(profile.pack_plane_masks), profile.pack_fold_case,
+                aligned_words(self.words() + 1),
             )
             # pad bytes encode to nonzero codes: zero each text's positions
             # past its end in its last word, and the zero word
@@ -464,7 +469,7 @@ class TextSet:
                 keep = torch.from_numpy(keep.astype(np.uint32).view(np.int32))
                 last, keep = last.to(self.device), keep.to(self.device)
                 got[:, last] &= keep
-            got[:, -1] = 0
+            got[:, self.words():] = 0
             self._planes[key] = got
         return got
 
@@ -486,7 +491,8 @@ class TextSet:
         old = torch.from_numpy(self._nw).to(dev)[tid]
         src = torch.where(j < old, torch.from_numpy(self._wofs[:-1]).to(
             dev)[tid] + j, zero0)
-        out = planes0[:, torch.cat([src, src.new_full((1,), zero0)])]
+        tail = aligned_words(int(wofs[-1]) + 1) - int(wofs[-1])
+        out = planes0[:, torch.cat([src, src.new_full((tail,), zero0)])]
         # the overlay: <= cdiv(steps, 32) + 1 words per text
         n = torch.tensor(self.lens, dtype=torch.int64, device=dev)[:, None]
         w = n // WORD_BITS + torch.arange(cdiv(steps, WORD_BITS) + 1,
@@ -504,15 +510,21 @@ class TextSet:
         out[:, gidx.reshape(-1)] |= i32(mask.reshape(-1))
         return out
 
+    def descriptor(self, profile: Profile, pp: PiecePlan, reverse: bool,
+                   t0: int, t1: int) -> Windows:
+        """The windows of pieces t0..t1 as the scan kernels read them: each
+        piece's NW words from its start in the strand's planes, zero past
+        its text's words."""
+        return Windows(self.planes(profile, reverse, pp.steps),
+                       pp.wstart[t0:t1], pp.wend[t0:t1], pp.NW)
+
     def windows(self, profile: Profile, pp: PiecePlan, reverse: bool,
                 t0: int, t1: int) -> torch.Tensor:
-        """(NW, P, t1 - t0) int32 windows of pieces t0..t1: piece words
-        [start, start + NW) of its text, the zero word past the text end."""
-        planes = self.planes(profile, reverse, pp.steps)
-        j = torch.arange(pp.NW, dtype=torch.int64, device=self.device)[:, None]
-        idx = torch.where(j < pp.words_left[None, t0:t1],
-                          pp.word0[None, t0:t1] + j, self.words(pp.steps))
-        return planes[:, idx].permute(1, 0, 2).contiguous()
+        """(NW, P, t1 - t0) int32 windows of pieces t0..t1, gathered from
+        their ``descriptor`` (``myers_torch.windows_plain``): piece words
+        [start, start + NW) of its text, zero past the text end. For the
+        tests and the kernel-design tools; no search path gathers."""
+        return self.descriptor(profile, pp, reverse, t0, t1).gather()
 
 
 @dataclass
@@ -655,9 +667,10 @@ class BatchEngine:
 
     @staticmethod
     def scan(win, g: _Group, pp: PiecePlan, q0, q1, t0, t1, k: int):
-        """The kernel over one chunk's windows: word level, q2meta's (vp,
-        vm, cost, meta) each (q1 - q0, NW, t1 - t0) and final (q1 - q0,
-        t1 - t0); position level, q2's (vp, vm, cost)."""
+        """The kernel over one chunk's windows (``win``, their descriptor:
+        ``TextSet.descriptor``): word level, q2meta's (vp, vm, cost, meta)
+        each (q1 - q0, NW, t1 - t0) and final (q1 - q0, t1 - t0); position
+        level, q2's (vp, vm, cost)."""
         if not g.fast:
             return myers_cuda.scan_q(
                 win, pp.true_start[t0:t1], g.pmasks[q0:q1], g.is_pad[q0:q1],
@@ -737,7 +750,7 @@ class BatchEngine:
             if t0 == 0:
                 carry = torch.zeros((q1 - q0, 1), dtype=torch.int32,
                                     device=self.device)
-            win = ts.windows(profile, pp, reverse, t0, t1)
+            win = ts.descriptor(profile, pp, reverse, t0, t1)
             saved = ((q1 - q0) * (g.pmasks.shape[1] - g.hier_s) * pp.NW
                      * (t1 - t0))
             if g.hier_s and saved >= plan.HIER_MIN_SAVED_PAIRS:
@@ -773,8 +786,7 @@ class BatchEngine:
         if first != 0:
             carry = torch.zeros_like(carry)
         sub = pp.take(t0 + ids)
-        outs = self.scan(win[:, :, ids].contiguous(), g, sub, q0, q1, 0,
-                         sub.T, k)
+        outs = self.scan(win.take(ids), g, sub, q0, q1, 0, sub.T, k)
         cols, carry = self.select(outs, g, sub, q0, 0, sub.T, k, all_minima,
                                   carry)
         if last != t1 - t0 - 1:

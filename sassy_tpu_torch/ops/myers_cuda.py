@@ -52,6 +52,13 @@ kernel too: ``pack`` (``csrc/pack.cu``, its per-word code in
 ``myers_torch.pack`` runs ``myers_torch.pack_plain`` for a text on the CPU
 and this for a text on a CUDA device.
 
+The four scan kernels of the search paths read their text straight from
+the packed planes: their first argument is a ``myers_torch.Windows``
+descriptor (each tile's ``wstart`` and ``wend`` in the planes; the read in
+``csrc/window_read.cuh``), and their plain versions gather the windows it
+describes with ``myers_torch.windows_plain`` first. An (NW, P, T) window
+tensor is described by ``Windows.of``.
+
 The scan sources share the row step of ``csrc/myers_step.cuh``, the
 selection sources ``csrc/select_common.cuh``. All are compiled with one
 ``nvcc`` call for ``sm_90a`` at first use into one library in
@@ -90,7 +97,8 @@ SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu", CSRC / "scan.cu",
            CSRC / "scan_q.cu", CSRC / "scan_qn.cu", CSRC / "scan_variants.cu",
            CSRC / "select_words.cu", CSRC / "select_positions.cu",
            CSRC / "pack.cu")
-HEADERS = (CSRC / "myers_step.cuh", CSRC / "select_common.cuh",
+HEADERS = (CSRC / "myers_step.cuh", CSRC / "window_read.cuh",
+           CSRC / "select_common.cuh",
            CSRC / "select_walk.cuh", CSRC / "select_words.cuh",
            CSRC / "pack.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sassy_tpu_torch"
@@ -147,7 +155,8 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernel library unless these sources are built already.
     Returns its path; ``<path>.log`` keeps the compiler's report
-    (registers, spills). Raises with nvcc's stderr when the build fails."""
+    (registers, spills). Raises with nvcc's stderr when the build
+    fails."""
     lib = library_path()
     if lib.exists():
         return lib
@@ -177,13 +186,15 @@ def load_library(path) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(path)
         ptr, num = ctypes.c_void_p, ctypes.c_int
-        lib.sassy_scan_meta.argtypes = [ptr] * 14 + [num] * 8 + [ptr]
-        lib.sassy_scan_q_meta.argtypes = [ptr] * 16 + [num] * 7 + [ptr]
-        lib.sassy_scan.argtypes = [ptr] * 10 + [num] * 7 + [ptr]
-        lib.sassy_scan_q.argtypes = [ptr] * 12 + [num] * 6 + [ptr]
+        big, real = ctypes.c_longlong, ctypes.c_float
+        # the window descriptor: planes, wstart, wend, plane words
+        desc = [ptr] * 3 + [big]
+        lib.sassy_scan_meta.argtypes = desc + [ptr] * 13 + [num] * 8 + [ptr]
+        lib.sassy_scan_q_meta.argtypes = desc + [ptr] * 15 + [num] * 7 + [ptr]
+        lib.sassy_scan.argtypes = desc + [ptr] * 9 + [num] * 7 + [ptr]
+        lib.sassy_scan_q.argtypes = desc + [ptr] * 11 + [num] * 6 + [ptr]
         lib.sassy_scan_qn.argtypes = [ptr] * 11 + [num] * 9 + [ptr]
         lib.sassy_scan_variant.argtypes = [ptr] * 3 + [num] * 5 + [ptr]
-        big, real = ctypes.c_longlong, ctypes.c_float
         lib.sassy_select_words.argtypes = ([ptr] * 16 + [big] + [num] * 6
                                            + [real, num, ptr])
         lib.sassy_select_positions.argtypes = ([ptr] * 5 + [big] * 7
@@ -217,12 +228,31 @@ def _lib() -> ctypes.CDLL:
     return load_library(build())
 
 
-def scan_q_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
-                 boundary_m, eq_mode: str):
+def _windows_of(win) -> "myers_torch.Windows":
+    """``win`` if it is a ``myers_torch.Windows``; the four scan entry
+    points and their plain versions take no other windows."""
+    if not isinstance(win, myers_torch.Windows):
+        raise TypeError(f"the scan entry points take a myers_torch.Windows "
+                        f"descriptor (Windows.of for a window tensor), not "
+                        f"{type(win).__name__}")
+    return win
+
+
+def scan_q_plain(win, tile0, pmasks, is_pad, h_init, m_real, boundary_m,
+                 eq_mode: str):
     """Plain PyTorch version of the q2 kernel: ``myers_torch.scan_core``
     over Q patterns from the tiles' initial state (the true-start h deltas
     and boundary cost where ``tile0`` is set, the plain cost-j boundary
-    elsewhere). ``m_real``/``boundary_m`` are (Q,) int32."""
+    elsewhere), on the windows the ``myers_torch.Windows`` ``win``
+    describes (gathered by ``windows_plain``). ``m_real``/``boundary_m``
+    are (Q,) int32."""
+    return _scan_q_windows(_windows_of(win).gather(), tile0, pmasks, is_pad,
+                           h_init, m_real, boundary_m, eq_mode)
+
+
+def _scan_q_windows(windows, tile0, pmasks, is_pad, h_init, m_real,
+                    boundary_m, eq_mode: str):
+    """``scan_q_plain`` on an (NW, P, T) window tensor."""
     Q, M = pmasks.shape[:2]
     hp0 = torch.where(
         is_pad.view(Q, M, 1) != 0, 0,
@@ -250,10 +280,11 @@ def scan_qn_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
                   boundary_m, eq_mode: str, U: int = 1, unroll: bool = False,
                   WU: int = 1):
     """Plain PyTorch version of the scan_qn family: every member computes
-    ``scan_q_plain``; U, unroll and WU only shape the kernel."""
+    ``scan_q_plain`` on the (NW, P, T) windows; U, unroll and WU only
+    shape the kernel."""
     _check_qn(pmasks.shape[0], windows.shape[0], pmasks.shape[1], U, WU)
-    return scan_q_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
-                        boundary_m, eq_mode)
+    return _scan_q_windows(windows, tile0, pmasks, is_pad, h_init, m_real,
+                           boundary_m, eq_mode)
 
 
 def scan_variant_plain(windows, pmasks, variant: str):
@@ -308,35 +339,35 @@ def scan_variant_plain(windows, pmasks, variant: str):
     return out
 
 
-def scan_plain(windows, tile0, pmasks, is_pad, h_init, m_real: int,
+def scan_plain(win, tile0, pmasks, is_pad, h_init, m_real: int,
                boundary_m: int, eq_mode: str):
     """Plain PyTorch version of the q1 kernel: ``scan_q_plain`` of the one
     pattern."""
     scal = torch.tensor([[m_real], [boundary_m]], dtype=torch.int32,
-                        device=windows.device)
-    outs = scan_q_plain(windows, tile0, pmasks[None], is_pad[None],
+                        device=win.device)
+    outs = scan_q_plain(win, tile0, pmasks[None], is_pad[None],
                         h_init[None], scal[0], scal[1], eq_mode)
     return tuple(o[0] for o in outs)
 
 
-def scan_q_meta_plain(windows, tile0, valid_from, valid_to, pmasks, is_pad,
+def scan_q_meta_plain(win, tile0, valid_from, valid_to, pmasks, is_pad,
                       h_init, m_real, boundary_m, k: int, eq_mode: str):
     """Plain PyTorch version of the q2meta kernel: ``scan_q_plain``, then
     ``minima.meta_from_words``."""
-    vp, vm, cost = scan_q_plain(windows, tile0, pmasks, is_pad, h_init,
+    vp, vm, cost = scan_q_plain(win, tile0, pmasks, is_pad, h_init,
                                 m_real, boundary_m, eq_mode)
     meta, final = minima.meta_from_words(vp, vm, cost, valid_from, valid_to, k)
     return vp, vm, cost, meta, final
 
 
-def scan_meta_plain(windows, tile0, valid_from, valid_to, pmasks, is_pad,
+def scan_meta_plain(win, tile0, valid_from, valid_to, pmasks, is_pad,
                     h_init, m_real: int, boundary_m: int, k: int,
                     eq_mode: str):
     """Plain PyTorch version of the q1meta kernel: ``scan_q_meta_plain`` of
     the one pattern."""
     scal = torch.tensor([[m_real], [boundary_m]], dtype=torch.int32,
-                        device=windows.device)
-    outs = scan_q_meta_plain(windows, tile0, valid_from, valid_to,
+                        device=win.device)
+    outs = scan_q_meta_plain(win, tile0, valid_from, valid_to,
                              pmasks[None], is_pad[None], h_init[None],
                              scal[0], scal[1], k, eq_mode)
     return tuple(o[0] for o in outs)
@@ -352,26 +383,24 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
+def _check_inputs(shape, dev, tile0, valid_from, valid_to, pmasks, is_pad,
                   h_init, eq_mode: str, lead: tuple):
     """Device, dtype, shape and contiguity of the inputs the kernels share
-    (``valid_from``/``valid_to`` None for the kernels without metadata);
-    ``lead`` is () for one pattern, (Q,) for Q. Returns the device."""
-    if windows.device.type != "cuda":
-        raise ValueError(f"the scan kernels run on cpu or cuda, not "
-                         f"{windows.device}")
+    (``valid_from``/``valid_to`` None for the kernels without metadata),
+    for windows of ``shape`` (NW, P, T) on ``dev``; ``lead`` is () for one
+    pattern, (Q,) for Q."""
+    if dev.type != "cuda":
+        raise ValueError(f"the scan kernels run on cpu or cuda, not {dev}")
     if eq_mode not in EQ_MODES:
         raise ValueError(f"unknown eq_mode {eq_mode!r}")
-    NW, P, T = windows.shape
+    NW, P, T = shape
     M = pmasks.shape[len(lead)]
-    dev = windows.device
     if P != PLANES[eq_mode]:
         raise ValueError(f"eq_mode {eq_mode!r} takes {PLANES[eq_mode]} "
                          f"planes, windows have {P}")
     PM = P - 1 if eq_mode == "ascii" else P  # no mask for the validity plane
     if M * (PM + 2) * 4 > MAX_SMEM:
         raise ValueError(f"{M} pattern rows exceed the kernel's shared memory")
-    _check("windows", windows, torch.int32, (NW, P, T), dev)
     _check("tile0", tile0, torch.bool, (T,), dev)
     if valid_from is not None:
         _check("valid_from", valid_from, torch.int32, (T,), dev)
@@ -379,7 +408,43 @@ def _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
     _check("pmasks", pmasks, torch.int32, (*lead, M, PM), dev)
     _check("is_pad", is_pad, torch.int32, (*lead, M), dev)
     _check("h_init", h_init, torch.int32, (*lead, M), dev)
-    return dev
+
+
+def _check_window_tensor(windows):
+    """An (NW, P, T) int32 window tensor, contiguous."""
+    if windows.dim() != 3:
+        raise ValueError(f"windows: expected (NW, P, T), got "
+                         f"{tuple(windows.shape)}")
+    _check("windows", windows, torch.int32, tuple(windows.shape),
+           windows.device)
+
+
+def _descriptor(win):
+    """The ``myers_torch.Windows`` the four search-path kernels read,
+    checked: the planes (P, L) int32, contiguous, 16-byte aligned, L a
+    multiple of ``myers_torch.PLANE_ALIGN_WORDS`` (the vector loads of
+    ``csrc/window_read.cuh``); wstart and wend (T,) int64 on their
+    device."""
+    planes = _windows_of(win).planes
+    dev = planes.device
+    if dev.type != "cuda":
+        raise ValueError(f"the scan kernels run on cpu or cuda, not {dev}")
+    if planes.dim() != 2:
+        raise ValueError(f"planes: expected (P, L), got {tuple(planes.shape)}")
+    P, L = planes.shape
+    _check("planes", planes, torch.int32, (P, L), dev)
+    align = myers_torch.PLANE_ALIGN_WORDS
+    if L == 0 or L % align or planes.data_ptr() % (4 * align):
+        raise ValueError(f"planes: {L} words a plane at address "
+                         f"{planes.data_ptr():#x}; the kernels read rows "
+                         f"of a multiple of {align} words, "
+                         f"{4 * align}-byte aligned")
+    T = win.wstart.shape[0]
+    _check("wstart", win.wstart, torch.int64, (T,), dev)
+    _check("wend", win.wend, torch.int64, (T,), dev)
+    if win.NW < 1:
+        raise ValueError(f"NW = {win.NW}: a window holds a word or more")
+    return win
 
 
 def _ptr(x):
@@ -407,19 +472,28 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def launch(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
+def _desc_args(win) -> tuple:
+    """The C entry points' first four arguments: planes, wstart, wend and
+    the words a plane."""
+    return (_ptr(win.planes), _ptr(win.wstart), _ptr(win.wend),
+            win.planes.shape[1])
+
+
+def launch(lib, win, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
            m_real: int, boundary_m: int, k: int, eq_mode: str, stream):
     """Allocate the outputs and launch the q1meta kernel of ``lib`` on
-    ``stream`` (a raw stream handle); the caller has checked the inputs."""
-    NW, P, T = windows.shape
+    ``stream`` (a raw stream handle) over the windows ``win`` describes;
+    the caller has checked the inputs."""
+    NW, P, T = win.shape
     M = pmasks.shape[0]
-    out = [torch.empty((NW, T), dtype=torch.int32, device=windows.device)
+    dev = win.device
+    out = [torch.empty((NW, T), dtype=torch.int32, device=dev)
            for _ in range(4)]
-    final = torch.empty((T,), dtype=torch.int32, device=windows.device)
+    final = torch.empty((T,), dtype=torch.int32, device=dev)
     pidx = _pure_index(pmasks, eq_mode)
-    carries = _carries(1, M, T, windows.device)
+    carries = _carries(1, M, T, dev)
     _raise_on(lib.sassy_scan_meta(
-        _ptr(windows), _ptr(tile0), _ptr(valid_from), _ptr(valid_to),
+        *_desc_args(win), _ptr(tile0), _ptr(valid_from), _ptr(valid_to),
         _ptr(pmasks), _ptr(is_pad), _ptr(h_init), _ptr(pidx),
         *(_ptr(o) for o in out), _ptr(final), _ptr(carries),
         T, NW, P, M, m_real, boundary_m, k, EQ_MODES[eq_mode], stream,
@@ -427,20 +501,21 @@ def launch(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
     return (*out, final)
 
 
-def launch_q(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad,
+def launch_q(lib, win, tile0, valid_from, valid_to, pmasks, is_pad,
              h_init, m_real, boundary_m, k: int, eq_mode: str, stream):
     """Allocate the outputs and launch the q2meta kernel of ``lib`` on
-    ``stream``; the caller has checked the inputs."""
-    NW, P, T = windows.shape
+    ``stream`` over the windows ``win`` describes; the caller has checked
+    the inputs."""
+    NW, P, T = win.shape
     Q, M = pmasks.shape[:2]
-    dev = windows.device
+    dev = win.device
     out = [torch.empty((Q, NW, T), dtype=torch.int32, device=dev)
            for _ in range(4)]
     final = torch.empty((Q, T), dtype=torch.int32, device=dev)
     pidx = _pure_index(pmasks, eq_mode)
     carries = _carries(Q, M, T, dev)
     _raise_on(lib.sassy_scan_q_meta(
-        _ptr(windows), _ptr(tile0), _ptr(valid_from), _ptr(valid_to),
+        *_desc_args(win), _ptr(tile0), _ptr(valid_from), _ptr(valid_to),
         _ptr(pmasks), _ptr(is_pad), _ptr(h_init), _ptr(pidx), _ptr(m_real),
         _ptr(boundary_m), *(_ptr(o) for o in out), _ptr(final),
         _ptr(carries), T, NW, P, M, Q, k, EQ_MODES[eq_mode], stream,
@@ -448,63 +523,73 @@ def launch_q(lib, windows, tile0, valid_from, valid_to, pmasks, is_pad,
     return (*out, final)
 
 
-def launch_scan(lib, windows, tile0, pmasks, is_pad, h_init, m_real: int,
+def launch_scan(lib, win, tile0, pmasks, is_pad, h_init, m_real: int,
                 boundary_m: int, eq_mode: str, stream):
     """Allocate the outputs and launch the q1 kernel of ``lib`` on
-    ``stream``; the caller has checked the inputs."""
-    NW, P, T = windows.shape
+    ``stream`` over the windows ``win`` describes; the caller has checked
+    the inputs."""
+    NW, P, T = win.shape
     M = pmasks.shape[0]
-    out = [torch.empty((NW, T), dtype=torch.int32, device=windows.device)
+    dev = win.device
+    out = [torch.empty((NW, T), dtype=torch.int32, device=dev)
            for _ in range(3)]
     pidx = _pure_index(pmasks, eq_mode)
-    carries = _carries(1, M, T, windows.device)
+    carries = _carries(1, M, T, dev)
     _raise_on(lib.sassy_scan(
-        _ptr(windows), _ptr(tile0), _ptr(pmasks), _ptr(is_pad), _ptr(h_init),
-        _ptr(pidx), *(_ptr(o) for o in out), _ptr(carries), T, NW, P, M,
-        m_real, boundary_m, EQ_MODES[eq_mode], stream,
+        *_desc_args(win), _ptr(tile0), _ptr(pmasks), _ptr(is_pad),
+        _ptr(h_init), _ptr(pidx), *(_ptr(o) for o in out), _ptr(carries),
+        T, NW, P, M, m_real, boundary_m, EQ_MODES[eq_mode], stream,
     ), "scan")
     return tuple(out)
 
 
-def launch_scan_q(lib, windows, tile0, pmasks, is_pad, h_init, m_real,
+def launch_scan_q(lib, win, tile0, pmasks, is_pad, h_init, m_real,
                   boundary_m, eq_mode: str, stream):
     """Allocate the outputs and launch the q2 kernel of ``lib`` on
-    ``stream``; the caller has checked the inputs."""
-    NW, P, T = windows.shape
+    ``stream`` over the windows ``win`` describes; the caller has checked
+    the inputs."""
+    NW, P, T = win.shape
     Q, M = pmasks.shape[:2]
-    dev = windows.device
+    dev = win.device
     out = [torch.empty((Q, NW, T), dtype=torch.int32, device=dev)
            for _ in range(3)]
     pidx = _pure_index(pmasks, eq_mode)
     carries = _carries(Q, M, T, dev)
     _raise_on(lib.sassy_scan_q(
-        _ptr(windows), _ptr(tile0), _ptr(pmasks), _ptr(is_pad), _ptr(h_init),
-        _ptr(pidx), _ptr(m_real), _ptr(boundary_m), *(_ptr(o) for o in out),
-        _ptr(carries), T, NW, P, M, Q, EQ_MODES[eq_mode], stream,
+        *_desc_args(win), _ptr(tile0), _ptr(pmasks), _ptr(is_pad),
+        _ptr(h_init), _ptr(pidx), _ptr(m_real), _ptr(boundary_m),
+        *(_ptr(o) for o in out), _ptr(carries), T, NW, P, M, Q,
+        EQ_MODES[eq_mode], stream,
     ), "scan_q")
     return tuple(out)
 
 
-def scan_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
+def scan_meta(win, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
               m_real: int, boundary_m: int, k: int, eq_mode: str):
     """Single-pattern window scan with selection metadata.
 
-    windows (NW, P, T) int32 text words; tile0 (T,) bool, the tile owns the
-    text start; valid_from/valid_to (T,) int32 owned range; pmasks (M, P),
-    is_pad (M,), h_init (M,) int32 bit patterns (ascii: pmasks (M, P - 1),
-    the validity plane has no mask); eq_mode "iupac", "pure"
-    (ACGT rows, one plane each) or "ascii". Returns vp, vm, cost, meta,
-    each (NW, T), and final (T,), all int32.
+    win: a ``myers_torch.Windows`` descriptor (the packed planes and each
+    tile's ``wstart``/``wend``: window word i of tile t, plane p, is
+    ``planes[p, wstart[t] + i]`` where ``0 <= wstart[t] + i <
+    min(wend[t], L)``, else 0; ``Windows.of`` describes an (NW, P, T)
+    window tensor); tile0 (T,) bool, the tile owns the text
+    start; valid_from/valid_to (T,) int32 owned range; pmasks (M, P), is_pad
+    (M,), h_init (M,) int32 bit patterns (ascii: pmasks (M, P - 1), the
+    validity plane has no mask); eq_mode "iupac", "pure" (ACGT rows, one
+    plane each) or "ascii". Returns vp, vm, cost, meta, each (NW, T), and
+    final (T,), all int32.
     """
-    if windows.device.type == "cpu":
-        return scan_meta_plain(windows, tile0, valid_from, valid_to, pmasks,
+    if win.device.type == "cpu":
+        return scan_meta_plain(win, tile0, valid_from, valid_to, pmasks,
                                is_pad, h_init, m_real, boundary_m, k, eq_mode)
-    dev = _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
-                        h_init, eq_mode, ())
+    win = _descriptor(win)
+    dev = win.device
+    _check_inputs(win.shape, dev, tile0, valid_from, valid_to, pmasks,
+                  is_pad, h_init, eq_mode, ())
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        outs = launch(lib, windows, tile0, valid_from, valid_to, pmasks,
+        outs = launch(lib, win, tile0, valid_from, valid_to, pmasks,
                       is_pad, h_init, m_real, boundary_m, k, eq_mode, stream)
     scan_meta.launches += 1
     return outs
@@ -513,7 +598,7 @@ def scan_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
 scan_meta.launches = 0
 
 
-def scan_q_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
+def scan_q_meta(win, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
                 m_real, boundary_m, k: int, eq_mode: str):
     """Pattern-batched window scan with selection metadata.
 
@@ -523,19 +608,21 @@ def scan_q_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
     vectors are shared. Returns vp, vm, cost, meta, each (Q, NW, T), and
     final (Q, T), all int32.
     """
-    if windows.device.type == "cpu":
-        return scan_q_meta_plain(windows, tile0, valid_from, valid_to,
+    if win.device.type == "cpu":
+        return scan_q_meta_plain(win, tile0, valid_from, valid_to,
                                  pmasks, is_pad, h_init, m_real, boundary_m,
                                  k, eq_mode)
     Q = pmasks.shape[0]
-    dev = _check_inputs(windows, tile0, valid_from, valid_to, pmasks, is_pad,
-                        h_init, eq_mode, (Q,))
+    win = _descriptor(win)
+    dev = win.device
+    _check_inputs(win.shape, dev, tile0, valid_from, valid_to, pmasks,
+                  is_pad, h_init, eq_mode, (Q,))
     _check("m_real", m_real, torch.int32, (Q,), dev)
     _check("boundary_m", boundary_m, torch.int32, (Q,), dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        outs = launch_q(lib, windows, tile0, valid_from, valid_to, pmasks,
+        outs = launch_q(lib, win, tile0, valid_from, valid_to, pmasks,
                         is_pad, h_init, m_real, boundary_m, k, eq_mode,
                         stream)
     scan_q_meta.launches += 1
@@ -545,22 +632,24 @@ def scan_q_meta(windows, tile0, valid_from, valid_to, pmasks, is_pad, h_init,
 scan_q_meta.launches = 0
 
 
-def scan(windows, tile0, pmasks, is_pad, h_init, m_real: int,
-         boundary_m: int, eq_mode: str):
+def scan(win, tile0, pmasks, is_pad, h_init, m_real: int, boundary_m: int,
+         eq_mode: str):
     """Single-pattern window scan without metadata (q1).
 
     The inputs of ``scan_meta`` without the owned range and k. Returns vp,
     vm and cost, each (NW, T) int32.
     """
-    if windows.device.type == "cpu":
-        return scan_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
+    if win.device.type == "cpu":
+        return scan_plain(win, tile0, pmasks, is_pad, h_init, m_real,
                           boundary_m, eq_mode)
-    dev = _check_inputs(windows, tile0, None, None, pmasks, is_pad, h_init,
-                        eq_mode, ())
+    win = _descriptor(win)
+    dev = win.device
+    _check_inputs(win.shape, dev, tile0, None, None, pmasks, is_pad, h_init,
+                  eq_mode, ())
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        outs = launch_scan(lib, windows, tile0, pmasks, is_pad, h_init,
+        outs = launch_scan(lib, win, tile0, pmasks, is_pad, h_init,
                            m_real, boundary_m, eq_mode, stream)
     scan.launches += 1
     return outs
@@ -569,25 +658,27 @@ def scan(windows, tile0, pmasks, is_pad, h_init, m_real: int,
 scan.launches = 0
 
 
-def scan_q(windows, tile0, pmasks, is_pad, h_init, m_real, boundary_m,
+def scan_q(win, tile0, pmasks, is_pad, h_init, m_real, boundary_m,
            eq_mode: str):
     """Pattern-batched window scan without metadata (q2).
 
     The inputs of ``scan_q_meta`` without the owned range and k. Returns
     vp, vm and cost, each (Q, NW, T) int32.
     """
-    if windows.device.type == "cpu":
-        return scan_q_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
+    if win.device.type == "cpu":
+        return scan_q_plain(win, tile0, pmasks, is_pad, h_init, m_real,
                             boundary_m, eq_mode)
     Q = pmasks.shape[0]
-    dev = _check_inputs(windows, tile0, None, None, pmasks, is_pad, h_init,
-                        eq_mode, (Q,))
+    win = _descriptor(win)
+    dev = win.device
+    _check_inputs(win.shape, dev, tile0, None, None, pmasks, is_pad, h_init,
+                  eq_mode, (Q,))
     _check("m_real", m_real, torch.int32, (Q,), dev)
     _check("boundary_m", boundary_m, torch.int32, (Q,), dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        outs = launch_scan_q(lib, windows, tile0, pmasks, is_pad, h_init,
+        outs = launch_scan_q(lib, win, tile0, pmasks, is_pad, h_init,
                              m_real, boundary_m, eq_mode, stream)
     scan_q.launches += 1
     return outs
@@ -652,8 +743,10 @@ def scan_qn(windows, tile0, pmasks, is_pad, h_init, m_real, boundary_m,
         return scan_qn_plain(windows, tile0, pmasks, is_pad, h_init, m_real,
                              boundary_m, eq_mode, U, unroll, WU)
     Q, M = pmasks.shape[:2]
-    dev = _check_inputs(windows, tile0, None, None, pmasks, is_pad, h_init,
-                        eq_mode, (Q,))
+    dev = windows.device
+    _check_inputs(tuple(windows.shape), dev, tile0, None, None, pmasks,
+                  is_pad, h_init, eq_mode, (Q,))
+    _check_window_tensor(windows)
     _check("m_real", m_real, torch.int32, (Q,), dev)
     _check("boundary_m", boundary_m, torch.int32, (Q,), dev)
     _check_qn(Q, windows.shape[0], M, U, WU)

@@ -4,10 +4,13 @@ Port of ``sassy_tpu/ops/myers_xla.py``: text bytes -> P bit-planes of
 32-position words (``pack``: the pack kernel of ``myers_cuda`` on the
 card, ``pack_plain`` its plain version; with overhang,
 ``overlay_n_tail`` sets the 'N' positions past the text end) ->
-halo-tiled windows in the (NW, P, T) layout (``build_windows``) -> the
-transposed Myers'99 word scan (the CUDA kernels of ``myers_cuda``;
-``scan_core`` is their plain version) -> candidate selection
-(``minima``) -> a sorted host list of (end position, cost).
+halo-tiled windows, described and not copied (``Windows``: each tile's
+first plane word and the end of the words it may read;
+``tile_windows``) -> the transposed Myers'99 word scan (the CUDA kernels
+of ``myers_cuda``, which read each window straight from the planes;
+``windows_plain`` gathers the (NW, P, T) windows for their plain
+versions, ``scan_core``) -> candidate selection (``minima``) -> a sorted
+host list of (end position, cost).
 
 Two paths, as in the reference engine:
 
@@ -29,7 +32,7 @@ thread that both engines share (``dispatch_async``), on the caller's
 current CUDA stream, and returns a ``finish()`` that waits for the sorted
 candidate list; ``prepare`` keeps the prepared texts of live read-only
 source arrays (``_IdCache``), so a second search over the same array
-reuses its planes and windows.
+reuses its planes and window descriptors.
 
 Device tensors hold uint32 bit words as int32; the plain versions compute
 on int64 values masked to 32 bits (see ``minima.u32``).
@@ -67,6 +70,9 @@ __all__ = [
     "pack",
     "pack_plain",
     "overlay_n_tail",
+    "Windows",
+    "windows_plain",
+    "tile_windows",
     "build_windows",
     "scan_core",
     "pure_plane_index",
@@ -90,7 +96,8 @@ _WORKER_LOCK = threading.Lock()
 def _worker() -> ThreadPoolExecutor:
     """The one dispatch thread of both engines: dispatches run in the order
     submitted, one at a time, so a text's caches (a ``PreparedText``'s
-    windows, a ``TextSet``'s planes) are touched by one thread at once."""
+    window descriptors, a ``TextSet``'s planes) are touched by one thread
+    at once."""
     global _WORKER
     with _WORKER_LOCK:
         if _WORKER is None:
@@ -226,8 +233,91 @@ def overlay_n_tail(planes: torch.Tensor, n: int, e: int) -> torch.Tensor:
     return out
 
 
-def build_windows(planes: torch.Tensor, T: int, W: int, halo: int) -> torch.Tensor:
-    """(P, GW) planes -> (NW, P, T) int32 windows, NW = W + halo + 1.
+#: Plane rows the scan kernels read are a multiple of this many words,
+#: 16-byte aligned: the vector loads of ``csrc/window_read.cuh``.
+PLANE_ALIGN_WORDS = 4
+
+
+def aligned_words(n: int) -> int:
+    """n plane words (at least one) rounded up to a multiple of
+    ``PLANE_ALIGN_WORDS``."""
+    return cdiv(max(n, 1), PLANE_ALIGN_WORDS) * PLANE_ALIGN_WORDS
+
+
+def align_planes(planes: torch.Tensor) -> torch.Tensor:
+    """(P, L) planes whose rows the scan kernels can read: ``planes`` when
+    they are contiguous and L is a multiple of ``PLANE_ALIGN_WORDS``, else
+    a copy zero-padded to one (a fresh tensor, so aligned)."""
+    P, L = planes.shape
+    width = aligned_words(L)
+    if width == L and planes.is_contiguous():
+        return planes
+    out = torch.zeros((P, width), dtype=planes.dtype, device=planes.device)
+    out[:, :L] = planes
+    return out
+
+
+@dataclass(frozen=True)
+class Windows:
+    """The windows of T tiles, described and not copied: window word i of
+    tile t, plane p, is ``planes[p, wstart[t] + i]`` where ``0 <=
+    wstart[t] + i < min(wend[t], L)``, and 0 otherwise. What the scan
+    kernels read (``csrc/window_read.cuh``); ``gather`` makes the (NW, P,
+    T) window tensor of their plain versions (``windows_plain``)."""
+
+    planes: torch.Tensor  # (P, L) int32
+    wstart: torch.Tensor  # (T,) int64 plane word of window word 0
+    wend: torch.Tensor  # (T,) int64 exclusive end of the words it may read
+    NW: int
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        """(NW, P, T), the shape of the windows it describes."""
+        return self.NW, self.planes.shape[0], self.wstart.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.planes.device
+
+    def take(self, ids: torch.Tensor) -> "Windows":
+        """The windows of the tiles ``ids`` alone, in that order."""
+        return replace(self, wstart=self.wstart[ids], wend=self.wend[ids])
+
+    def gather(self) -> torch.Tensor:
+        """The (NW, P, T) int32 windows (``windows_plain``)."""
+        return windows_plain(self.planes, self.wstart, self.wend, self.NW)
+
+    @classmethod
+    def of(cls, windows: torch.Tensor) -> "Windows":
+        """The descriptor of an (NW, P, T) window tensor's own words: tile
+        t's window laid out as plane words [t NW, (t + 1) NW)."""
+        NW, P, T = windows.shape
+        planes = align_planes(windows.permute(1, 2, 0).reshape(P, T * NW))
+        wstart = torch.arange(T, dtype=torch.int64,
+                              device=windows.device) * NW
+        return cls(planes, wstart, wstart + NW, NW)
+
+
+def windows_plain(planes: torch.Tensor, wstart: torch.Tensor,
+                  wend: torch.Tensor, NW: int) -> torch.Tensor:
+    """Plain version of the scan kernels' window read: (P, L) planes and
+    (T,) int64 ``wstart``/``wend`` -> the (NW, P, T) int32 windows, word i
+    of tile t ``planes[:, wstart[t] + i]`` where ``0 <= wstart[t] + i <
+    min(wend[t], L)``, else 0. One gather."""
+    windows_plain.calls += 1
+    P, L = planes.shape
+    i = wstart[None, :] + torch.arange(NW, dtype=torch.int64,
+                                       device=planes.device)[:, None]
+    keep = (i >= 0) & (i < wend.clamp(max=L)[None, :])
+    got = planes[:, i.clamp(0, max(L - 1, 0))]
+    return torch.where(keep[None], got, 0).permute(1, 0, 2).contiguous()
+
+
+windows_plain.calls = 0
+
+
+def tile_windows(planes: torch.Tensor, T: int, W: int, halo: int) -> Windows:
+    """The halo-tiled windows of (P, L) planes, NW = W + halo + 1.
 
     Tile t's window is flat words [t*W - halo, t*W + W]: the halo of left
     context, its W owned words and one right-context word, so the minima
@@ -236,20 +326,19 @@ def build_windows(planes: torch.Tensor, T: int, W: int, halo: int) -> torch.Tens
     0's window is the text head [0, NW): it owns the true start and needs
     no halo. Any halo width works, including halo > W.
     """
-    P, gw = planes.shape
+    L = planes.shape[1]
     NW = W + halo + 1
-    TW = T * W
-    own = min(TW, gw)
-    # flat word f sits at ext[:, halo + f]; window word i of tile t is
-    # ext[:, t*W + i]: an overlapping strided view, copied once
-    ext = torch.zeros((P, halo + TW + W), dtype=planes.dtype,
-                      device=planes.device)
-    ext[:, halo : halo + own] = planes[:, :own]
-    win = ext.as_strided((NW, P, T), (1, ext.stride(0), W)).contiguous()
-    head = min(NW, gw)
-    win[:head, :, 0] = planes[:, :head].T
-    win[head:, :, 0] = 0
-    return win
+    t = torch.arange(T, dtype=torch.int64, device=planes.device)
+    wstart = torch.where(t == 0, 0, t * W - halo)
+    wend = torch.where(t == 0, min(NW, L), min(T * W, L))
+    return Windows(planes, wstart, wend, NW)
+
+
+def build_windows(planes: torch.Tensor, T: int, W: int, halo: int) -> torch.Tensor:
+    """(P, GW) planes -> the (NW, P, T) int32 windows of ``tile_windows``,
+    gathered (``windows_plain``): for the plain path, the tests and the
+    kernel-design tools."""
+    return tile_windows(planes, T, W, halo).gather()
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -430,12 +519,14 @@ def _upload(text, device: torch.device) -> torch.Tensor:
 
 class PreparedText:
     """Device-resident bit-planes of one text, reusable across patterns
-    and k, with its windows cached per tile plan and overhang steps."""
+    and k, with its window descriptors cached per tile plan and overhang
+    steps (the scan kernels read the windows from the planes)."""
 
     def __init__(self, profile: Profile, text, device):
         self.profile = profile
         self.device = torch.device(device)
         self.n = len(text)
+        # a multiple of PLANE_ALIGN_WORDS: the bucket lattice's are
         self.gw = _bucket_words(cdiv(self.n, WORD_BITS) + TAIL_RESERVE_WORDS)
         # the n uploaded bytes as they are: the pack zeroes words past them
         self.planes = pack(
@@ -445,7 +536,7 @@ class PreparedText:
             tuple(profile.pack_plane_masks), profile.pack_fold_case,
             self.gw,
         )
-        self._wins: dict = {}
+        self._descs: dict = {}
         self._overlay: tuple | None = None
 
     def planes_for(self, steps: int) -> torch.Tensor:
@@ -459,23 +550,23 @@ class PreparedText:
         return self._overlay[1]
 
     def windows(self, T: int, W: int, halo: int, steps: int = 0,
-                tail_word: int | None = None) -> torch.Tensor:
-        """(NW, P, T) windows of ``planes_for(steps)`` for one tile plan;
+                tail_word: int | None = None) -> Windows:
+        """The ``tile_windows`` of ``planes_for(steps)`` for one tile plan;
         with ``tail_word``, the last tile's window is instead the NW words
-        from that word on (the overhang tail tile). The last two plans
-        stay cached (an entry is ~(1 + (halo+1)/W) x the planes' size)."""
+        from that word on (the overhang tail tile). The descriptors of the
+        last two plans stay cached (16 bytes a tile)."""
         key = (steps, T, W, halo, tail_word)
-        got = self._wins.get(key)
+        got = self._descs.get(key)
         if got is None:
-            planes = self.planes_for(steps)
-            got = build_windows(planes, T, W, halo)
+            got = tile_windows(self.planes_for(steps), T, W, halo)
             if tail_word is not None:
-                hi = min(planes.shape[1], tail_word + W + halo + 1)
-                got[:, :, T - 1] = 0
-                got[: hi - tail_word, :, T - 1] = planes[:, tail_word:hi].T
-            while len(self._wins) >= 2:
-                self._wins.pop(next(iter(self._wins)))
-            self._wins[key] = got
+                wstart, wend = got.wstart.clone(), got.wend.clone()
+                wstart[T - 1] = tail_word
+                wend[T - 1] = min(self.gw, tail_word + got.NW)
+                got = replace(got, wstart=wstart, wend=wend)
+            while len(self._descs) >= 2:
+                self._descs.pop(next(iter(self._descs)))
+            self._descs[key] = got
         return got
 
 
@@ -484,9 +575,11 @@ class _IdCache:
     ``max_items`` of them (reference ``_IdCache``, myers_xla.py:1188-1214).
 
     Each entry holds a weakref to its source whose callback drops the entry
-    when the source dies: on the card an entry holds a text's planes and up
-    to two window plans (~1.5 GiB for 1 GiB of DNA), and the reverse strand
-    is a fresh view on every search, so only live sources may keep one. The
+    when the source dies: on the card an entry holds a text's planes (0.5
+    GiB for 1 GiB of DNA, 1.125 GiB of ascii), with overhang one 'N'
+    overlay copy of them, and the descriptors of up to two tile plans (16
+    bytes a tile, ~8.5 MB at 1 GiB), and the reverse strand is a fresh view
+    on every search, so only live sources may keep one. The
     key takes the profile's name and case sensitivity, which set the
     packing.
 
@@ -555,13 +648,12 @@ class _IdCache:
 class ScanInputs:
     """Everything one scan + selection needs, on the engine's device."""
 
-    windows: torch.Tensor  # (NW, P, T) int32
+    windows: Windows  # the tiles' windows in the planes, (NW, P, T)
     tile0: torch.Tensor  # (T,) bool: the tile starts from the true boundary
     text_start: torch.Tensor  # (T,) bool: the tile owns the text start
     valid_from: torch.Tensor  # (T,) int32 window-local, -1 = owns position 0
     valid_to: torch.Tensor  # (T,) int32 window-local last owned position
     islast: torch.Tensor  # (T,) int32 window-local last position, -1 = none
-    offset: torch.Tensor  # (T,) int64 absolute position of window position 0
     pmasks: torch.Tensor  # (M, P) int32
     is_pad: torch.Tensor  # (M,) int32
     h_init: torch.Tensor  # (M,) int32
@@ -582,10 +674,16 @@ class ScanInputs:
     halo: int = 0
     hier_s: int = 0  # rows of the suffix prefilter; 0 = off
 
+    @property
+    def offset(self) -> torch.Tensor:
+        """(T,) int64 absolute position of window position 0: 32 times the
+        tile's first plane word."""
+        return self.windows.wstart * WORD_BITS
+
 
 class TorchEngine:
-    """Single-pattern engine: device pack, windows, scan kernel and
-    selection, then one host copy of the candidate list. On a CUDA device
+    """Single-pattern engine: device pack, window descriptors, scan kernel
+    and selection, then one host copy of the candidate list. On a CUDA device
     the scan is the hand-written kernel (and "cuda" without one raises);
     on the CPU, its plain version."""
 
@@ -662,9 +760,10 @@ class TorchEngine:
 
         dev = self.device
         WB = WORD_BITS
+        win = prep.windows(T, W, halo, steps, tail_word)
         tile = torch.arange(T, dtype=torch.int64, device=dev)
         text_start = tile == 0
-        offset = torch.where(text_start, 0, tile * (W * WB) - halo * WB)
+        offset = win.wstart * WB  # the tail tile's too
         vfrom = torch.where(text_start, -1, halo * WB)
         vto_raw = torch.where(text_start, W * WB, (halo + W) * WB)
         tile0 = text_start
@@ -683,7 +782,6 @@ class TorchEngine:
             vto = torch.minimum(vto_raw, n - offset)
             islast = torch.full_like(tile, -1)
             tile0 = text_start | (tail & (s0 == 0))
-            offset = torch.where(tail, s0, offset)
             vfrom = torch.where(tail, n - s0, vfrom)
             vto = torch.where(tail, max_pos - s0, vto)
             islast = torch.where(tail, max_pos - s0, islast)
@@ -692,10 +790,10 @@ class TorchEngine:
             pmasks, is_pad, h_init, device=dev
         )
         return ScanInputs(
-            windows=prep.windows(T, W, halo, steps, tail_word), tile0=tile0,
+            windows=win, tile0=tile0,
             text_start=text_start, valid_from=vfrom.to(torch.int32),
             valid_to=vto.to(torch.int32), islast=islast.to(torch.int32),
-            offset=offset, pmasks=pm_t, is_pad=pad_t, h_init=hinit_t,
+            pmasks=pm_t, is_pad=pad_t, h_init=hinit_t,
             m_real=m, boundary_m=boundary_m, k=k, eq_mode=eq_mode,
             all_minima=all_minima, fast=fast, alpha=alpha,
             n_prev=n_prev if tail_word is not None else 0,
@@ -728,10 +826,10 @@ class TorchEngine:
         owned position of a tile left out costs > k, so no plateau of
         candidates reaches across it (reference myers_xla.py:821-830)."""
         return replace(
-            inp, windows=inp.windows[:, :, ids].contiguous(),
+            inp, windows=inp.windows.take(ids),
             tile0=inp.tile0[ids], text_start=inp.text_start[ids],
             valid_from=inp.valid_from[ids], valid_to=inp.valid_to[ids],
-            islast=inp.islast[ids], offset=inp.offset[ids], hier_s=0,
+            islast=inp.islast[ids], hier_s=0,
         )
 
     def scan(self, inp: ScanInputs):

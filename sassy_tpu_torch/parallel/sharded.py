@@ -17,8 +17,10 @@ contiguous run of slots on its one device, slot after slot:
   ``torch.distributed.all_gather`` of every slot's first ``H + 1`` and
   last ``H`` words (the reference's ``lax.ppermute``).
 - **the scan**: each slot's window is tiled with the port's H100 plan
-  (``plan.plan_tiles``, ``build_windows``) and scanned by the hand-written
-  kernels: without overhang q1meta (one pattern a slot) or q2meta, with
+  (``plan.plan_tiles``, ``tile_windows``: each tile's first word and the
+  end of its words in the slot's planes, which the kernels read in place)
+  and scanned by the hand-written kernels: without overhang q1meta (one
+  pattern a slot) or q2meta, with
   the ACGT-pure eq when every pattern is pure, after the suffix prefilter
   where it pays (``plan.HIER_MIN_SAVED_PAIRS``); with overhang q1 or q2
   and the position-level selection, as the reference selects every
@@ -53,12 +55,14 @@ from .. import semantics
 from ..ops import minima, myers_cuda, plan
 from ..ops.bitpack import WORD_BITS
 from ..ops.myers_torch import (
+    Windows,
     _upload,
-    build_windows,
+    aligned_words,
     engine_device,
     overlay_n_tail,
     pack,
     state_from_numpy,
+    tile_windows,
 )
 from ..ops.plan import (
     _bucket_rows,
@@ -215,7 +219,7 @@ class _Slot:
     offset: int  # absolute position of window position 0
     min_pos: int  # first owned window position
     owned_end: int  # last owned window position
-    windows: torch.Tensor | None = None  # (NW, P, T)
+    windows: Windows | None = None  # the tiles' windows in the planes
     W: int = 0
     halo: int = 0
     start: torch.Tensor | None = None  # (T,) bool: tile 0 of shard 0
@@ -341,15 +345,20 @@ class ShardedSearch:
             torch.cat([planes[sl.d][:, : H + 1], planes[sl.d][:, S - H :]], 1)
             for sl in slots]), mesh).reshape(Dp * Dt, -1, 2 * H + 1)
         P = edges.shape[1]
+        # a slot's window: S + H + 1 words, zero-padded to the kernels' row
+        # alignment in the same copy
+        words = S + H + 1
+        tail = torch.zeros((P, aligned_words(words) - words),
+                           dtype=torch.int32, device=dev)
         wins = {}
         for d in sorted(planes):
             right = (edges[d + 1, :, : H + 1] if d + 1 < Dt else
                      torch.zeros((P, H + 1), dtype=torch.int32, device=dev))
             if d == 0:
-                wins[d] = torch.cat([planes[d], right], 1)
+                wins[d] = torch.cat([planes[d], right, tail], 1)
             else:
                 wins[d] = torch.cat([edges[d - 1, :, H + 1 :], planes[d],
-                                     right[:, :1]], 1)
+                                     right[:, :1], tail], 1)
         t0 = self._tick("halo", t0)
 
         halo_t = halo_words(M, k)
@@ -361,7 +370,7 @@ class ShardedSearch:
         planned: dict = {}
         for sl in slots:
             q0 = sl.p * Ql
-            self._plan_slot(sl, wins[sl.d], halo_t, max_pos, planned)
+            self._plan_slot(sl, wins[sl.d], words, halo_t, max_pos, planned)
             pmq = pm_t[q0 : q0 + Ql]
             if fast and hier_s and self._hier_on(Ql, M, hier_s, sl):
                 self._prefilter(sl, pmq, hier_s, k, eq_mode)
@@ -421,10 +430,13 @@ class ShardedSearch:
     _PLANNED = ("windows", "W", "halo", "start", "vf", "vt", "il",
                 "pos_base")
 
-    def _plan_slot(self, sl: _Slot, win: torch.Tensor, halo: int,
-                   max_pos: int, planned: dict) -> None:
-        """Tile the slot's window with the H100 plan and intersect each
-        tile's owned range with the shard's (reference
+    def _plan_slot(self, sl: _Slot, win: torch.Tensor, words: int,
+                   halo: int, max_pos: int, planned: dict) -> None:
+        """Tile the slot's window, the first ``words`` words of its (P, L)
+        planes (L a multiple of the kernels' row alignment, zero past
+        ``words``), with the H100 plan (the descriptors of
+        ``tile_windows``) and intersect each tile's owned range with the
+        shard's (reference
         ``sharded.py:247-266``); the slots of one shard share the plan
         (``planned``, by shard)."""
         if sl.d in planned:
@@ -432,9 +444,9 @@ class ShardedSearch:
                 setattr(sl, f, v)
             return
         dev = win.device
-        T, W, halo = plan_tiles(win.shape[1], halo)
+        T, W, halo = plan_tiles(words, halo)
         sl.W, sl.halo = W, halo
-        sl.windows = build_windows(win, T, W, halo)
+        sl.windows = tile_windows(win, T, W, halo)
         tile = torch.arange(T, dtype=torch.int64, device=dev)
         ws = torch.where(tile == 0, 0, (tile * W - halo) * WB)
         vf = torch.where(tile == 0, -1, halo * WB)
@@ -481,16 +493,16 @@ class ShardedSearch:
         if ids.numel() == 0:
             sl.windows = None
             return
-        sl.windows = sl.windows[:, :, ids].contiguous()
+        sl.windows = sl.windows.take(ids)
         sl.start, sl.vf, sl.vt, sl.il, sl.pos_base = (
             x[ids] for x in (sl.start, sl.vf, sl.vt, sl.il, sl.pos_base))
 
     @staticmethod
     def _scan(sl: _Slot, pmq, pad_t, hinit_t, m, boundary_m, m_q, bm_q, k,
               eq_mode, fast: bool) -> tuple:
-        """The kernel over the slot's windows; outputs with a pattern
-        axis: word level q1meta (one pattern) or q2meta, (vp, vm, cost,
-        meta, final); position level q1 or q2, (vp, vm, cost)."""
+        """The kernel over the slot's windows (read in place); outputs with
+        a pattern axis: word level q1meta (one pattern) or q2meta, (vp, vm,
+        cost, meta, final); position level q1 or q2, (vp, vm, cost)."""
         Ql = pmq.shape[0]
         if Ql == 1:
             if fast:

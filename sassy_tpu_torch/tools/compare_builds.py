@@ -1,16 +1,25 @@
 """Time the scan kernels of two checkouts of the port on one GPU, in turns.
 
     python -m sassy_tpu_torch.tools.compare_builds OLD_ROOT NEW_ROOT \
-        [--turns 2] [--search-many N [--plant]] [--overhang-reads N] \
+        [--turns 2] [--q2-reads N]
+        [--off-target] [--search-many N [--plant]] [--overhang-reads N]
         [--out FILE]
 
 Each run is a fresh process that imports the ``sassy_tpu_torch`` of one
 checkout root, builds that checkout's kernel library from its own sources,
 and times its kernels with CUDA events (mean of ``--reps`` launches after
-one warm-up), at ``chip_smoke.py``'s shapes:
+one warm-up), at ``chip_smoke.py``'s shapes, on the windows as that
+checkout's engines hand them to the kernels (a window tensor, or a
+descriptor of the planes where the checkout has ``TextSet.descriptor``):
 
-- q1meta (``scan_meta``) over the windows of 1 GiB of random ACGT, a 23 bp
-  pattern at k=3, for the pure and the iupac eq (phase 2's headline);
+- the device memory that ``TorchEngine.prepare`` and one
+  ``build_inputs`` of 1 GiB of random ACGT hold, and the host-clock time
+  of ``build_inputs`` on a prepared text with its window cache cleared
+  (the plan and the windows, or their descriptors; the mean of
+  ``--reps``, each ended by a synchronise);
+- q1meta (``scan_meta``) over the windows of that text, a 23 bp pattern
+  at k=3, for the pure and the iupac eq (phase 2's headline), and for
+  the ascii eq over the same bytes packed by the ascii profile;
 - q1 (``scan``), where the checkout has it, over the overlaid windows of
   that text for a 120 bp IUPAC pattern at k=10, alpha 0.1 (phase 9's
   shape);
@@ -18,6 +27,13 @@ one warm-up), at ``chip_smoke.py``'s shapes:
   dispatch chunk of the nanopore read set: 96 random 24 bp barcodes over
   10 kbp reads, k=3, as ``BatchEngine.scan`` launches it (phase 5's
   headline);
+- with ``--q2-reads N``, q2 (``scan_q``) on the first dispatch chunk of 8
+  random 120 bp patterns at k=10, alpha 0.1 over N random 10 kbp reads
+  (phase 10's shape at N = 33,400);
+- with ``--off-target``, q2meta on one full dispatch chunk of
+  ``evals/configs/off_targets_full.toml``'s shape as ``chip_smoke.py``
+  phase 5 makes it: 312 random 23 bp guides over 28 Mbp of random bases,
+  in pieces of the width the batched engine gives 3.12 Gbp;
 - with ``--search-many N``, where the checkout has the batched engine:
   ``Searcher("dna", rc=True).search_many`` of the 96 barcodes over N
   random 10 kbp reads, both strands, end to end (host clock), and, for
@@ -48,6 +64,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 PATTERN_LEN = 23
@@ -60,6 +77,10 @@ K = 3
 PLANT_AT = 5_000
 MUT_AT = 11
 DEVICE = "cuda"
+#: --off-target: guides, the genome the width is cut for, the bases made
+OFF_GUIDES = 312
+OFF_GENOME_BP = 3_120_000_000
+OFF_CHUNK_BP = 28_000_000
 #: --overhang-reads: patterns, their length, k and alpha
 OH_Q = 8
 OH_LEN = 120
@@ -83,7 +104,8 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 def _child(root: str, seed: int, mib: int, reps: int,
-           search_reads: int, plant: bool, overhang_reads: int) -> dict:
+           search_reads: int, plant: bool, overhang_reads: int,
+           q2_reads: int = 0, off_target: bool = False) -> dict:
     """One run: the kernels of the checkout at ``root``."""
     sys.path.insert(0, root)
     import torch
@@ -107,10 +129,29 @@ def _child(root: str, seed: int, mib: int, reps: int,
     out = {"root": root}
     eng = TorchEngine(dev)
     text = acgt(mib << 20)
-    prep = eng.prepare(dna, text)
     pattern = acgt(PATTERN_LEN).cpu().numpy()
-    for mode in ("pure", "iupac"):
-        inp = eng.build_inputs(dna, dna.encode(pattern), prep, K)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    prep = eng.prepare(dna, text)
+    inp = eng.build_inputs(dna, dna.encode(pattern), prep, K)
+    torch.cuda.synchronize()
+    out["prepared_gib"] = (torch.cuda.memory_allocated() - before) / 2**30
+    times = []
+    for _ in range(reps):
+        for cache in ("_wins", "_descs"):  # the parent's, this tree's
+            getattr(prep, cache, {}).clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.build_inputs(dna, dna.encode(pattern), prep, K)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["build_inputs_ms"] = sum(times) / reps
+    ascii_ = profiles.Ascii()
+    for mode in ("pure", "iupac", "ascii"):
+        prof = ascii_ if mode == "ascii" else dna
+        inp = eng.build_inputs(prof, prof.encode(pattern),
+                               prep if mode != "ascii"
+                               else eng.prepare(ascii_, text), K)
         inp.eq_mode = mode
         args = (inp.windows, inp.tile0, inp.valid_from, inp.valid_to,
                 inp.pmasks, inp.is_pad, inp.h_init, inp.m_real,
@@ -141,17 +182,61 @@ def _child(root: str, seed: int, mib: int, reps: int,
         (g,) = beng.groups(dna, codes, ts, K)
         pp = ts.piece_plan(g.halo, g.w_chars)
         q0, q1, t0, t1 = next(beng.chunks(g, pp))
-        win = ts.windows(dna, pp, False, t0, t1)
+        win = _chunk_windows(ts, dna, pp, t0, t1)
         out["q2meta_shape"] = [q1 - q0, pp.NW, t1 - t0]
         out["q2meta_pure_ms"] = _cuda_ms(
             lambda: beng.scan(win, g, pp, q0, q1, t0, t1, K), reps)
         del ts, win, reads
+        if off_target:
+            out.update(_off_target_chunk(acgt, dna, beng, reps))
+        if q2_reads and hasattr(myers_cuda, "scan_q"):
+            iupac = profiles.Iupac()
+            pats = acgt(OH_Q * OH_LEN).cpu().numpy().reshape(OH_Q, -1)
+            reads = acgt(q2_reads * READ_LEN).cpu().numpy().reshape(
+                q2_reads, -1)
+            ts = TextSet(list(reads), dev)
+            (g,) = beng.groups(iupac, [iupac.encode(p) for p in pats], ts,
+                               OH_K, OH_ALPHA)
+            pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
+            q0, q1, t0, t1 = next(beng.chunks(g, pp))
+            win = _chunk_windows(ts, iupac, pp, t0, t1)
+            out["q2_shape"] = [q1 - q0, pp.NW, t1 - t0, g.eq_mode]
+            out["q2_ms"] = _cuda_ms(
+                lambda: beng.scan(win, g, pp, q0, q1, t0, t1, OH_K), reps)
+            del ts, win, reads
         if search_reads:
             out.update(_search_many(dna, barcodes.reshape(N_BARCODES, -1),
                                     acgt, search_reads, plant))
     if overhang_reads and hasattr(myers_cuda, "scan_q"):
         out.update(_overhang_dispatch(acgt, overhang_reads))
     return out
+
+
+def _off_target_chunk(acgt, dna, beng, reps: int) -> dict:
+    """q2meta on one full dispatch chunk at off_targets_full's shape
+    (``chip_smoke.py`` phase 5's ``off_targets_chunk``)."""
+    from sassy_tpu_torch.ops.batch import TextSet, _piece_width
+
+    guides = acgt(OFF_GUIDES * PATTERN_LEN).cpu().numpy()
+    guides = [dna.encode(g) for g in guides.reshape(OFF_GUIDES, -1)]
+    ts = TextSet([acgt(OFF_CHUNK_BP).cpu().numpy()], "cuda")
+    (g,) = beng.groups(dna, guides, ts, K)
+    g.w_chars = _piece_width([OFF_GENOME_BP], 0, g.halo, g.Q, g.pair_bytes)
+    pp = ts.piece_plan(g.halo, g.w_chars)
+    q0, q1, t0, t1 = next(beng.chunks(g, pp))
+    win = _chunk_windows(ts, dna, pp, t0, t1)
+    return {"q2meta_off_shape": [q1 - q0, pp.NW, t1 - t0],
+            "q2meta_off_ms": _cuda_ms(
+                lambda: beng.scan(win, g, pp, q0, q1, t0, t1, K), reps)}
+
+
+def _chunk_windows(ts, prof, pp, t0, t1):
+    """A dispatch chunk's windows as the checkout's engine hands them to
+    the kernel: the descriptor where it has one, else the window
+    tensor."""
+    if hasattr(ts, "descriptor"):
+        return ts.descriptor(prof, pp, False, t0, t1)
+    return ts.windows(prof, pp, False, t0, t1)
 
 
 def _overhang_dispatch(acgt, n_reads: int) -> dict:
@@ -168,7 +253,8 @@ def _overhang_dispatch(acgt, n_reads: int) -> dict:
     pcodes = [iupac.encode(p) for p in pats]
     out = {"overhang_reads": n_reads}
     for run in ("cold", "warm"):
-        acc = {"windows": 0.0, "scan": 0.0, "select": 0.0}
+        acc = {"windows": 0.0, "descriptor": 0.0, "scan": 0.0,
+               "select": 0.0}
         calls = dict.fromkeys(acc, 0)
         eng = batch.BatchEngine(DEVICE)
         ts = batch.TextSet(reads, DEVICE)
@@ -189,8 +275,10 @@ def _overhang_dispatch(acgt, n_reads: int) -> dict:
                 return res
             setattr(obj, name, wrapper)
 
-        for obj, name in ((ts, "windows"), (eng, "scan"), (eng, "select")):
-            timed(obj, name)
+        for obj, name in ((ts, "windows"), (ts, "descriptor"),
+                          (eng, "scan"), (eng, "select")):
+            if hasattr(obj, name):
+                timed(obj, name)
         myers_cuda.scan_q.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -265,12 +353,15 @@ def main(argv=None) -> int:
     ap.add_argument("--search-many", type=int, default=0, metavar="N_READS")
     ap.add_argument("--plant", action="store_true")
     ap.add_argument("--overhang-reads", type=int, default=0, metavar="N")
+    ap.add_argument("--q2-reads", type=int, default=0, metavar="N")
+    ap.add_argument("--off-target", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.child:
         print(json.dumps(_child(a.child, a.seed, a.mib, a.reps,
-                                a.search_many, a.plant, a.overhang_reads)),
+                                a.search_many, a.plant, a.overhang_reads,
+                                a.q2_reads, a.off_target)),
               flush=True)
         return 0
     card = subprocess.run(
@@ -288,8 +379,10 @@ def main(argv=None) -> int:
             [sys.executable, __file__, a.old, a.new, "--child",
              str(Path(root).resolve()), "--seed", str(a.seed), "--mib",
              str(a.mib), "--reps", str(a.reps), "--search-many",
-             str(a.search_many), "--overhang-reads", str(a.overhang_reads)]
-            + (["--plant"] if a.plant else []),
+             str(a.search_many), "--overhang-reads", str(a.overhang_reads),
+             "--q2-reads", str(a.q2_reads)]
+            + (["--plant"] if a.plant else [])
+            + (["--off-target"] if a.off_target else []),
             capture_output=True, text=True,
         )
         if proc.returncode != 0:

@@ -140,6 +140,7 @@ def run(shape: str = "nanopore", modes=("main",), device="cuda", seed: int = 0,
     import torch
 
     from ..ops import myers_cuda
+    from ..ops.myers_torch import Windows
 
     rng = np.random.default_rng(seed)
     if shape == "script":
@@ -190,9 +191,11 @@ def run(shape: str = "nanopore", modes=("main",), device="cuda", seed: int = 0,
         NW, P, T = args[0].shape
         log(f"shape {shape}: eq={eq} Q={Q} M={M} NW={NW} P={P} T={T}")
         ref = myers_cuda.scan_qn_plain(*args, eq)
-        yard = myers_cuda.scan_q(*args, eq)
+        # the yardstick q2 reads the descriptor of the same windows
+        q2_args = (Windows.of(args[0]), *args[1:])
+        yard = myers_cuda.scan_q(*q2_args, eq)
         sync()
-        line("scan_q", eq, lambda: myers_cuda.scan_q(*args, eq), ref, yard,
+        line("scan_q", eq, lambda: myers_cuda.scan_q(*q2_args, eq), ref, yard,
              registers(res, "scan_q_kernel", EQ_INDEX[eq], True), (1, False, 1))
         for name, U, unroll, WU in members:
             if (eq, U, unroll, WU) in done:

@@ -70,7 +70,7 @@ def single_inputs(rng, device, mib: int, tiles: int | None,
     pattern = acgt[rng.integers(0, 4, PATTERN_LEN)]
     dna = profiles.Dna()
     inp = TorchEngine(device).build_inputs(dna, dna.encode(pattern), text, K)
-    win = inp.windows
+    win = inp.windows.gather()  # the ablations read (NW, 4, T) windows
     if tiles is not None or words is not None:
         win = win[: words or win.shape[0], :, : tiles or win.shape[2]]
         win = win.contiguous()
@@ -88,6 +88,7 @@ def run(shape: str = "single", device="cuda", seed: int = 0, mib: int = 1024,
     import torch
 
     from ..ops import myers_cuda
+    from ..ops.myers_torch import Windows
 
     rng = np.random.default_rng(seed)
     if shape == "script":
@@ -117,9 +118,11 @@ def run(shape: str = "single", device="cuda", seed: int = 0, mib: int = 1024,
         records.append({"name": name, unit: ms, "pairs_per_s": pairs,
                         "registers": regs, "ok": ok})
 
-    # the yardstick: q1 for the same pattern from the plain boundary
+    # the yardstick: q1 for the same pattern from the plain boundary, on
+    # the descriptor of the same windows (Windows.of, made once)
     zeros = torch.zeros(M, dtype=torch.int32, device=device)
-    q1_args = (win, torch.zeros(T, dtype=torch.bool, device=device), pm,
+    q1_args = (Windows.of(win),
+               torch.zeros(T, dtype=torch.bool, device=device), pm,
                zeros, torch.ones_like(zeros), M, M, "iupac")
     vp_q1 = myers_cuda.scan(*q1_args)[0]
     sync()

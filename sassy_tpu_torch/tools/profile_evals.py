@@ -26,8 +26,11 @@ seeds, same bytes) and runs its two columns on the card, forward strand:
   scaled from them).
 
 Each column runs once under ``torch.profiler``: its wall, the device time
-of the q2meta kernel and of every other device op (window gathers, the
-selection), the device's busy share, the kernel launches, and the top ops
+of the q2meta kernel and of every other device op (the selection, the
+tables of each chunk), the device's busy share, the kernel launches, the
+window gathers (``myers_torch.windows_plain`` calls: none, since q2meta
+reads each piece's window from the planes through its descriptor), and
+the top ops
 by device time (``--out`` writes the whole tables); for the tiling column
 also q2meta's launches, its time a launch and its share of its bound
 (``diagnostics.scan_bound`` summed over the dispatch chunks). Prints the
@@ -49,6 +52,7 @@ from ..evals import bench_suite
 from . import profile_path
 from ..ops import batch
 from ..ops.batch import BatchEngine, TextSet
+from ..ops.myers_torch import windows_plain
 from ..profiles import Iupac
 
 BENCHES = ("nanopore", "nanopore_full", "off_targets", "off_targets_full")
@@ -195,16 +199,19 @@ def main(argv=None) -> int:
     tables = []
     for name, fn, scale in (("tiling", tiling, 1.0),
                             ("search", search, len(qcodes) / n_search)):
-        fn()  # warm: piece plan, windows of this width
+        fn()  # warm: the piece plan of this width
         torch.cuda.reset_peak_memory_stats()
+        gathers = windows_plain.calls
         wall, q2, other, launches, avg = _profiled(fn)
+        gathers = windows_plain.calls - gathers
         peak = torch.cuda.max_memory_allocated() / 2**30
         row = wall * scale  # the column's time for all the patterns
         print(f"{name}: {wall:.1f} ms (the row's call: {row:.1f} ms, "
               f"{n_bytes / row / 1e6:.3f} GB/s); device {q2 + other:.1f} ms "
               f"= q2meta {q2:.1f} + other ops {other:.1f}, busy "
               f"{(q2 + other) / wall:.1%}; {launches} kernel launches; "
-              f"peak device memory {peak:.3f} GiB", flush=True)
+              f"{gathers} window gathers; peak device memory {peak:.3f} GiB",
+              flush=True)
         if name == "tiling":
             n_q2 = sum(e.count for e in avg if "scan_q_meta" in e.key
                        and e.device_type == DeviceType.CUDA)

@@ -13,7 +13,10 @@ synchronise:
   transfer of the other);
 - pack: bytes on the device -> bit-planes (``PreparedText``: the pack
   kernel);
-- windows: the (NW, P, T) halo tiles (``build_windows``);
+- descriptors: the tile plan and each tile's window descriptor
+  (``PreparedText.windows``: its first plane word and the end of the
+  words it may read, 16 bytes a tile; the kernel reads the windows from
+  the planes, so no window copy is built);
 - scan: the q1meta kernel;
 - selection: the state chain, the screened-word expansion and the one
   device-to-host copy of the candidates.
@@ -31,8 +34,12 @@ select, copy, host: ``tolist`` and the sort), of the whole call, and of
 what the steps leave of it (the dispatch thread's hand-off and the waits
 the synchronises moved).
 
-Then one warm strand (pack from the device text, windows, scan, selection)
-under ``torch.profiler``: its device time per op (top 25 by self device
+Then the device memory the prepared text and one search's inputs hold
+(``torch.cuda.memory_allocated`` before and after, the planes and the
+descriptors; before the descriptors the window tensor too).
+
+Then one warm strand (pack from the device text, descriptors, scan,
+selection) under ``torch.profiler``: its device time per op (top 25 by self device
 time), the sum of device time against the wall time (the device's busy
 share) and the number of kernel launches. ``--out`` writes the whole table.
 """
@@ -159,18 +166,25 @@ def main(argv=None) -> int:
     dna = profiles.Dna()
     codes = dna.encode(text[n // 2 : n // 2 + PATTERN_LEN].copy())
     eng = TorchEngine(dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
     prep = eng.prepare(dna, text_dev)
     inp = eng.build_inputs(dna, codes, prep, K)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - before
+    print(f"prepared text and inputs: {held / 2**30:.4f} GiB of device "
+          f"memory (planes {prep.planes.numel() * 4 / 2**30:.4f} GiB)",
+          flush=True)
     outs = eng.scan(inp)
 
-    def windows():
-        prep._wins.clear()  # drop the cached plan: build the windows anew
+    def descriptors():
+        prep._descs.clear()  # drop the cached plan: describe it anew
         eng.build_inputs(dna, codes, prep, K)
 
     phases = {
         "upload": lambda: _upload(text, dev),
         "pack": lambda: eng.prepare(dna, text_dev),
-        "windows": windows,
+        "descriptors": descriptors,
         "scan": lambda: eng.scan(inp),
         "selection": lambda: eng.select(inp, outs).cpu(),
     }

@@ -15,13 +15,16 @@ JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
 
 from sassy_tpu import Searcher as RefSearcher
 from sassy_tpu_torch import Searcher, profiles
-from sassy_tpu_torch.ops import batch, minima, myers_cuda, plan
+from sassy_tpu_torch.ops import batch, minima, myers_cuda, myers_torch, plan
+from sassy_tpu_torch.ops.myers_torch import Windows
 
 pytestmark = pytest.mark.cuda
 
@@ -68,8 +71,8 @@ def _random_inputs(eq_mode, M, T, NW, seed, n_pad=None):
 @pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
 @pytest.mark.parametrize("M", [8, 24, 40, 72, 192])
 def test_kernel_equals_plain(cuda, eq_mode, M):
-    args = _random_inputs(eq_mode, M, T=1000, NW=7, seed=M)
-    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    args = _described(_random_inputs(eq_mode, M, T=1000, NW=7, seed=M))
+    dev_args = _to(cuda, args)
     before = myers_cuda.scan_meta.launches
     got = myers_cuda.scan_meta(*dev_args)
     torch.cuda.synchronize()
@@ -77,6 +80,12 @@ def test_kernel_equals_plain(cuda, eq_mode, M):
     want = myers_cuda.scan_meta_plain(*args)
     for name, a, b in zip(("vp", "vm", "cost", "meta", "final"), got, want):
         assert torch.equal(a.cpu(), b), name
+
+
+def _described(args):
+    """``args`` with their window tensor (the first) described by
+    ``Windows.of``: how the four scan entry points take windows."""
+    return (Windows.of(args[0]), *args[1:])
 
 
 def _random_q_inputs(eq_mode, Q, M, T, NW, seed):
@@ -94,9 +103,10 @@ def _random_q_inputs(eq_mode, Q, M, T, NW, seed):
 @pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
 @pytest.mark.parametrize("M", [24, 72])
 def test_q_kernel_equals_plain_and_q1meta(cuda, eq_mode, M):
-    args = _random_q_inputs(eq_mode, Q=3, M=M, T=1000, NW=7, seed=M)
+    args = _described(_random_q_inputs(eq_mode, Q=3, M=M, T=1000, NW=7,
+                                       seed=M))
     assert len(set(args[7].tolist())) > 1, "mixed m_real in one bucket"
-    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    dev_args = _to(cuda, args)
     before = myers_cuda.scan_q_meta.launches
     got = myers_cuda.scan_q_meta(*dev_args)
     torch.cuda.synchronize()
@@ -114,13 +124,16 @@ def test_q_kernel_equals_plain_and_q1meta(cuda, eq_mode, M):
 
 
 def test_kernel_rejects_bad_inputs(cuda):
-    args = list(_random_inputs("iupac", 24, T=64, NW=3, seed=1))
-    args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    args = list(_to(cuda, _described(
+        _random_inputs("iupac", 24, T=64, NW=3, seed=1))))
     with pytest.raises(ValueError):
         myers_cuda.scan_meta(*args[:10], "ascii")  # 4 planes, not 9
-    args[0] = args[0].transpose(0, 2).contiguous().transpose(0, 2)
+    planes = args[0].planes
+    args[0] = replace(args[0], planes=planes.t().contiguous().t())
     with pytest.raises(ValueError):
         myers_cuda.scan_meta(*args)  # not contiguous
+    with pytest.raises(TypeError):
+        myers_cuda.scan_meta(args[0].gather(), *args[1:])  # not described
 
 
 def _planted_text(n, seed):
@@ -202,8 +215,9 @@ def _scan_args(args):
 @pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
 @pytest.mark.parametrize("M", [24, 120, 192])
 def test_q1_kernel_equals_plain(cuda, eq_mode, M):
-    args = _scan_args(_random_inputs(eq_mode, M, T=1000, NW=7, seed=M + 3))
-    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    args = _described(_scan_args(_random_inputs(eq_mode, M, T=1000, NW=7,
+                                                seed=M + 3)))
+    dev_args = _to(cuda, args)
     before = myers_cuda.scan.launches
     got = myers_cuda.scan(*dev_args)
     torch.cuda.synchronize()
@@ -217,8 +231,9 @@ def test_q1_kernel_equals_plain(cuda, eq_mode, M):
 @pytest.mark.parametrize("M", [24, 120])
 def test_q2_kernel_equals_plain_and_q1(cuda, eq_mode, M):
     Q = 3  # odd: the card takes any Q
-    args = _scan_args(_random_q_inputs(eq_mode, Q, M, T=1000, NW=7, seed=M))
-    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    args = _described(_scan_args(_random_q_inputs(eq_mode, Q, M, T=1000,
+                                                  NW=7, seed=M)))
+    dev_args = _to(cuda, args)
     before = myers_cuda.scan_q.launches
     got = myers_cuda.scan_q(*dev_args)
     torch.cuda.synchronize()
@@ -235,8 +250,8 @@ def test_q2_kernel_equals_plain_and_q1(cuda, eq_mode, M):
 
 
 def test_q1_q2_reject_bad_inputs(cuda):
-    args = list(_scan_args(_random_inputs("iupac", 24, T=64, NW=3, seed=1)))
-    args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    args = list(_to(cuda, _described(
+        _scan_args(_random_inputs("iupac", 24, T=64, NW=3, seed=1)))))
     with pytest.raises(ValueError):
         myers_cuda.scan(*args[:7], "ascii")  # 4 planes, not 9
     with pytest.raises(ValueError):
@@ -350,7 +365,7 @@ def test_qn_family_equals_plain_and_q2(cuda, M):
     args = _scan_args(_random_q_inputs("iupac", Q, M, T=1000, NW=NW, seed=M))
     dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
     want = myers_cuda.scan_qn_plain(*args)
-    q2 = myers_cuda.scan_q(*dev_args)
+    q2 = myers_cuda.scan_q(*_described(dev_args))
     for U, unroll, WU in _qn_members(M):
         before = myers_cuda.scan_qn.launches
         got = myers_cuda.scan_qn(*dev_args, U, unroll, WU)
@@ -400,7 +415,7 @@ def test_variant_equals_plain(cuda, variant, M):
     if variant == "full":
         zeros = torch.zeros(M, dtype=torch.int32, device=cuda)
         vp = myers_cuda.scan(
-            win.to(cuda), torch.zeros(1000, dtype=torch.bool, device=cuda),
+            Windows.of(win.to(cuda)), torch.zeros(1000, dtype=torch.bool, device=cuda),
             pm.to(cuda), zeros, torch.ones_like(zeros), M, M, "iupac")[0]
         assert torch.equal(got, vp)
 
@@ -555,8 +570,16 @@ def _lexsorted(cols):
 
 
 def _to(dev, args):
-    return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+    """The arguments on ``dev``: tensors moved, a window descriptor's
+    planes and tables with them."""
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor)
+                 else _desc_to(dev, a) if isinstance(a, Windows) else a
                  for a in args)
+
+
+def _desc_to(dev, win):
+    return Windows(win.planes.to(dev), win.wstart.to(dev), win.wend.to(dev),
+                   win.NW)
 
 
 def _piece_tables(g, T, NW, base):
@@ -598,7 +621,7 @@ def test_select_words_kernel_equals_plain(cuda, Q, all_minima, overhang):
     tile0, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 3 << 30)
     a = _random_q_inputs("iupac", Q, 24, T=T, NW=NW, seed=Q)
     vp, vm, cost, meta, _ = myers_cuda.scan_q_meta_plain(
-        a[0], tile0, vf, vt, *a[4:9], k, "iupac")
+        Windows.of(a[0]), tile0, vf, vt, *a[4:9], k, "iupac")
     state0 = torch.from_numpy(g.integers(0, 2, (Q, T)).astype(np.int32))
     args = (vp, vm, cost, meta, vf, vt, islast, pos_base, k, state0,
             all_minima, tend if overhang else None, 0.3 if overhang else None,
@@ -653,7 +676,8 @@ def test_select_positions_tiles_kernel_equals_plain(cuda, Q, alpha,
     g = np.random.default_rng(Q + int(10 * alpha))
     tile0, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 5 << 30)
     a = _random_q_inputs("iupac", Q, 24, T=T, NW=NW, seed=Q + 20)
-    vp, vm, cost = myers_cuda.scan_q_plain(a[0], tile0, *a[4:9], "iupac")
+    vp, vm, cost = myers_cuda.scan_q_plain(Windows.of(a[0]), tile0, *a[4:9],
+                                           "iupac")
     boundary0 = torch.where(tile0[None], a[8][:, None], a[7][:, None])
     state0 = torch.from_numpy(g.integers(0, 2, (Q, T)).astype(np.int32))
     args = (vp, vm, cost, boundary0, tend, vf, vt, islast, pos_base, k,
@@ -674,7 +698,7 @@ def test_select_kernels_on_empty_results(cuda, monkeypatch):
     tile0, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 0)
     a = _random_q_inputs("iupac", 2, 24, T=T, NW=NW, seed=9)
     vp, vm, cost, meta, _ = myers_cuda.scan_q_meta_plain(
-        a[0], tile0, vf, vt, *a[4:9], 6, "iupac")
+        Windows.of(a[0]), tile0, vf, vt, *a[4:9], 6, "iupac")
     state0 = torch.zeros((2, T), dtype=torch.int32)
     words = (vp, vm, cost, meta, vf, vt, islast, pos_base, -1, state0, True)
     assert _held(cuda, "select_words_tiles_q", words,
@@ -707,8 +731,8 @@ def test_select_kernels_reject_bad_inputs(cuda):
     g = np.random.default_rng(4)
     tile0, vf, vt, tend, islast, pos_base = _piece_tables(g, T, NW, 0)
     a = _random_q_inputs("iupac", 2, 24, T=T, NW=NW, seed=4)
-    outs = myers_cuda.scan_q_meta_plain(a[0], tile0, vf, vt, *a[4:9], 6,
-                                        "iupac")[:4]
+    outs = myers_cuda.scan_q_meta_plain(Windows.of(a[0]), tile0, vf, vt,
+                                        *a[4:9], 6, "iupac")[:4]
     state0 = torch.zeros((2, T), dtype=torch.int32)
     good = _to(cuda, (*outs, vf, vt, islast, pos_base, 6, state0, False))
     bad = {
@@ -1003,7 +1027,7 @@ def test_q2meta_at_a_capped_width_equals_plain(cuda, monkeypatch):
     pp = ts.piece_plan(g.halo, g.w_chars)
     q0, q1, t0, t1 = next(eng.chunks(g, pp))
     assert (q1 - q0) * (t1 - t0) >= plan.H100_TARGET_TILES
-    win = ts.windows(dna, pp, False, t0, t1)
+    win = ts.descriptor(dna, pp, False, t0, t1)
     args = (win, pp.true_start[t0:t1], pp.valid_from[t0:t1],
             pp.valid_to[t0:t1], g.pmasks[q0:q1], g.is_pad[q0:q1],
             g.h_init[q0:q1], g.m_real[q0:q1], g.boundary_m[q0:q1], 3,
@@ -1020,6 +1044,198 @@ def test_q2meta_at_a_capped_width_equals_plain(cuda, monkeypatch):
     assert found
     _same(found, Searcher("dna", rc=True, device="cpu").search_many(
         pats, texts, 3))
+
+
+# -- the scan kernels' window read (csrc/window_read.cuh) ----------------------
+
+
+def _random_descriptor(P, L, T, NW, seed, base=0):
+    """Random (P, L) planes (on the host) and T tiles at every start
+    alignment: windows before the planes, across their start and end and
+    past them, wend before, inside and past the window and past L; plane
+    words counted from ``base`` (the descriptor's wstart/wend include it,
+    the planes hold words base .. base + L - 1 and are read as plane words
+    0 .. L - 1 shifted: ``base`` > 0 is for planes past 2^26 words, made
+    whole on the card by the caller)."""
+    g = np.random.default_rng(seed)
+    ws = g.integers(-NW - 3, L + 3, T)
+    ws[:8] = np.arange(8) - 4
+    ws[8:16] = L - NW + np.arange(8) - 4
+    we = ws + g.integers(-2, NW + 6, T)
+    we[::5] = L + 7
+    planes = g.integers(-2**31, 2**31, (P, L), dtype=np.int64).astype(np.int32)
+    return Windows(torch.from_numpy(planes), torch.from_numpy(ws + base),
+                   torch.from_numpy(we + base), NW)
+
+
+def _four_kernels(win, eq_mode, M, seed):
+    """(name, kernel, plain, args) of q1meta, q1, q2meta and q2 over the
+    windows ``win`` describes, random pattern and tile inputs."""
+    NW, P, T = win.shape
+    a = _random_inputs(eq_mode, M, T, NW, seed)
+    q = _random_q_inputs(eq_mode, 3, M, T, NW, seed + 1)
+    return (
+        ("q1meta", myers_cuda.scan_meta, myers_cuda.scan_meta_plain,
+         (win, *a[1:])),
+        ("q1", myers_cuda.scan, myers_cuda.scan_plain,
+         (win, a[1], *a[4:9], eq_mode)),
+        ("q2meta", myers_cuda.scan_q_meta, myers_cuda.scan_q_meta_plain,
+         (win, *q[1:])),
+        ("q2", myers_cuda.scan_q, myers_cuda.scan_q_plain,
+         (win, q[1], *q[4:9], eq_mode)),
+    )
+
+
+def _held_kernels(cuda, win, eq_mode, M, seed):
+    for name, kernel, plain, args in _four_kernels(win, eq_mode, M, seed):
+        got = kernel(*_to(cuda, args))
+        torch.cuda.synchronize()
+        want = plain(*_to("cpu", args))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
+@pytest.mark.parametrize("M", [24, 72])
+@pytest.mark.parametrize("NW", [1, 6, 41])
+def test_scan_kernels_on_descriptors_equal_plain(cuda, eq_mode, M, NW):
+    """q1meta, q1, q2meta and q2 reading the planes through descriptors at
+    odd wstart, before and past the planes, wend inside a vector: bit for
+    bit their plain versions (``windows_plain``, then the scan)."""
+    P = 9 if eq_mode == "ascii" else 4
+    win = _random_descriptor(P, 256, 700, NW, M + NW)
+    _held_kernels(cuda, win, eq_mode, M, NW)
+
+
+def test_scan_kernels_past_2_31_positions(cuda):
+    """Windows of plane words past 2^26 (positions past 2^31): the
+    kernels' 64-bit plane offsets against the plain read."""
+    L = (1 << 26) + 4096
+    near = _random_descriptor(4, 4096, 300, 41, 7, base=L - 4096)
+    planes = torch.zeros((4, L), dtype=torch.int32, device=cuda)
+    planes[:, L - 4096 :] = near.planes.to(cuda)
+    win = Windows(planes, near.wstart.to(cuda), near.wend.to(cuda), 41)
+    assert int(win.wstart.max()) * 32 > 1 << 31
+    for name, kernel, plain, args in _four_kernels(win, "iupac", 24, 8):
+        args = _to(cuda, args)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+
+
+def test_scan_kernels_halo_wider_than_tiles(cuda, monkeypatch):
+    """The single engine's descriptors with halo > W (a plan of 3-word
+    tiles): q1meta and q1 against their plain versions on the card, and
+    the candidates against the CPU path's."""
+    monkeypatch.setattr(myers_torch, "plan_tiles",
+                        lambda words, halo: (-(-words // 3), 3, halo))
+    rng = np.random.default_rng(5)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    text = rng.choice(bases, 20_000)
+    pat = rng.choice(bases, 120)
+    text[7000:7120] = pat
+    prof = profiles.Iupac()
+    for alpha in (None, 0.1):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            eng = myers_torch.TorchEngine(dev)
+            inp = eng.build_inputs(prof, prof.encode(pat), text, 10, alpha)
+            assert inp.halo > inp.W
+            if dev == "cuda":
+                outs = eng.scan(inp)
+                torch.cuda.synchronize()
+                plain = (myers_cuda.scan_meta_plain if inp.fast
+                         else myers_cuda.scan_plain)
+                args = ((inp.windows, inp.tile0, inp.valid_from,
+                         inp.valid_to) if inp.fast
+                        else (inp.windows, inp.tile0))
+                rest = ((inp.pmasks, inp.is_pad, inp.h_init, inp.m_real,
+                         inp.boundary_m) + ((inp.k,) if inp.fast else ())
+                        + (inp.eq_mode,))
+                for a, b in zip(outs, plain(*args, *rest)):
+                    assert torch.equal(a, b)
+            got[dev] = eng.candidates(prof, prof.encode(pat), text, 10,
+                                      alpha, None, False)
+        assert got["cuda"] == got["cpu"] and got["cuda"]
+
+
+@pytest.mark.parametrize("steps", [0, 101])
+def test_scan_kernels_on_piece_descriptors(cuda, steps):
+    """q2meta and q2 over a text set's pieces (texts that end inside a
+    window, an empty and a one-char text) read from the planes against
+    their plain versions."""
+    rng = np.random.default_rng(steps)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    texts = [rng.choice(bases, int(n)) for n in rng.integers(0, 3000, 40)]
+    texts[3], texts[4] = texts[3][:0], texts[4][:1]
+    ts = batch.TextSet(texts, cuda)
+    pp = ts.piece_plan(27, 512, steps)
+    win = ts.descriptor(profiles.Iupac(), pp, True, 0, pp.T)
+    assert bool((win.wend - win.wstart < win.NW).any())
+    _held_kernels(cuda, win, "iupac", 24, steps)
+
+
+def test_prefilters_on_descriptors(cuda, monkeypatch):
+    """Both suffix prefilters read the planes through descriptors: the
+    tiles and pieces they flag on the card equal the CPU path's, and the
+    sharded search with the prefilter forced on equals the single
+    engine."""
+    from sassy_tpu_torch.parallel import ShardedSearch, make_mesh
+
+    monkeypatch.setattr(plan, "HIER_MIN_SAVED_PAIRS", 0)
+    monkeypatch.setattr(plan, "H100_TARGET_TILES", 64)
+    rng = np.random.default_rng(9)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    text = rng.choice(bases, 200_001)
+    pat = rng.choice(bases, 80)
+    for at in (1000, 99_990, 150_000):
+        text[at : at + 80] = pat
+        text[at + 40] = ord("A") if text[at + 40] != ord("A") else ord("C")
+    prof = profiles.Iupac()
+    flagged = {}
+    for dev in ("cuda", "cpu"):
+        eng = myers_torch.TorchEngine(dev)
+        inp = eng.build_inputs(prof, prof.encode(pat), text, 3)
+        assert inp.hier_s
+        flagged[dev] = eng.flagged_tiles(inp).cpu()
+    assert flagged["cuda"].numel() and torch.equal(*flagged.values())
+    reads = [text[i : i + 5000] for i in range(0, 200_000, 5000)]
+    codes = [prof.encode(pat)]
+    for dev in ("cuda", "cpu"):
+        beng = batch.BatchEngine(dev)
+        ts = batch.TextSet(reads, dev)
+        (g,) = beng.groups(prof, codes, ts, 3)
+        pp = ts.piece_plan(g.halo, g.w_chars)
+        win = ts.descriptor(prof, pp, False, 0, pp.T)
+        flagged[dev] = beng.flagged_pieces(win, g, pp, 0, 1, 0, pp.T, 3).cpu()
+    assert flagged["cuda"].numel() and torch.equal(*flagged.values())
+    got = ShardedSearch(mesh=make_mesh(4, 1), hier=True).candidates_batch(
+        prof, [pat], text, 3)
+    want = myers_torch.TorchEngine("cuda").candidates(
+        prof, prof.encode(pat), text, 3, None, None, False)
+    assert got == [want] and want
+
+
+def test_scan_kernels_refuse_bad_descriptors(cuda):
+    args = list(_random_inputs("iupac", 24, 16, 5, 3))
+    good = _desc_to(cuda, _random_descriptor(4, 64, 16, 5, 3))
+    bad = {
+        "rows": Windows(good.planes[:, :62].contiguous(), good.wstart,
+                        good.wend, 5),
+        "unaligned": Windows(good.planes.view(-1)[1:1 + 4 * 60].view(4, 60),
+                             good.wstart, good.wend, 5),
+        "dtype": Windows(good.planes, good.wstart.int(), good.wend, 5),
+        "tiles": Windows(good.planes, good.wstart[:15], good.wend[:15], 5),
+        "2-d tables": Windows(good.planes, good.wstart[None], good.wend, 5),
+    }
+    dev_args = _to(cuda, args[1:])
+    myers_cuda.scan_meta(good, *dev_args)
+    for name, win in bad.items():
+        with pytest.raises(ValueError):
+            myers_cuda.scan_meta(win, *dev_args)
+            pytest.fail(name)
 
 
 # -- the text pack kernel ----------------------------------------------------

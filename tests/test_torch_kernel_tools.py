@@ -17,6 +17,7 @@ import torch
 
 from sassy_tpu.ops.myers_pallas import get_pallas_scan, get_pallas_scan_q
 from sassy_tpu_torch.ops import myers_cuda
+from sassy_tpu_torch.ops.myers_torch import Windows
 from sassy_tpu_torch.tools import kernel_qn, kernel_variants, timing
 from test_torch_cuda import _random_q_inputs
 
@@ -275,7 +276,7 @@ def test_tool_reports_a_mismatch(monkeypatch):
     plain = myers_cuda.scan_q_plain
 
     def off_by_one(*args):
-        vp, vm, cost = plain(*args)
+        vp, vm, cost = plain(Windows.of(args[0]), *args[1:])
         return vp, vm, cost + 1
 
     monkeypatch.setattr(myers_cuda, "scan_qn_plain",

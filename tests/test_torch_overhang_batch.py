@@ -393,7 +393,7 @@ def test_select_whole_chunk_equals_sub_ranges(alpha, all_minima, carry,
     # from the first text's second piece: the carry in is its state
     t0 += 1
     assert not pp.true_start[t0] and pp.true_start[t0 + 1 : t1].any()
-    win = ts.windows(prof, pp, reverse, t0, t1)
+    win = ts.descriptor(prof, pp, reverse, t0, t1)
     outs = batch.BatchEngine.scan(win, g, pp, q0, q1, t0, t1, k)
     carry_in = torch.full((q1 - q0, 1), carry, dtype=torch.int32)
     carry_in[::2] = 3 - carry

@@ -23,10 +23,11 @@ from sassy_tpu_torch.ops import minima, myers_cuda, plan
 from sassy_tpu_torch.ops.myers_torch import (
     PreparedText,
     TorchEngine,
+    Windows,
     build_windows,
     overlay_n_tail,
 )
-from test_torch_cuda import _random_inputs, _random_q_inputs
+from test_torch_cuda import _described, _random_inputs, _random_q_inputs
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 OUT = ("vp", "vm", "cost")
@@ -117,12 +118,14 @@ def test_window_cache_is_keyed_by_steps(monkeypatch):
         want = myers_xla.XlaEngine().candidates(
             ref_profiles.Iupac(), codes, text, 4, alpha, None, False)
         assert got == fresh == sorted(want), alpha
-    # one plan, two step counts: two cache entries with different windows
+    # one plan, two step counts: two cache entries over different planes
     w0 = prep.windows(7, 16, 2)
     w1 = prep.windows(7, 16, 2, steps=40)
-    assert not torch.equal(w0, w1)
-    assert torch.equal(w0, build_windows(prep.planes, 7, 16, 2))
-    assert torch.equal(w1, build_windows(prep.planes_for(40), 7, 16, 2))
+    assert w0.planes is prep.planes and w1.planes is prep.planes_for(40)
+    assert not torch.equal(w0.gather(), w1.gather())
+    assert torch.equal(w0.gather(), build_windows(prep.planes, 7, 16, 2))
+    assert torch.equal(w1.gather(),
+                       build_windows(prep.planes_for(40), 7, 16, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +166,7 @@ def test_q1_plain_equals_pallas_interpret(eq_mode):
         jnp.asarray(hi.numpy()), jnp.int32(m_real), jnp.int32(bm),
     )
     want = [np.asarray(o).transpose(1, 0, 2, 3).reshape(NW, T) for o in outs]
-    _assert_equal(myers_cuda.scan_plain(*args), want)
+    _assert_equal(myers_cuda.scan_plain(*_described(args)), want)
 
 
 @pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
@@ -177,7 +180,8 @@ def test_q1_plain_equals_xla_twin(eq_mode, M):
         *_jax_scan_args(args), args[5], args[6],
         "ascii" if eq_mode == "ascii" else "iupac", "xla", False,
     )
-    _assert_equal(myers_cuda.scan(*args), want)  # CPU: the plain version
+    # CPU: the plain version
+    _assert_equal(myers_cuda.scan(*_described(args)), want)
 
 
 @pytest.mark.parametrize("eq_mode,Q", [("iupac", 2), ("ascii", 3)])
@@ -207,7 +211,7 @@ def test_q2_plain_equals_pallas_interpret(eq_mode, Q):
     )
     want = [np.asarray(o)[:Q].transpose(0, 2, 1, 3, 4).reshape(Q, NW, T)
             for o in outs]
-    _assert_equal(myers_cuda.scan_q_plain(*args), want)
+    _assert_equal(myers_cuda.scan_q_plain(*_described(args)), want)
 
 
 @pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
@@ -223,10 +227,11 @@ def test_q2_plain_equals_xla_path(eq_mode, M):
         jnp.asarray(args[6].numpy()),
         "ascii" if eq_mode == "ascii" else "iupac", "xla", False,
     )
-    got = myers_cuda.scan_q(*args)  # CPU: the plain version
+    described = _described(args)
+    got = myers_cuda.scan_q(*described)  # CPU: the plain version
     _assert_equal(got, want)
     for q in range(Q):
-        one = myers_cuda.scan_plain(*args[:2], args[2][q], args[3][q],
+        one = myers_cuda.scan_plain(*described[:2], args[2][q], args[3][q],
                                     args[4][q], int(args[5][q]),
                                     int(args[6][q]), eq_mode)
         for a, b in zip(one, got):
@@ -238,10 +243,10 @@ def test_cpu_tensors_take_the_plain_q1_q2(which):
     fn = getattr(myers_cuda, which)
     before = fn.launches
     if which == "scan":
-        args = _q1_args("pure", M=16, T=32, NW=3, seed=2)
+        args = _described(_q1_args("pure", M=16, T=32, NW=3, seed=2))
         want = myers_cuda.scan_plain(*args)
     else:
-        args = _q2_args("pure", 2, M=16, T=32, NW=3, seed=2)
+        args = _described(_q2_args("pure", 2, M=16, T=32, NW=3, seed=2))
         want = myers_cuda.scan_q_plain(*args)
     _assert_equal(fn(*args), want)
     assert fn.launches == before
@@ -249,7 +254,8 @@ def test_cpu_tensors_take_the_plain_q1_q2(which):
 
 @pytest.mark.parametrize("which", ["scan", "scan_q"])
 def test_q1_q2_take_no_other_device(which):
-    win = torch.empty((3, 4, 8), dtype=torch.int32, device="meta")
+    win = Windows.of(torch.empty((3, 4, 8), dtype=torch.int32,
+                                 device="meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         getattr(myers_cuda, which)(win, *([torch.empty(0)] * 6), "iupac")
 
@@ -336,7 +342,7 @@ def test_select_candidates_tiles_equals_reference(alpha, all_minima):
     rng = np.random.default_rng(int(alpha * 10) + all_minima)
     tile0, vf, vt, tend, islast = _piece_tables(rng, T, NW, True)
     args = _q2_args("iupac", Q, M=24, T=T, NW=NW, seed=5)
-    args = (args[0], torch.from_numpy(tile0), *args[2:])
+    args = (Windows.of(args[0]), torch.from_numpy(tile0), *args[2:])
     vp, vm, cost = myers_cuda.scan_q_plain(*args)
     m_real, bm = args[5], args[6]
     boundary0 = torch.where(torch.from_numpy(tile0)[None], bm[:, None],
@@ -375,7 +381,7 @@ def test_state_chain_from_raw_deltas_equals_reference(Q):
     T, NW = 300, 3
     rng = np.random.default_rng(Q)
     args = _q2_args("pure", Q, M=16, T=T, NW=NW, seed=Q)
-    vp, vm, _ = myers_cuda.scan_q_plain(*args)
+    vp, vm, _ = myers_cuda.scan_q_plain(*_described(args))
     # sparse deltas: many tiles own none
     keep = torch.from_numpy(rng.random((Q, NW, T)) < 0.2)
     vp, vm = vp * keep, vm * keep
@@ -461,7 +467,7 @@ def test_select_words_tiles_q_overhang_equals_reference(alpha, n_prev,
     rng = np.random.default_rng(n_prev)
     tile0, vf, vt, tend, islast = _piece_tables(rng, T, NW, True)
     a = _random_q_inputs("iupac", Q, 24, T=T, NW=NW, seed=9)
-    args = (a[0], torch.from_numpy(tile0), torch.from_numpy(vf),
+    args = (Windows.of(a[0]), torch.from_numpy(tile0), torch.from_numpy(vf),
             torch.from_numpy(vt), *a[4:9], k, "iupac")
     vp, vm, cost, meta, final = myers_cuda.scan_q_meta_plain(*args)
     state0 = rng.integers(0, 2, (Q, T)).astype(np.int32)

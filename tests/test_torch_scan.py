@@ -15,7 +15,7 @@ from sassy_tpu.ops.myers_pallas import get_pallas_scan_meta
 from sassy_tpu.ops.myers_xla import _kernels
 from sassy_tpu_torch.ops.myers_cuda import scan_meta, scan_meta_plain
 from sassy_tpu_torch.ops.myers_torch import build_windows
-from test_torch_cuda import _random_inputs
+from test_torch_cuda import _described, _random_inputs
 
 OUT = ("vp", "vm", "cost", "meta", "final")
 
@@ -75,7 +75,7 @@ def test_plain_equals_pallas_interpret(eq_mode):
     )
     want = [o.transpose(1, 0, 2, 3).reshape(NW, T) for o in outs[:4]]
     want.append(outs[4].reshape(T))
-    _assert_outputs_equal(scan_meta_plain(*args), want)
+    _assert_outputs_equal(scan_meta_plain(*_described(args)), want)
 
 
 @pytest.mark.parametrize("eq_mode,M", [("iupac", 24), ("pure", 24),
@@ -88,7 +88,7 @@ def test_plain_equals_xla_twin(eq_mode, M):
     jargs = list(_jax_args(args))
     jargs[-1] = "ascii" if eq_mode == "ascii" else "iupac"  # pure = iupac bits
     want = _kernels()["scan_win_meta"](*jargs, backend="xla", interpret=False)
-    _assert_outputs_equal(scan_meta(*args), want)
+    _assert_outputs_equal(scan_meta(*_described(args)), want)
 
 
 def test_plain_equals_scan_core_and_meta_from_words():
@@ -103,13 +103,14 @@ def test_plain_equals_scan_core_and_meta_from_words():
                                            "iupac")
     meta, final = ref_minima.meta_from_words(jax, jnp, vp, vm, cost, vf, vt,
                                              k)
-    _assert_outputs_equal(scan_meta_plain(*args), (vp, vm, cost, meta, final))
+    _assert_outputs_equal(scan_meta_plain(*_described(args)),
+                          (vp, vm, cost, meta, final))
 
 
 def test_cpu_tensors_take_the_plain_version():
     from sassy_tpu_torch.ops import myers_cuda
 
     before = myers_cuda.scan_meta.launches
-    args = _random_inputs("pure", M=16, T=32, NW=3, seed=2)
+    args = _described(_random_inputs("pure", M=16, T=32, NW=3, seed=2))
     _assert_outputs_equal(scan_meta(*args), scan_meta_plain(*args))
     assert myers_cuda.scan_meta.launches == before

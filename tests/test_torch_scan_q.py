@@ -14,7 +14,8 @@ from sassy_tpu.ops import minima as ref_minima
 from sassy_tpu.ops.myers_pallas import get_pallas_scan_q2_meta
 from sassy_tpu.ops.myers_xla import _kernels
 from sassy_tpu_torch.ops import minima, myers_cuda
-from test_torch_cuda import _random_q_inputs
+from sassy_tpu_torch.ops.myers_torch import Windows
+from test_torch_cuda import _described, _random_q_inputs
 
 OUT = ("vp", "vm", "cost", "meta", "final")
 
@@ -65,7 +66,8 @@ def test_q_plain_equals_pallas_interpret(eq_mode, Q, M, NW):
     want = [np.asarray(o)[:Q].transpose(0, 2, 1, 3, 4).reshape(Q, NW, 1024)
             for o in outs[:4]]
     want.append(np.asarray(outs[4])[:Q].reshape(Q, 1024))
-    _assert_outputs_equal(myers_cuda.scan_q_meta_plain(*args), want)
+    _assert_outputs_equal(myers_cuda.scan_q_meta_plain(*_described(args)),
+                          want)
 
 
 @pytest.mark.parametrize("eq_mode", ["iupac", "pure", "ascii"])
@@ -83,20 +85,21 @@ def test_q_plain_equals_xla_path(eq_mode, Q, M):
         jnp.asarray(m_real.numpy()), jnp.asarray(bm.numpy()), k,
         "ascii" if eq_mode == "ascii" else "iupac", "xla", False,
     )
-    got = myers_cuda.scan_q_meta(*args)  # CPU tensors: the plain version
+    got = myers_cuda.scan_q_meta(*_described(args))  # CPU: the plain version
     _assert_outputs_equal(got, want)
 
 
 def test_cpu_tensors_take_the_q_plain_version():
     before = myers_cuda.scan_q_meta.launches
-    args = _random_q_inputs("pure", 2, 16, T=32, NW=3, seed=2)
+    args = _described(_random_q_inputs("pure", 2, 16, T=32, NW=3, seed=2))
     _assert_outputs_equal(myers_cuda.scan_q_meta(*args),
                           myers_cuda.scan_q_meta_plain(*args))
     assert myers_cuda.scan_q_meta.launches == before
 
 
 def test_q_kernel_takes_no_other_device():
-    win = torch.empty((3, 4, 8), dtype=torch.int32, device="meta")
+    win = Windows.of(torch.empty((3, 4, 8), dtype=torch.int32,
+                                 device="meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         myers_cuda.scan_q_meta(win, *([torch.empty(0)] * 8), 1, "iupac")
 
@@ -127,7 +130,7 @@ def test_select_words_tiles_q_equals_reference(eq_mode, M, all_minima):
     args = _random_q_inputs(eq_mode, Q, M, T=T, NW=NW, seed=M)
     k = 4
     args = (*args[:9], k, eq_mode)
-    vp, vm, cost, meta, _ = myers_cuda.scan_q_meta_plain(*args)
+    vp, vm, cost, meta, _ = myers_cuda.scan_q_meta_plain(*_described(args))
     vf, vt = args[2], args[3]
     rng = np.random.default_rng(M)
     islast = np.where(rng.random(T) < 0.3, vt.numpy(), -1).astype(np.int32)

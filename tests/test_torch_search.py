@@ -182,9 +182,10 @@ def test_kernel_build_failures_raise(monkeypatch, tmp_path):
 
 
 def test_scan_kernel_takes_no_other_device():
-    from sassy_tpu_torch.ops import myers_cuda
+    from sassy_tpu_torch.ops import myers_cuda, myers_torch
 
-    win = torch.empty((3, 4, 8), dtype=torch.int32, device="meta")
+    win = myers_torch.Windows.of(torch.empty((3, 4, 8), dtype=torch.int32,
+                                             device="meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         myers_cuda.scan_meta(win, *([None] * 6), 8, 8, 1, "iupac")
 

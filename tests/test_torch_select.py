@@ -31,7 +31,7 @@ from sassy_tpu.ops.myers_xla import XlaEngine
 from sassy_tpu_torch import diagnostics, profiles
 from sassy_tpu_torch.ops import minima, myers_cuda, plan
 from sassy_tpu_torch.ops.batch import BatchEngine
-from sassy_tpu_torch.ops.myers_torch import TorchEngine
+from sassy_tpu_torch.ops.myers_torch import TorchEngine, Windows
 from sassy_tpu_torch.parallel import ShardedSearch, make_mesh
 from test_torch_cuda import _random_q_inputs
 from test_torch_overhang_ops import _piece_tables, _planted, _q2_args, _u
@@ -50,7 +50,7 @@ def _word_args(Q=3, T=50, NW=6, k=5, seed=1, overhang=True):
     a = _random_q_inputs("iupac", Q, 24, T=T, NW=NW, seed=seed)
     t = torch.from_numpy
     vp, vm, cost, meta, _ = myers_cuda.scan_q_meta_plain(
-        a[0], t(tile0), t(vf), t(vt), *a[4:9], k, "iupac")
+        Windows.of(a[0]), t(tile0), t(vf), t(vt), *a[4:9], k, "iupac")
     state0 = t(rng.integers(0, 2, (Q, T)).astype(np.int32))
     pos_base = t(np.arange(T, dtype=np.int64) * (NW * 32 + 1))
     return (vp, vm, cost, meta, t(vf), t(vt), t(islast), pos_base, k,
@@ -98,7 +98,7 @@ def _tile_args(Q=3, T=30, NW=4, k=6, alpha=0.1):
     rng = np.random.default_rng(Q)
     tile0, vf, vt, tend, islast = _piece_tables(rng, T, NW, True)
     args = _q2_args("iupac", Q, M=24, T=T, NW=NW, seed=5)
-    args = (args[0], torch.from_numpy(tile0), *args[2:])
+    args = (Windows.of(args[0]), torch.from_numpy(tile0), *args[2:])
     vp, vm, cost = myers_cuda.scan_q_plain(*args)
     boundary0 = torch.where(torch.from_numpy(tile0)[None], args[6][:, None],
                             args[5][:, None])
@@ -625,7 +625,7 @@ def _chain_args(Q=3, T=60, NW=4, k=6, alpha=0.1, seed=3, starts=0.1,
     tile0 = rng.random(T) < starts
     vf = np.where(tile0, -1, np.maximum(vf, 0)).astype(np.int32)
     args = _q2_args("iupac", Q, M=24, T=T, NW=NW, seed=seed + 7)
-    args = (args[0], torch.from_numpy(tile0), *args[2:])
+    args = (Windows.of(args[0]), torch.from_numpy(tile0), *args[2:])
     vp, vm, cost = myers_cuda.scan_q_plain(*args)
     boundary0 = torch.where(torch.from_numpy(tile0)[None], args[6][:, None],
                             args[5][:, None])
