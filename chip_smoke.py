@@ -36,6 +36,13 @@ against their plain versions, timed beside their bounds. Phases:
    and ascii with and without case folding, on that 1 GiB of ACGT and on
    1 GiB of every byte value, and for DNA on 2^31 + 33 bytes of every
    value (made on the card, freed after), each timed beside pack_bound;
+   then the text set's pack kernel (batch.pack_set, as TextSet.planes
+   calls it) against its plain version (pack_set_plain), bit for bit, on
+   both strands of a mixed-length set of every byte value with empty and
+   1-byte texts (DNA, IUPAC with 7 overshoot steps, ascii folded), of
+   nanopore_full's 33,400 x 10 kbp reads (DNA, IUPAC with 7 steps) and of
+   a one-text set of off_targets_full's 3.12 Gbp made on the card (DNA),
+   each timed beside pack_bound;
 3. end to end at full size: Searcher("dna", rc=True, device="cuda")
    .search over 1 GiB of random ACGT with mutated copies of the pattern
    planted on both strands; every copy must come back, through the
@@ -65,7 +72,9 @@ against their plain versions, timed beside their bounds. Phases:
    one barcode copy with one substitution at offset 5000 (even reads on
    the forward strand, odd reads as the reverse complement), and each
    must come back with its pattern, read, strand, cost 1 and CIGAR,
-   through q2meta and never q1meta; every read with any other match, and
+   through q2meta and never q1meta, its planes one launch of the text
+   set's pack kernel a strand and no plain set pack; every read with any
+   other match, and
    a sample of the others, is searched again on the port's CPU path (the
    plain versions), Match for Match with CIGAR; the phases of one strand
    are timed (its traceback over the first 4,096 reads), and the async
@@ -107,8 +116,9 @@ against their plain versions, timed beside their bounds. Phases:
    ends of every 64th read (q2, never q2meta); every planted copy must
    come back with its pattern, read, strand, cost and CIGAR, and every
    read with another match, plus 64 sampled reads, is searched again on
-   the port's CPU path, Match for Match; the phases of one strand are
-   timed;
+   the port's CPU path, Match for Match; the text set's pack kernel
+   launched (both strands' planes with their overshoot), no plain set
+   pack; the phases of one strand are timed;
 12. the kernel-design family (scan_qn: U patterns per thread, the row
    loop kept or unrolled, WU words per iteration) at the nanopore
    dispatch chunk of the tool's own inputs (96 x 24 bp, 8,710 pieces of
@@ -235,11 +245,14 @@ against their plain versions, timed beside their bounds. Phases:
    phase 20's in rows 1-4 of the kernels line.
 
 After each main-path run of phases 3, 6, 8, 9, 11, 20 and 21a no plain
-selection and no plain pack ran, and the selection kernel of its level
-launched (the pack kernel too in phases 3 and 6, and over phase 20's
-runs); the pack kernel's launches there are row 12 of the kernels line
+selection and no plain pack (nor the text set's plain pack) ran, and the
+selection kernel of its level launched (the pack kernel too in phase 3
+and over phase 20's runs, the text set's pack kernel in phases 6 and
+11); the pack kernel's launches there are row 12 of the kernels line
 (times from phase 2: DNA on 1 GiB of ACGT, the other cases under the
-row's "profiles" key), the selections' rows 10-11 (select_words, the
+row's "profiles" key), the text set's pack kernel's row 13 (times from
+phase 2: nanopore_full's reads, forward, DNA; the other cases under
+"cases"), the selections' rows 10-11 (select_words, the
 chained call; select_positions, with the pieces' kernel select_positions_tiles
 as a record of its own under the row's "pieces" key), whose times are
 phase 2's (without all_minima), phase 9's and phase 10's (the whole
@@ -247,7 +260,7 @@ chunk; the first sub-range's under the record's "sub_range" key). Row
 2's record of q2meta is phase 5's nanopore chunk, with the
 off_targets_full chunk under its "off_targets_full" key. The sharded runs
 that hold a selection to its plain version capture its arguments in a
-second, untimed run. The plain selections and the plain pack refuse to
+second, untimed run. The plain selections and the plain packs refuse to
 run wherever the plain scans do (phases 20 and 21).
 
 The script imports neither JAX nor anything of the reference package.
@@ -457,16 +470,18 @@ def cuda_ms(fn, reps: int) -> float:
 
 def counts_zero():
     """Set every kernel's launch count, and the plain selections' and the
-    plain pack's call counts, to 0."""
-    from sassy_tpu_torch.ops import myers_cuda, myers_torch
+    plain packs' call counts, to 0."""
+    from sassy_tpu_torch.ops import batch, myers_cuda, myers_torch
 
     for fn in (myers_cuda.scan_meta, myers_cuda.scan_q_meta, myers_cuda.scan,
                myers_cuda.scan_q, myers_cuda.scan_qn,
-               myers_cuda.scan_variant, myers_cuda.pack):
+               myers_cuda.scan_variant, myers_cuda.pack,
+               myers_cuda.pack_set):
         fn.launches = 0
     myers_cuda.scan_qn.members = {}
     myers_cuda.scan_variant.members = {}
     myers_torch.pack_plain.calls = 0
+    batch.pack_set_plain.calls = 0
     myers_torch.windows_plain.calls = 0
     select_restore(dict.fromkeys(select_state(), 0))
 
@@ -482,9 +497,12 @@ def window_builds() -> int:
     return myers_torch.windows_plain.calls
 
 
-#: launches of the pack kernel in the main path's runs (phases 3, 6, 8, 9,
-#: 11, 20 and 21a), row 12 of the kernels line
+#: launches of the pack kernel in the main path's runs (phases 3, 8, 9, 20
+#: and 21a), row 12 of the kernels line
 PACKED = {"launches": 0}
+#: launches of the text set's pack kernel in the main path's runs (phases
+#: 6, 11 and 21a: every batched search's planes), row 13
+PACKED_SET = {"launches": 0}
 
 
 #: the selection entry points of ops/minima.py that the engines call, and
@@ -522,9 +540,11 @@ def select_restore(state: dict) -> None:
 def selected(what: str, used: tuple) -> dict:
     """After a main-path run that began with ``counts_zero()``: no plain
     selection ran, each kernel ``used`` launched; the launches join
-    ``SELECTED``; no plain pack ran, and the pack kernel's launches join
-    ``PACKED`` (under the result's "pack" key)."""
-    from sassy_tpu_torch.ops import myers_cuda, myers_torch
+    ``SELECTED``; no plain pack ran (nor the text set's plain pack, the
+    PyTorch gathers and masks it composes), and the pack kernels' launches
+    join ``PACKED`` and ``PACKED_SET`` (under the result's "pack" and
+    "pack_set" keys)."""
+    from sassy_tpu_torch.ops import batch, myers_cuda, myers_torch
 
     got = select_state()
     plain = {k: v for k, v in got.items() if k.endswith("_plain") and v}
@@ -538,11 +558,16 @@ def selected(what: str, used: tuple) -> dict:
     if myers_torch.pack_plain.calls:
         fail(f"{what} ran the plain pack {myers_torch.pack_plain.calls} "
              "times")
+    if batch.pack_set_plain.calls:
+        fail(f"{what} ran the text set's plain pack "
+             f"{batch.pack_set_plain.calls} times")
     if DEVICE != "cpu" and window_builds():
         fail(f"{what} built windows {window_builds()} times: a search path "
              "on the card gathered (NW, P, T) windows")
     got["pack"] = myers_cuda.pack.launches
     PACKED["launches"] += got["pack"]
+    got["pack_set"] = myers_cuda.pack_set.launches
+    PACKED_SET["launches"] += got["pack_set"]
     return got
 
 
@@ -995,6 +1020,111 @@ def pack_vs_plain(gen, text_dev) -> dict:
     return head
 
 
+#: phase 2's mixed-length text set for the text set's pack (empty and
+#: 1-byte texts among them; every byte value)
+PACK_SET_MIXED = (0, 1, 0, 31, 32, 33, 1, 0, 4133, 70_001, 1, 0)
+
+
+def hold_pack_set(label: str, data, tables, width: int, prof,
+                  reverse: bool, steps: int) -> dict:
+    """The text set's pack kernel (``batch.pack_set`` on the card, as
+    ``TextSet.planes`` calls it) against ``pack_set_plain`` on the same
+    bytes and tables, bit for bit; the kernel timed over REPS launches and
+    the plain version once, both with CUDA events, beside ``pack_bound``
+    (the texts' bytes read once, the planes written once). Leaves the
+    launch and call counts as it found them."""
+    import torch
+
+    from sassy_tpu_torch.diagnostics import pack_bound
+    from sassy_tpu_torch.ops import batch, myers_cuda, myers_torch
+
+    args = (data, *tables, width, prof, reverse, steps)
+    launches = myers_cuda.pack_set.launches
+    calls = (batch.pack_set_plain.calls, myers_torch.pack_plain.calls)
+    got = batch.pack_set(*args)
+    ref, plain_ms = cuda_once(lambda: batch.pack_set_plain(*args))
+    same = torch.equal(got, ref)
+    err = 0 if same else int((got.to(torch.int64) - ref.to(torch.int64))
+                             .abs().max())
+    del got, ref
+    ms = cuda_ms(lambda: batch.pack_set(*args), REPS)
+    myers_cuda.pack_set.launches = launches
+    batch.pack_set_plain.calls, myers_torch.pack_plain.calls = calls
+    n_bytes = int(tables[1].sum())
+    rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           **pack_bound(n_bytes, prof.planes, prof.eq_mode == "ascii",
+                        width)}
+    log(f"{label}: text set pack ({prof.name}, "
+        f"{'reverse' if reverse else 'forward'}, {steps} steps) of "
+        f"{tables[1].numel()} texts, {n_bytes} bytes, {width} words vs "
+        f"plain: bit-equal={same}, kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), {rec['bound_ms'] / ms:.1%} of it")
+    if not same:
+        fail(f"{label}: the text set's pack kernel != its plain version, "
+             f"max abs difference {err}")
+    return rec
+
+
+def pack_set_vs_plain(gen) -> dict:
+    """Phase 2's text set pack: the kernel against its plain version on a
+    mixed-length set of every byte value (DNA, IUPAC with 7 overshoot
+    steps, ascii folded), on nanopore_full's read set (33,400 x 10 kbp of
+    ACGT: DNA, and IUPAC with 7 steps, as phase 11a's overhang search packs
+    it), and on a one-text set of off_targets_full's 3.12 Gbp made on the
+    card, each on both strands. Returns the nanopore forward DNA record
+    (row 13) with the others under its "cases" key."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch.ops import batch
+    from sassy_tpu_torch.ops.myers_torch import aligned_words
+
+    def hold_all(name, data, tables_of, words_of, cases):
+        recs = {}
+        for prof_name, steps in cases:
+            prof = pack_profile(prof_name)
+            for reverse in (False, True):
+                label = (f"{name}, {prof_name}, "
+                         f"{'reverse' if reverse else 'forward'}, "
+                         f"{steps} steps")
+                recs[label] = hold_pack_set(
+                    f"phase 2: {label}", data, tables_of(steps),
+                    aligned_words(words_of(steps) + 1), prof, reverse, steps)
+        return recs
+
+    rng = np.random.default_rng(SEED + 3)
+    mixed = batch.TextSet([rng.integers(0, 256, n, dtype=np.uint8)
+                           for n in PACK_SET_MIXED], DEVICE)
+    recs = hold_all("mixed set", mixed.data(), mixed.tables, mixed.words,
+                    (("dna", 0), ("iupac", 7), ("ascii_fold", 0)))
+    reads = random_acgt(gen, N_READS * READ_LEN).cpu().numpy().reshape(
+        N_READS, READ_LEN)
+    ts = batch.TextSet(list(reads), DEVICE)
+    nano = hold_all(f"{N_READS} x {READ_LEN} bp", ts.data(), ts.tables,
+                    ts.words, (("dna", 0), ("iupac", 7)))
+    head = next(iter(nano.values()))
+    recs.update(nano)
+    del ts, reads
+    genome = random_acgt_chunked(gen, OFF_GENOME_BP)
+    n = OFF_GENOME_BP
+
+    def one_text(steps):
+        wofs = [0, -(-(n + steps) // 32)]
+        return tuple(torch.tensor(v, dtype=torch.int64, device=DEVICE)
+                     for v in ([0], [n], wofs))
+
+    recs.update(hold_all(f"one text of {n} bp", genome, one_text,
+                         lambda steps: -(-(n + steps) // 32),
+                         (("dna", 0),)))
+    del genome
+    torch.cuda.empty_cache()
+    head["cases"] = {label: {key: rec[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}
+        for label, rec in recs.items()}
+    return head
+
+
 def mutated(pattern):
     """A copy with one substitution at ``MUT_AT``, as bench.py plants."""
     out = pattern.copy()
@@ -1403,13 +1533,15 @@ def batched_end_to_end(reads, barcodes):
     e2e = time.perf_counter() - t0
     launches = myers_cuda.scan_q_meta.launches
     single = myers_cuda.scan_meta.launches
-    n_pack = selected("phase 6", ("select_words_chained",))["pack"]
+    got = selected("phase 6", ("select_words_chained",))
+    n_set = got["pack_set"]
     log(f"phase 6: Searcher.search_many, both strands: {e2e:.3f} s, "
         f"{len(matches)} matches, q2meta launches {launches}, q1meta "
-        f"launches {single}, pack kernel launches {n_pack}")
-    if launches < 2 or single or n_pack < 2:
+        f"launches {single}, text set pack kernel launches {n_set}, one-text "
+        f"pack kernel launches {got['pack']}, plain set packs 0")
+    if launches < 2 or single or n_set < 2:
         fail(f"search_many launched q2meta {launches}, q1meta {single} and "
-             f"the pack kernel {n_pack} times")
+             f"the text set's pack kernel {n_set} times")
 
     want_cigar = f"{MUT_AT}=1X{BARCODE_LEN - MUT_AT - 1}="
     planted = {}
@@ -1918,7 +2050,10 @@ def batched_overhang(label, reads, pats, case, want, used, unused,
     log(f"{label}: Searcher.search_many with alpha {alpha}, both strands: "
         f"{e2e:.3f} s, {len(matches)} matches, launches {launched}")
     require(launched, used, unused, label)
-    selected(label, (selection,))
+    n_set = selected(label, (selection,))["pack_set"]
+    log(f"{label}: text set pack kernel launches {n_set}, plain set packs 0")
+    if n_set < 2:
+        fail(f"{label}: the text set's pack kernel launched {n_set} times")
     # the last dispatch chunk's launch (the reverse strand's planes)
     hold_scan(f"{label}: the last of {len(scans)} scan launches", *scans[-1])
 
@@ -3315,15 +3450,15 @@ def plant_edges(text, pats, span: int, halo: int, Dt: int,
 
 @contextlib.contextmanager
 def no_plain(what: str = "phase 20"):
-    """The plain scans, selections and pack refuse to run: phase 20's
+    """The plain scans, selections and packs refuse to run: phase 20's
     sharded runs and phase 21's tools go through the kernels only."""
-    from sassy_tpu_torch.ops import minima, myers_cuda, myers_torch
+    from sassy_tpu_torch.ops import batch, minima, myers_cuda, myers_torch
 
     names = [(myers_cuda, name) for name in (
         "scan_meta_plain", "scan_q_meta_plain", "scan_plain",
         "scan_q_plain")]
     names += [(minima, name + "_plain") for name in SELECT_ENTRIES]
-    names += [(myers_torch, "pack_plain")]
+    names += [(myers_torch, "pack_plain"), (batch, "pack_set_plain")]
     saved = {(mod, name): getattr(mod, name) for mod, name in names}
 
     def refuse(name):
@@ -3921,6 +4056,8 @@ def main() -> int:
         torch.Generator(device=DEVICE).manual_seed(SEED + 2), text_dev)
     del text_dev
     torch.cuda.empty_cache()
+    head_set = pack_set_vs_plain(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 3))
 
     launches, text, pattern = end_to_end(gen)
     against_cpu(text, pattern)
@@ -4063,6 +4200,15 @@ def main() -> int:
                  "sassy_tpu/ops/myers_xla.py:172", PACKED["launches"],
                  head_pack),
          "profiles": head_pack["profiles"]},
+        # row 13: the text set's preparation around the JAX pipeline's
+        # pack (reverse_planes, the reversed host copies at batch.py:119,
+        # the overshoot's pad code at batch.py:436); launches of phases 6,
+        # 11 and 21a, times from phase 2 (nanopore_full's reads, forward,
+        # DNA; the other sets, strands and steps under "cases")
+        {**entry("pack_set", "sassy_tpu_torch/csrc/pack.cu",
+                 "sassy_tpu/ops/myers_xla.py:228", PACKED_SET["launches"],
+                 head_set),
+         "cases": head_set["cases"]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,33 @@
 // end, is read: the word that holds n, and any word of an input not
 // 16-byte aligned, is read a byte at a time.
 
+//
+// The text set's pack (pack_set_words, entry sassy_pack_set): the planes
+// of the batched engine's whole text set, in their final layout, from the
+// texts' bytes as uploaded (one buffer, each text once, no gaps). Replaces
+// what the JAX pipeline does around its pack for a text set: the host
+// copies of the reversed texts (_texts_for, sassy_tpu/ops/batch.py:119)
+// and the device's reverse_planes (sassy_tpu/ops/myers_xla.py:228) for
+// the reverse strand, and the overshoot's overhang_pad_code of the host
+// packing (_pack_pieces_np, batch.py:436). Per plane word: its text by a
+// binary search over the texts' first words (the table stays in L1 and
+// L2), its 32 bytes read forwards or backwards (a reversed word is a
+// byte-reversed span of the forward bytes), the planes as above, the
+// text's n mask and its steps 'N' positions. No byte outside the word's
+// text is read.
+//
+// What bounds it: bytes, as the one-text pack: each byte read once, each
+// plane word written once; pack_bound at 3.12 GB of DNA and its 4 planes
+// is ~1.4 ms a strand, at 334 MB ~0.15 ms. What the design does about it:
+// one launch a strand, one thread a word, grid-stride, so a warp writes
+// 128 adjacent bytes of each plane and reads 1 KiB of adjacent text (in
+// either direction); each thread reads its 32 bytes with two or three
+// aligned 16-byte loads and funnel shifts wherever they lie inside the
+// text, however the text is aligned (the third load is the next thread's
+// first: L1), and a byte at a time only at a text's ends. It replaces
+// the port's PyTorch composition of a host buffer, a reverse gather, the
+// end masking and a regather of every plane word for the overshoot.
+
 #include "pack.cuh"
 
 namespace {
@@ -71,6 +98,35 @@ pack_words(PackArgs a, PackTable tab, bool aligned) {
   }
 }
 
+__global__ void __launch_bounds__(kPackThreads)
+pack_set_words(PackSetArgs a, PackTable tab) {
+  __shared__ uint32_t table[64];
+  if (threadIdx.x < 64) table[threadIdx.x] = tab.words[threadIdx.x];
+  __syncthreads();
+  const uint8_t* codes = reinterpret_cast<const uint8_t*>(table);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kPackThreads;
+  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kPackThreads +
+                   threadIdx.x;
+       w < a.width; w += step) {
+    pack_set_word(a, w, codes);
+  }
+}
+
+// Blocks of a grid-stride launch over `words` words: enough for one word a
+// thread, at most kPackBlocksPerSm a streaming multiprocessor.
+cudaError_t pack_blocks(long long words, unsigned* blocks) {
+  int dev = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long long need = (words + kPackThreads - 1) / kPackThreads;
+  const long long most = static_cast<long long>(sms) * kPackBlocksPerSm;
+  *blocks = static_cast<unsigned>(need < most ? need : most);
+  return err;
+}
+
 }  // namespace
 
 // Pack gw words of text (len readable bytes at `text`, position
@@ -106,18 +162,42 @@ extern "C" int sassy_pack(const void* text, long long len, void* out,
   a.nb = nb;
   a.planes = planes;
   a.with_valid = with_valid != 0;
-  int dev = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  unsigned blocks = 0;
+  const cudaError_t err = pack_blocks(gw, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long need = (gw + kPackThreads - 1) / kPackThreads;
-  const long long most = static_cast<long long>(sms) * kPackBlocksPerSm;
-  const unsigned blocks = static_cast<unsigned>(need < most ? need : most);
   const bool aligned = reinterpret_cast<uintptr_t>(text) % 16 == 0;
   pack_words<<<blocks, kPackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, tab, aligned);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pack a text set: `texts` texts in `text` (len bytes), text t's lens[t]
+// bytes from byte starts[t], its words from wofs[t] (wofs holds texts + 1
+// entries, the last the total), read backwards with `reverse`, each
+// followed by `steps` 'N' positions, into `out` ((planes + with_valid,
+// width) uint32, zero from word wofs[texts] on); the three tables are
+// int64 on the device. Launches one kernel on `stream` without
+// synchronising; returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for arguments it does not take).
+extern "C" int sassy_pack_set(const void* text, long long len,
+                              const long long* starts, const long long* lens,
+                              const long long* wofs, long long texts,
+                              void* out, long long width, long long steps,
+                              int reverse, int planes, int with_valid,
+                              int mode, int shift, int mask,
+                              const unsigned int* pmasks, int fold,
+                              void* stream) {
+  PackSetArgs a;
+  PackTable tab;
+  if (!pack_set_setup(text, len, starts, lens, wofs, texts, out, width,
+                      steps, reverse, planes, with_valid, mode, shift, mask,
+                      pmasks, fold, &a, &tab)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  unsigned blocks = 0;
+  const cudaError_t err = pack_blocks(width, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pack_set_words<<<blocks, kPackThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a, tab);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,10 @@
 // The text pack (pack.cu): a text's bytes -> bit-planes of the engine
-// codes, as __host__ __device__ functions. The kernel runs them on the
+// codes, as __host__ __device__ functions. The kernels run them on the
 // card, one thread a 32-position word; a host build of this header
 // (tests/torch_pack_host.cc) runs them word after word and holds the
-// result to the JAX package's pack without one.
+// result to the JAX package's pack without one. The text set's pack, for
+// many texts, forwards or backwards and with the overhang's 'N's, is
+// further down (PackSetArgs).
 //
 // Plane p's word w: bit i = bit p of the code of the byte at position
 // 32 * w + i. The code of a byte is one entry of a 256-entry table, built
@@ -162,6 +164,205 @@ PACK_HD void store_word(const PackArgs& a, int64_t j, const uint32_t r[8],
     if (p < a.planes) a.out[p * a.gw + j] = r[p] & nmask;
   }
   if (a.with_valid) a.out[a.planes * a.gw + j] = nmask;
+}
+
+// -- the text set's pack (pack_set_words in pack.cu) -------------------------
+//
+// The planes of a batch of texts in one launch. The texts lie in one byte
+// buffer, text t's n_t bytes from byte starts[t]; its plane words are
+// wofs[t] .. wofs[t + 1] - 1, ceil((n_t + steps) / 32) of them. Word j of
+// text t holds its positions 32 j .. 32 j + 31, read forwards (position i
+// is byte i) or, with reverse, backwards (position i is byte n_t - 1 - i,
+// so a reversed word is a byte-reversed span of the forward bytes).
+// Positions n_t .. n_t + steps - 1 are 'N': every plane bit set (IUPAC's
+// overhang_pad_code 15), the validity bit too; positions past them, and
+// the words from wofs[texts] up to the width, are zero in every plane.
+
+struct PackSetArgs {
+  const uint8_t* text;    // the texts' bytes
+  int64_t len;            // bytes the kernel may read from text
+  const int64_t* starts;  // (texts,) each text's first byte
+  const int64_t* lens;    // (texts,) its length n_t
+  const int64_t* wofs;    // (texts + 1,) its first plane word; the total
+  int64_t texts;
+  uint32_t* out;          // (planes + with_valid, width) words, row-major
+  int64_t width;
+  int64_t steps;
+  int planes;
+  bool with_valid;
+  bool reverse;
+  bool aligned;           // text is 16-byte aligned: vector loads allowed
+};
+
+// The text whose words hold plane word w: the last t with wofs[t] <= w
+// (a text without words is passed over); texts for a word past them all,
+// -1 for one before the first.
+PACK_HD int64_t set_text_of(const PackSetArgs& a, int64_t w) {
+  int64_t lo = 0;
+  int64_t hi = a.texts + 1;  // the first i with wofs[i] > w is in [lo, hi]
+  while (lo < hi) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    if (a.wofs[mid] <= w) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo - 1;
+}
+
+// Bits of a word below its position b (b clamped to 0..32).
+PACK_HD uint32_t bits_below(int64_t b) {
+  if (b >= 32) return 0xFFFFFFFFu;
+  return b <= 0 ? 0u : (1u << b) - 1u;
+}
+
+// 16 bytes at p, 16-byte aligned, as 4 little-endian words.
+PACK_HD void load16(const uint8_t* p, uint32_t u[4]) {
+#if defined(__CUDA_ARCH__)
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  u[0] = v.x;
+  u[1] = v.y;
+  u[2] = v.z;
+  u[3] = v.w;
+#else
+  std::memcpy(u, p, 16);
+#endif
+}
+
+// u[i + q] for q in 0..3, without indexing registers by a variable.
+PACK_HD uint32_t pick(const uint32_t u[12], int i, int q) {
+  return q == 0 ? u[i] : q == 1 ? u[i + 1] : q == 2 ? u[i + 2] : u[i + 3];
+}
+
+// Bytes a0 .. a0 + 31 of text as 8 little-endian words, zero where outside
+// [lo, hi) (0 <= lo, hi <= len): from two or three aligned 16-byte loads
+// and funnel shifts where those loads lie inside [lo, hi), else a byte at
+// a time. No byte outside [lo, hi) is read.
+PACK_HD void load_span(const PackSetArgs& a, int64_t a0, int64_t lo,
+                       int64_t hi, uint32_t x[8]) {
+  const int64_t base = a0 & ~int64_t{15};
+  const int sh = static_cast<int>(a0 - base);
+  if (a.aligned && base >= lo && base + (sh ? 48 : 32) <= hi) {
+#ifdef SASSY_PACK_READ_HOOK
+    SASSY_PACK_READ_HOOK(base, sh ? 48 : 32);  // a host build's load check
+#endif
+    uint32_t u[12];
+    load16(a.text + base, u);
+    load16(a.text + base + 16, u + 4);
+    if (sh) {
+      load16(a.text + base + 32, u + 8);
+    } else {
+      u[8] = u[9] = u[10] = u[11] = 0u;
+    }
+    const int q = sh >> 2;
+    const int r = 8 * (sh & 3);
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const uint64_t v = (static_cast<uint64_t>(pick(u, m + 1, q)) << 32) |
+                         pick(u, m, q);
+      x[m] = static_cast<uint32_t>(v >> r);
+    }
+    return;
+  }
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t b = a0 + 4 * m + i;
+      if (b >= lo && b < hi) {
+#ifdef SASSY_PACK_READ_HOOK
+        SASSY_PACK_READ_HOOK(b, 1);
+#endif
+        v |= static_cast<uint32_t>(a.text[b]) << (8 * i);
+      }
+    }
+    x[m] = v;
+  }
+}
+
+// The 32 bytes of x in reverse order.
+PACK_HD void reverse_bytes(uint32_t x[8]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const uint32_t lo = x[m];
+    const uint32_t hi = x[7 - m];
+    x[m] = (hi >> 24) | ((hi >> 8) & 0xFF00u) | ((hi << 8) & 0xFF0000u) |
+           (hi << 24);
+    x[7 - m] = (lo >> 24) | ((lo >> 8) & 0xFF00u) | ((lo << 8) & 0xFF0000u) |
+               (lo << 24);
+  }
+}
+
+// Plane word w of the set: its text's bytes (forwards or backwards), their
+// planes, the n_t mask and the 'N's, stored in every row of out.
+PACK_HD void pack_set_word(const PackSetArgs& a, int64_t w,
+                           const uint8_t* codes) {
+  uint32_t r[8] = {};
+  uint32_t keep = 0u;  // positions < n_t
+  uint32_t mark = 0u;  // positions n_t .. n_t + steps - 1
+  const int64_t t = set_text_of(a, w);
+  if (t >= 0 && t < a.texts) {
+    const int64_t n = a.lens[t];
+    const int64_t p0 = kWordBytes * (w - a.wofs[t]);  // the word's position 0
+    keep = bits_below(n - p0);
+    mark = bits_below(n + a.steps - p0) & ~keep;
+    if (keep) {
+      const int64_t start = a.starts[t];
+      const int64_t lo = start > 0 ? start : 0;
+      const int64_t end = start + n;
+      const int64_t hi = end < a.len ? end : a.len;
+      uint32_t x[8];
+      load_span(a, a.reverse ? end - p0 - kWordBytes : start + p0, lo, hi, x);
+      if (a.reverse) reverse_bytes(x);
+      transpose_word(x, codes, r);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kPackMaxPlanes; ++p) {
+    if (p < a.planes) a.out[p * a.width + w] = (r[p] & keep) | mark;
+  }
+  if (a.with_valid) a.out[a.planes * a.width + w] = keep | mark;
+}
+
+// The set pack's arguments as the C entry points take them, checked: false
+// for arguments they refuse. Fills a and the launch's byte-code table.
+inline bool pack_set_setup(const void* text, long long len,
+                           const long long* starts, const long long* lens,
+                           const long long* wofs, long long texts, void* out,
+                           long long width, long long steps, int reverse,
+                           int planes, int with_valid, int mode, int shift,
+                           int mask, const unsigned int* pmasks, int fold,
+                           PackSetArgs* a, PackTable* tab) {
+  if (width <= 0 || len < 0 || texts < 0 || steps < 0 || planes < 1 ||
+      planes > kPackMaxPlanes || out == nullptr ||
+      (mode != kPackModeTable5 && mode != kPackModeByte) || shift < 0 ||
+      shift > 7 || mask < 0 || mask > 31 ||
+      (mode == kPackModeTable5 && pmasks == nullptr) ||
+      (len > 0 && text == nullptr) || wofs == nullptr ||
+      (texts > 0 && (starts == nullptr || lens == nullptr))) {
+    return false;
+  }
+  uint32_t pm[kPackMaxPlanes] = {};
+  if (mode == kPackModeTable5) {
+    for (int p = 0; p < planes; ++p) pm[p] = pmasks[p];
+  }
+  *tab = pack_table(mode, shift, mask, pm, planes, fold != 0);
+  a->text = static_cast<const uint8_t*>(text);
+  a->len = len;
+  a->starts = reinterpret_cast<const int64_t*>(starts);
+  a->lens = reinterpret_cast<const int64_t*>(lens);
+  a->wofs = reinterpret_cast<const int64_t*>(wofs);
+  a->texts = texts;
+  a->out = static_cast<uint32_t*>(out);
+  a->width = width;
+  a->steps = steps;
+  a->planes = planes;
+  a->with_valid = with_valid != 0;
+  a->reverse = reverse != 0;
+  a->aligned = reinterpret_cast<uintptr_t>(text) % 16 == 0;
+  return true;
 }
 
 // Word j on the host, as the kernel takes it: zero past lim, else its

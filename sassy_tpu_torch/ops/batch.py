@@ -5,11 +5,12 @@ texts, or word-aligned, halo-overlapped segments of long ones:
 ``_plan_pieces``, cut as columns by ``_plan_columns``); the pieces of all
 texts form the tile axis of one scan, at a width (``_piece_width``) that
 lets a full dispatch chunk fill the card.
-A strand's texts are uploaded once (one host buffer, through the pinned
-staging of ``myers_torch._upload``) and packed into bit-planes on the
-device by the pack kernel (the reverse strand's bytes are gathered there
-from the forward bytes; with
-overhang each text is followed by its 'N' overshoot positions); the scan
+The texts' bytes are uploaded once, concatenated (through the pinned
+staging of ``myers_torch._upload_set``, filled from the texts' own arrays:
+no host buffer of the set), and each strand's bit-planes are one launch of
+the text set's pack kernel over them (``pack_set``: the reverse strand
+reads each text backwards; with overhang each text is followed by its 'N'
+overshoot positions); the scan
 kernels read each piece's window, NW = W + 1 words (one word of right
 context past the owned range), straight from those planes through the
 piece's descriptor (``TextSet.descriptor``: its first plane word and the
@@ -66,11 +67,13 @@ from ..profiles import Profile, as_bytes_array
 from . import minima, myers_cuda, plan
 from .bitpack import WORD_BITS
 from .minima import FULL, i32
-from .myers_torch import (Windows, _upload, aligned_words, dispatch_async,
-                          engine_device, pack, state_from_numpy)
+from .myers_torch import (Windows, _upload_set, aligned_words,
+                          dispatch_async, engine_device, pack_plain,
+                          state_from_numpy)
 from .plan import _bucket_words, _masks_pure_np, cdiv, pattern_inputs_np
 
-__all__ = ["BatchEngine", "TextSet", "DISPATCH_BYTES", "W_MAX_WORDS"]
+__all__ = ["BatchEngine", "TextSet", "pack_set", "pack_set_plain",
+           "DISPATCH_BYTES", "W_MAX_WORDS"]
 
 #: Kernel output bytes one dispatch may write (vp, vm, cost and, at the
 #: word level, meta: 12 or 16 bytes per pattern and window word): 4 GiB of
@@ -81,8 +84,9 @@ DISPATCH_BYTES = 4 << 30
 #: Widest piece window in words (the JAX package's ``w_max_words``).
 W_MAX_WORDS = 1 << 13
 
-#: Bytes the reverse-strand gather indexes per pass (int64 indices: 128 MiB).
-_REV_CHUNK = 1 << 24
+#: Plane words ``pack_set_plain`` lays out and packs per pass: 16 MiB of
+#: positions, each with int64 indices (128 MiB a tensor).
+SET_CHUNK_WORDS = 1 << 19
 
 @dataclass
 class _Piece:
@@ -338,18 +342,96 @@ class PiecePlan:
         return self.w_chars // WORD_BITS + 1
 
 
+def _bits_below(x: torch.Tensor) -> torch.Tensor:
+    """Each word's bits below its position x (int64, x clamped to 0..32)."""
+    b = x.clamp(0, WORD_BITS)
+    return torch.where(b >= WORD_BITS, FULL, (1 << b) - 1)
+
+
+def pack_set(data, starts, lens, wofs, width: int, profile: Profile,
+             reverse: bool = False, steps: int = 0) -> torch.Tensor:
+    """A text set's (P[+1], width) int32 bit-planes (``pack_set_plain``
+    says what they hold): ``pack_set_plain`` for bytes on the CPU, the
+    text set's pack kernel (``myers_cuda.pack_set``, ``csrc/pack.cu``) for
+    bytes on a CUDA device, which raises on inputs it does not take; no
+    fallback."""
+    if data.device.type == "cpu":
+        return pack_set_plain(data, starts, lens, wofs, width, profile,
+                              reverse, steps)
+    return myers_cuda.pack_set(data, starts, lens, wofs, width, profile,
+                               reverse, steps)
+
+
+def pack_set_plain(data, starts, lens, wofs, width: int, profile: Profile,
+                   reverse: bool = False, steps: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the text set's pack kernel. data (L,)
+    uint8, the texts' bytes; starts, lens (T,) int64, text t's first byte
+    and length n_t; wofs (T + 1,) int64, its first plane word and the
+    total. Returns (P[+1], width) int32 (the words below width): text t's
+    words from wofs[t], its position i the byte ``starts[t] + i`` (with
+    ``reverse``, ``starts[t] + n_t - 1 - i``) packed as
+    ``myers_torch.pack_plain`` packs, every plane bit set at its ``steps``
+    positions past n_t ('N', the overhang's pad), zero past them and from
+    word wofs[T] on; the validity plane (ascii) marks positions < n_t +
+    steps. Per pass of ``SET_CHUNK_WORDS`` words: the bytes laid out in
+    their words by one gather, ``pack_plain``, then each word's n_t and
+    'N' masks."""
+    pack_set_plain.calls += 1
+    if steps and not profile.supports_overhang:
+        raise ValueError(f"{steps} overhang steps on the {profile.name} "
+                         f"profile, which has no overhang")
+    dev = data.device
+    words = min(int(wofs[-1]), width)
+    with_valid = profile.eq_mode == "ascii"
+    out = torch.zeros((profile.planes + int(with_valid), width),
+                      dtype=torch.int32, device=dev)
+    for w0 in range(0, words, SET_CHUNK_WORDS):
+        w1 = min(words, w0 + SET_CHUNK_WORDS)
+        w = torch.arange(w0, w1, dtype=torch.int64, device=dev)
+        t = torch.searchsorted(wofs, w, right=True) - 1
+        # each word's position 0 against its text's n_t
+        rest = lens[t] - WORD_BITS * (w - wofs[t])
+        # the words' bytes, forwards or backwards, zero past n_t
+        i = torch.arange(WORD_BITS, device=dev)[None, :]
+        inside = i < rest[:, None]
+        at = lens[t][:, None] - rest[:, None] + i  # text-local byte
+        if reverse:
+            at = lens[t][:, None] - 1 - at
+        src = (starts[t][:, None] + at).clamp(0, max(data.numel() - 1, 0))
+        buf = (torch.where(inside, data[src], 0) if data.numel()
+               else torch.zeros_like(src, dtype=torch.uint8))
+        got = pack_plain(buf.reshape(-1).to(torch.uint8), w1 - w0, 0,
+                         profile.planes, with_valid, profile.pack_mode,
+                         profile.pack_shift, profile.pack_mask,
+                         tuple(profile.pack_plane_masks),
+                         profile.pack_fold_case)
+        keep = _bits_below(rest)
+        out[:, w0:w1] = (got & i32(keep)) | i32(_bits_below(rest + steps)
+                                                ^ keep)
+    return out
+
+
+pack_set_plain.calls = 0
+
+
 class TextSet:
     """A batch of texts on one device: piece plans per (halo, piece width,
     overhang steps) and bit-planes per (profile, strand, steps), reusable
     across patterns and k.
 
-    The planes of a strand are one flat (P, L) array: text t owns words
-    [wofs[t], wofs[t] + ceil((n_t + steps) / 32)), 'N' (every plane bit
-    set) at its ``steps`` overshoot positions and zero past them; the
-    words from GW on are all-zero, L = GW + 1 rounded up to a multiple of
-    ``myers_torch.PLANE_ALIGN_WORDS`` (the rows the scan kernels read). A
-    piece reads zero past its text's words (its descriptor's ``wend``).
-    "cuda" without a CUDA device raises."""
+    On the device the texts' bytes lie in one buffer, concatenated (text t
+    from byte ``offs[t]``, each byte once, no gaps), uploaded once
+    (``myers_torch._upload_set``: staged from the texts' own arrays, with
+    no host array of the set). The planes of a strand are one flat (P, L)
+    array: text t owns words [wofs[t], wofs[t] + ceil((n_t + steps) /
+    32)), 'N' (every plane bit set) at its ``steps`` overshoot positions
+    and zero past them; the words from GW on are all-zero, L = GW + 1
+    rounded up to a multiple of ``myers_torch.PLANE_ALIGN_WORDS`` (the rows
+    the scan kernels read). They are one ``pack_set`` over the bytes and
+    the tables of ``tables(steps)``: on the card one launch of the text
+    set's pack kernel, forwards or backwards, with or without the
+    overshoot. A piece reads zero past its text's words (its descriptor's
+    ``wend``). "cuda" without a CUDA device raises."""
 
     def __init__(self, texts, device="cuda"):
         self.texts = [as_bytes_array(t) for t in texts]
@@ -358,9 +440,11 @@ class TextSet:
         n = np.asarray(self.lens, np.int64)
         self._nw = -(-n // WORD_BITS)
         self._wofs = np.concatenate([[0], np.cumsum(self._nw)]).astype(np.int64)
+        self._offs = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
         self._plans: dict = {}
         self._planes: dict = {}
-        self._fwd_bytes = None
+        self._tables: dict = {}
+        self._data = None
 
     def layout(self, steps: int = 0) -> tuple[np.ndarray, np.ndarray]:
         """(words per text, first word per text + the total) of the planes
@@ -401,114 +485,39 @@ class TextSet:
             self._plans[key] = got
         return got
 
-    def _host_bytes(self) -> np.ndarray:
-        """The texts' bytes in one host buffer, text t at byte
-        32 * wofs[t], zero elsewhere (the last word too)."""
-        buf = np.zeros(WORD_BITS * (self.words() + 1), np.uint8)
-        for t, w in zip(self.texts, self._wofs.tolist()):
-            buf[WORD_BITS * w : WORD_BITS * w + len(t)] = t
-        return buf
+    def data(self) -> torch.Tensor:
+        """The texts' bytes on the device, concatenated (uploaded at the
+        first call)."""
+        if self._data is None:
+            self._data = _upload_set(self.texts, self.device)
+        return self._data
 
-    def _bytes(self) -> torch.Tensor:
-        """The texts' bytes on the device (``_host_bytes``, one upload;
-        cached for the reverse strand)."""
-        if self._fwd_bytes is None:
-            self._fwd_bytes = _upload(self._host_bytes(), self.device)
-        return self._fwd_bytes
-
-    def _rev_bytes(self) -> torch.Tensor:
-        """The reversed texts in the same slots, gathered on the device
-        from the forward bytes: byte base_t + i = text t's n_t - 1 - i."""
-        fwd = self._bytes()
-        dev = self.device
-        n_all = self.words() + 1
-        # the zero word is an empty text of its own
-        n = torch.tensor(self.lens + [0], dtype=torch.int64, device=dev)
-        base = torch.from_numpy(self._wofs * WORD_BITS).to(dev)
-        tid = torch.repeat_interleave(
-            torch.arange(len(self.lens) + 1, device=dev),
-            torch.from_numpy(np.append(self._nw, 1)).to(dev),
-            output_size=n_all,
-        )
-        out = torch.empty_like(fwd)
-        for p0 in range(0, fwd.numel(), _REV_CHUNK):
-            p = torch.arange(p0, min(fwd.numel(), p0 + _REV_CHUNK),
-                             dtype=torch.int64, device=dev)
-            t = tid[p // WORD_BITS]
-            r = p - base[t]
-            src = (base[t] + n[t] - 1 - r).clamp(min=0)
-            out[p0 : p0 + p.numel()] = torch.where(r < n[t], fwd[src], 0)
-        return out
+    def tables(self, steps: int = 0) -> tuple[torch.Tensor, ...]:
+        """(starts, lens, wofs) int64 on the device, ``pack_set``'s tables:
+        each text's first byte in ``data()``, its length, and its first
+        plane word with ``steps`` overshoot positions a text (and the
+        total)."""
+        got = self._tables.get(steps)
+        if got is None:
+            got = self._tables[steps] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in (self._offs[:-1], np.diff(self._offs),
+                          self.layout(steps)[1]))
+        return got
 
     def planes(self, profile: Profile, reverse: bool,
                steps: int = 0) -> torch.Tensor:
         """(P[+1], GW + 1) int32 bit-planes of the (reversed) texts, each
-        followed by ``steps`` 'N' positions."""
+        followed by ``steps`` 'N' positions: one ``pack_set``, cached."""
         key = (profile.name, getattr(profile, "case_sensitive", None), reverse,
                steps)
         got = self._planes.get(key)
-        if got is None and steps:
-            got = self._with_overshoot(self.planes(profile, reverse), steps)
-            self._planes[key] = got
         if got is None:
-            buf = self._rev_bytes() if reverse else self._bytes()
-            got = pack(
-                buf, self.words() + 1, 0, profile.planes,
-                profile.eq_mode == "ascii", profile.pack_mode,
-                profile.pack_shift, profile.pack_mask,
-                tuple(profile.pack_plane_masks), profile.pack_fold_case,
-                aligned_words(self.words() + 1),
-            )
-            # pad bytes encode to nonzero codes: zero each text's positions
-            # past its end in its last word, and the zero word
-            n = np.asarray(self.lens, np.int64)
-            part = np.nonzero(n % WORD_BITS)[0]
-            if len(part):
-                last = torch.from_numpy(self._wofs[part] + self._nw[part] - 1)
-                keep = (1 << (n[part] % WORD_BITS)) - 1
-                keep = torch.from_numpy(keep.astype(np.uint32).view(np.int32))
-                last, keep = last.to(self.device), keep.to(self.device)
-                got[:, last] &= keep
-            got[:, self.words():] = 0
+            got = pack_set(self.data(), *self.tables(steps),
+                           aligned_words(self.words(steps) + 1), profile,
+                           reverse, steps)
             self._planes[key] = got
         return got
-
-    def _with_overshoot(self, planes0: torch.Tensor,
-                        steps: int) -> torch.Tensor:
-        """The steps-0 planes regathered into the ``steps`` layout, with
-        bits [n_t, n_t + steps) of each text set in every plane: the 'N'
-        (matches everything) overhang padding of the reference's host
-        packing (``_pack_pieces_np``), applied on the device."""
-        dev = self.device
-        nw, wofs = self.layout(steps)
-        zero0 = self.words()
-        # word j of text t in the new layout: the old word, or zero
-        tid = torch.repeat_interleave(
-            torch.arange(len(self.lens), device=dev),
-            torch.from_numpy(nw).to(dev), output_size=int(wofs[-1]))
-        j = torch.arange(int(wofs[-1]), device=dev) - torch.from_numpy(
-            wofs[:-1]).to(dev)[tid]
-        old = torch.from_numpy(self._nw).to(dev)[tid]
-        src = torch.where(j < old, torch.from_numpy(self._wofs[:-1]).to(
-            dev)[tid] + j, zero0)
-        tail = aligned_words(int(wofs[-1]) + 1) - int(wofs[-1])
-        out = planes0[:, torch.cat([src, src.new_full((tail,), zero0)])]
-        # the overlay: <= cdiv(steps, 32) + 1 words per text
-        n = torch.tensor(self.lens, dtype=torch.int64, device=dev)[:, None]
-        w = n // WORD_BITS + torch.arange(cdiv(steps, WORD_BITS) + 1,
-                                          device=dev)[None, :]
-
-        def below(x):  # mask of word bits below text position x
-            b = (x - w * WORD_BITS).clamp(0, WORD_BITS)
-            return torch.where(b >= WORD_BITS, FULL, (1 << b) - 1)
-
-        mask = below(n + steps) ^ below(n)
-        inside = w < torch.from_numpy(nw).to(dev)[:, None]
-        gidx = torch.where(inside, torch.from_numpy(wofs[:-1]).to(dev)[:, None]
-                           + w, int(wofs[-1]))
-        mask = torch.where(inside, mask, 0)
-        out[:, gidx.reshape(-1)] |= i32(mask.reshape(-1))
-        return out
 
     def descriptor(self, profile: Profile, pp: PiecePlan, reverse: bool,
                    t0: int, t1: int) -> Windows:

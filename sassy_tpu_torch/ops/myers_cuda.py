@@ -52,6 +52,16 @@ kernel too: ``pack`` (``csrc/pack.cu``, its per-word code in
 ``myers_torch.pack`` runs ``myers_torch.pack_plain`` for a text on the CPU
 and this for a text on a CUDA device.
 
+The batched engine's text set has a kernel of its own: ``pack_set``
+(``csrc/pack.cu``, ``pack_set_words``) packs every text of a strand in one
+launch from the texts' uploaded bytes, read backwards for the reverse
+strand and each followed by its overhang 'N's: what the JAX pipeline's
+reversed host copies (``sassy_tpu/ops/batch.py:119``), ``reverse_planes``
+(``myers_xla.py:228``) and the overshoot's pad code
+(``batch.py:436``) produce around its pack; ``batch.pack_set`` runs
+``batch.pack_set_plain`` for a set on the CPU and this for one on a CUDA
+device.
+
 The four scan kernels of the search paths read their text straight from
 the packed planes: their first argument is a ``myers_torch.Windows``
 descriptor (each tile's ``wstart`` and ``wend`` in the planes; the read in
@@ -90,7 +100,8 @@ __all__ = ["scan_meta", "scan_meta_plain", "scan_q_meta",
            "scan_q_plain", "scan_qn", "scan_qn_plain", "scan_variant",
            "scan_variant_plain", "select_words", "select_words_chained",
            "select_positions",
-           "select_positions_tiles", "pack", "build", "nvcc_path"]
+           "select_positions_tiles", "pack", "pack_set", "build",
+           "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu", CSRC / "scan.cu",
@@ -208,11 +219,16 @@ def load_library(path) -> ctypes.CDLL:
         lib.sassy_pack.argtypes = ([ptr, big, ptr] + [big] * 3 + [num] * 6
                                    + [ctypes.POINTER(ctypes.c_uint), num,
                                       ptr])
+        lib.sassy_pack_set.argtypes = ([ptr, big] + [ptr] * 3
+                                       + [big, ptr, big, big] + [num] * 6
+                                       + [ctypes.POINTER(ctypes.c_uint), num,
+                                          ptr])
         for fn in (lib.sassy_scan_meta, lib.sassy_scan_q_meta, lib.sassy_scan,
                    lib.sassy_scan_q, lib.sassy_scan_qn,
                    lib.sassy_scan_variant, lib.sassy_select_words,
                    lib.sassy_select_positions,
-                   lib.sassy_select_positions_tiles, lib.sassy_pack):
+                   lib.sassy_select_positions_tiles, lib.sassy_pack,
+                   lib.sassy_pack_set):
             fn.restype = num
         _LIBS[path] = lib
     return lib
@@ -1167,3 +1183,87 @@ def pack(text_u8, nw: int, nb: int, planes: int, with_valid: bool,
 
 
 pack.launches = 0
+
+
+def _check_pack_set(data, starts, lens, wofs, width: int, profile,
+                    steps: int) -> None:
+    """What the text set's pack kernel takes: a contiguous 1-D uint8 byte
+    buffer on a CUDA device, contiguous int64 tables of T, T and T + 1
+    entries on the same device, a positive width, no negative steps, and
+    overhang steps only for a profile that supports overhang."""
+    if (not isinstance(data, torch.Tensor) or data.dtype != torch.uint8
+            or data.dim() != 1):
+        raise ValueError(f"data: expected a 1-D torch.uint8 tensor, got "
+                         f"{getattr(data, 'dtype', type(data))} "
+                         f"{tuple(getattr(data, 'shape', ()))}")
+    if data.device.type != "cuda":
+        raise ValueError(f"the text set's pack kernel runs on cuda, not "
+                         f"{data.device}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    T = starts.shape[0] if isinstance(starts, torch.Tensor) else -1
+    for name, x, n in (("starts", starts, T), ("lens", lens, T),
+                       ("wofs", wofs, T + 1)):
+        if (not isinstance(x, torch.Tensor) or x.dtype != torch.int64
+                or x.shape != (n,) or not x.is_contiguous()
+                or x.device != data.device):
+            raise ValueError(f"{name}: expected contiguous int64 ({n},) on "
+                             f"{data.device}, got "
+                             f"{getattr(x, 'dtype', type(x))} "
+                             f"{tuple(getattr(x, 'shape', ()))}")
+    if width < 1:
+        raise ValueError(f"width {width}: the planes need a word")
+    if steps < 0:
+        raise ValueError(f"steps {steps} < 0")
+    if steps and not profile.supports_overhang:
+        raise ValueError(f"{steps} overhang steps on the {profile.name} "
+                         f"profile, which has no overhang")
+    planes = profile.planes
+    if profile.pack_mode not in PACK_MODES or not 1 <= planes <= \
+            PACK_MAX_PLANES:
+        raise ValueError(f"pack mode {profile.pack_mode!r} with {planes} "
+                         f"planes")
+    if profile.pack_mode == "table5" and (
+            len(profile.pack_plane_masks) < planes
+            or not 0 <= profile.pack_shift <= 7
+            or not 0 <= profile.pack_mask <= 31):
+        raise ValueError("table5 takes a plane mask a plane, shift 0-7 and "
+                         "mask 0-31")
+
+
+def pack_set(data, starts, lens, wofs, width: int, profile,
+             reverse: bool = False, steps: int = 0):
+    """The text set's pack kernel (``csrc/pack.cu``, ``pack_set_words``)
+    on CUDA tensors: what ``batch.pack_set_plain`` computes, bit for bit.
+    data (L,) uint8, the texts' bytes; starts, lens (T,) int64, text t's
+    first byte and length n_t; wofs (T + 1,) int64, its first plane word
+    and the total. Returns (P[+1], width) int32: text t's words from
+    wofs[t], its positions read backwards with ``reverse``, 'N' at its
+    ``steps`` positions past n_t, zero past them and from word wofs[T] on;
+    the kernel reads no byte outside a text (nor outside data). One
+    launch; raises ValueError before any build or launch on other
+    inputs."""
+    width = int(width)
+    _check_pack_set(data, starts, lens, wofs, width, profile, steps)
+    with_valid = profile.eq_mode == "ascii"
+    out = torch.empty((profile.planes + int(with_valid), width),
+                      dtype=torch.int32, device=data.device)
+    pm = (ctypes.c_uint * PACK_MAX_PLANES)(*[
+        int(v) & 0xFFFFFFFF
+        for v in tuple(profile.pack_plane_masks)[:profile.planes]])
+    lib = _lib()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        _raise_on(lib.sassy_pack_set(
+            _ptr(data) if data.numel() else None, data.numel(),
+            _ptr(starts), _ptr(lens), _ptr(wofs), starts.shape[0], _ptr(out),
+            width, int(steps), int(bool(reverse)), profile.planes,
+            int(with_valid), PACK_MODES[profile.pack_mode],
+            profile.pack_shift, profile.pack_mask, pm,
+            int(bool(profile.pack_fold_case)), stream,
+        ), "pack_set")
+    pack_set.launches += 1
+    return out
+
+
+pack_set.launches = 0

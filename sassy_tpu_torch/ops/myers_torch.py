@@ -474,18 +474,41 @@ def _staging_for(device: torch.device) -> _Staging | None:
         return got
 
 
-def _stage_chunks(src: torch.Tensor, out: torch.Tensor, st) -> None:
-    """Copy the (n,) uint8 host tensor ``src`` into ``out`` through the two
+def _chunk_pieces(texts, offs: np.ndarray, c0: int, c1: int) -> list:
+    """The parts of ``texts`` (byte ``offs[t]`` on of the concatenation is
+    text t's first) that bytes c0 .. c1 - 1 of their concatenation hold, in
+    order: views, a text crossing an edge cut there."""
+    t0 = int(np.searchsorted(offs, c0, side="right")) - 1
+    t1 = int(np.searchsorted(offs, c1, side="left"))
+    pieces = texts[t0:t1]
+    pieces[-1] = pieces[-1][: c1 - int(offs[t1 - 1])]
+    pieces[0] = pieces[0][c0 - int(offs[t0]):]
+    return pieces
+
+
+def _stage_chunks(texts, offs: np.ndarray, out: torch.Tensor, st) -> None:
+    """Copy the concatenation of the host arrays ``texts`` (text t at byte
+    ``offs[t]``, ``offs[-1]`` bytes in all) into ``out`` through the two
     staging buffers of ``st``, ``STAGE_BYTES`` a chunk, each byte once, in
-    order: wait until the buffer's last chunk has left it, copy the host
-    bytes into it (PyTorch's copy uses every intra-op thread), send it."""
-    n = src.shape[0]
+    order, with no host array of the whole: wait until the buffer's last
+    chunk has left it, fill it from the texts' own arrays (a one-piece
+    chunk by PyTorch's copy, which uses every intra-op thread; a run of
+    texts by one ``np.concatenate`` into the buffer), send it."""
+    n = int(offs[-1])
+    views = [buf.numpy() for buf in st.bufs]
     st.begin(out)
     for i, c0 in enumerate(range(0, n, STAGE_BYTES)):
         c1 = min(n, c0 + STAGE_BYTES)
         slot = i % 2
+        pieces = _chunk_pieces(texts, offs, c0, c1)
         st.wait(slot)
-        st.bufs[slot][: c1 - c0].copy_(src[c0:c1])
+        if len(pieces) == 1 and pieces[0].strides[0] == 1:
+            with warnings.catch_warnings():
+                # a read-only array (bytes) is only read
+                warnings.simplefilter("ignore", UserWarning)
+                st.bufs[slot][: c1 - c0].copy_(torch.from_numpy(pieces[0]))
+        else:
+            np.concatenate(pieces, out=views[slot][: c1 - c0])
         st.send(slot, out[c0:c1], c1 - c0)
     st.end(out)
 
@@ -507,13 +530,27 @@ def _upload(text, device: torch.device) -> torch.Tensor:
         if not a.flags.writeable:
             a = a.copy()
         return torch.from_numpy(a).to(device)
-    with warnings.catch_warnings():
-        # a read-only array (bytes) is only read: no host copy of it
-        warnings.simplefilter("ignore", UserWarning)
-        src = torch.from_numpy(a)
     out = torch.empty(a.shape[0], dtype=torch.uint8, device=device)
     with st.lock:
-        _stage_chunks(src, out, st)
+        _stage_chunks([a], np.array([0, a.shape[0]]), out, st)
+    return out
+
+
+def _upload_set(texts, device: torch.device) -> torch.Tensor:
+    """The concatenation of the uint8 host arrays ``texts`` -> a contiguous
+    1-D uint8 tensor on ``device``: to a CUDA device through the pinned
+    staging buffers (``_stage_chunks``, no host array of the whole set),
+    on the CPU as one ``np.concatenate``."""
+    offs = np.concatenate([[0], np.cumsum([len(t) for t in texts],
+                                          dtype=np.int64)])
+    device = torch.device(device)
+    st = _staging_for(device) if offs[-1] else None
+    if st is None:
+        whole = np.concatenate(texts) if texts else np.zeros(0, np.uint8)
+        return torch.from_numpy(whole.astype(np.uint8, copy=False)).to(device)
+    out = torch.empty(int(offs[-1]), dtype=torch.uint8, device=device)
+    with st.lock:
+        _stage_chunks(list(texts), offs, out, st)
     return out
 
 

@@ -39,7 +39,10 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   random 10 kbp reads, both strands, end to end (host clock), and, for
   the first and the second call in the process, the time
   ``candidates_many_async`` of both strands takes to return and to
-  finish; with ``--plant`` as well, each read holds one copy of a barcode
+  finish, the preparation of a fresh set's planes of both strands
+  (twice, host clock) and the host memory a third one allocates
+  (``tracemalloc``: numpy's arrays and Python's objects); with
+  ``--plant`` as well, each read holds one copy of a barcode
   with one substitution at offset 5000 (read i: barcode i % 96, even
   reads forward, odd reads reverse-complemented, as ``chip_smoke.py``
   phase 6 plants them), so that the host traceback of one match per read
@@ -295,6 +298,7 @@ def _overhang_dispatch(acgt, n_reads: int) -> dict:
 
 def _search_many(dna, barcodes, acgt, n_reads: int, plant: bool) -> dict:
     import time
+    import tracemalloc
 
     import numpy as np
     import torch
@@ -334,6 +338,28 @@ def _search_many(dna, barcodes, acgt, n_reads: int, plant: bool) -> dict:
         out["async_return_ms"].append((t1 - t0) * 1e3)
         out["both_finish_ms"].append((t2 - t0) * 1e3)
         del eng, ts, fin, rfin
+    # the text set's preparation alone: both strands' planes of a fresh
+    # set (host clock), then the host memory a second one allocates
+    out["prep_ms"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = TextSet(reads, "cuda")
+        ts.planes(dna, False)
+        ts.planes(dna, True)
+        torch.cuda.synchronize()
+        out["prep_ms"].append((time.perf_counter() - t0) * 1e3)
+        del ts
+    tracemalloc.start()
+    try:
+        ts = TextSet(reads, "cuda")
+        ts.planes(dna, False)
+        ts.planes(dna, True)
+        torch.cuda.synchronize()
+        out["prep_host_peak_mib"] = tracemalloc.get_traced_memory()[1] / 2**20
+    finally:
+        tracemalloc.stop()
+    del ts
     searcher = Searcher("dna", rc=True, device="cuda")
     t0 = time.perf_counter()
     matches = searcher.search_many(list(barcodes), reads, K)

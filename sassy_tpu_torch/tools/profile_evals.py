@@ -7,15 +7,16 @@ Makes the bench's data as ``sassy_tpu_torch.evals.bench_suite`` does (same
 seeds, same bytes) and runs its two columns on the card, forward strand:
 
 - the text set's preparation, untimed in the bench (host clock, each
-  step ended by a synchronise): the host buffer's assembly
-  (``TextSet._host_bytes``), its upload (``_upload``: two pinned staging
-  buffers), then in ``profile_path.UPLOAD_TURNS`` turns against a
-  pageable copy (``torch.from_numpy(a).to(device)``), the reverse
-  strand's bytes gathered on the card (``TextSet._rev_bytes``), each
-  strand's pack (the pack kernel; the reverse strand's after its
-  gather), and the forward planes regathered with ``OVERSHOOT_STEPS``
-  'N' positions a text (``TextSet._with_overshoot``, an overhang
-  search's);
+  step ended by a synchronise): the staged upload of the texts' bytes
+  (``TextSet.data``: two pinned staging buffers filled from the texts'
+  own arrays), the tables of the text set's pack (``TextSet.tables``,
+  for 0 and ``OVERSHOOT_STEPS`` steps), each strand's planes (one launch
+  of the text set's pack kernel, ``TextSet.planes``) and the forward
+  planes with ``OVERSHOOT_STEPS`` 'N' positions a text (an overhang
+  search's); then each of those three launches alone under CUDA events
+  (the mean of ``KERNEL_REPS``) beside ``diagnostics.pack_bound``, and
+  the host memory numpy and Python allocate in a second preparation of
+  the same texts (``tracemalloc``);
 - the tiling group's piece plan, which its first call pays (host clock):
   the pieces cut by ``batch._plan_columns`` and, for comparison, by the
   per-piece loop ``batch._plan_pieces``, and the width and dispatch
@@ -42,6 +43,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import time
+import tracemalloc
 from pathlib import Path
 
 import torch
@@ -49,17 +51,18 @@ from torch.autograd import DeviceType
 
 from .. import diagnostics
 from ..evals import bench_suite
-from . import profile_path
 from ..ops import batch
 from ..ops.batch import BatchEngine, TextSet
-from ..ops.myers_torch import windows_plain
+from ..ops.myers_torch import aligned_words, windows_plain
 from ..profiles import Iupac
 
 BENCHES = ("nanopore", "nanopore_full", "off_targets", "off_targets_full")
 SEARCH_PATTERNS = 32
-#: the overhang steps whose planes' regather is timed: a 24 bp pattern at
-#: k=3 and alpha 0.5 (chip_smoke.py's OH_WORD)
+#: the overhang steps whose planes are timed: a 24 bp pattern at k=3 and
+#: alpha 0.5 (chip_smoke.py's OH_WORD)
 OVERSHOOT_STEPS = 7
+#: launches of each pack timed under CUDA events
+KERNEL_REPS = 5
 
 
 def _plan(eng, prof, qcodes, ts, k) -> list:
@@ -98,38 +101,60 @@ def _ms(fn):
     return got, (time.perf_counter() - t0) * 1e3
 
 
+def _kernel_ms(fn) -> float:
+    """Mean milliseconds of ``fn`` over KERNEL_REPS calls (CUDA events)
+    after one warm call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(KERNEL_REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / KERNEL_REPS
+
+
 def prepare(ts, prof) -> None:
     """The text set's preparation split into its steps (see the module's
     doc), printed; leaves both strands' planes cached."""
-    from ..ops.myers_torch import _upload, pack
-
-    buf, t_host = _ms(ts._host_bytes)
-    dev_bytes, t_up = _ms(lambda: _upload(buf, ts.device))
-    ts._fwd_bytes = dev_bytes
-    turns = profile_path.upload_turns(buf, ts.device)
-    rev, t_rev = _ms(ts._rev_bytes)
-    del rev
-    gw = ts.words() + 1
-
-    def packed(b):
-        return pack(b, gw, 0, prof.planes, prof.eq_mode == "ascii",
-                    prof.pack_mode, prof.pack_shift, prof.pack_mask,
-                    tuple(prof.pack_plane_masks), prof.pack_fold_case)
-
-    _, t_pack = _ms(lambda: packed(dev_bytes))
+    steps = OVERSHOOT_STEPS
+    data, t_up = _ms(ts.data)
+    _, t_tab = _ms(lambda: (ts.tables(0), ts.tables(steps)))
     _, t_fwd = _ms(lambda: ts.planes(prof, False))
-    _, t_rev_planes = _ms(lambda: ts.planes(prof, True))
-    over, t_over = _ms(lambda: ts.planes(prof, False, OVERSHOOT_STEPS))
+    _, t_rev = _ms(lambda: ts.planes(prof, True))
+    over, t_over = _ms(lambda: ts.planes(prof, False, steps))
     del over
-    ts._planes.pop((prof.name, None, False, OVERSHOOT_STEPS), None)
-    print(f"preparation: host buffer {t_host:.1f} ms, upload {t_up:.1f} ms "
-          f"({len(buf) / t_up / 1e6:.2f} GB/s), reverse gather "
-          f"{t_rev:.1f} ms, pack {t_pack:.1f} ms; forward planes (pack and "
-          f"the text ends) {t_fwd:.1f} ms, reverse planes (gather, pack, "
-          f"ends) {t_rev_planes:.1f} ms; the overshoot regather "
-          f"(_with_overshoot, {OVERSHOOT_STEPS} steps) {t_over:.1f} ms",
-          flush=True)
-    profile_path.print_turns(turns, len(buf))
+    ts._planes.pop((prof.name, None, False, steps), None)
+    total = t_up + t_tab + t_fwd + t_rev + t_over
+    print(f"preparation: staged set upload {t_up:.1f} ms "
+          f"({data.numel() / t_up / 1e6:.2f} GB/s), tables {t_tab:.1f} ms, "
+          f"forward planes {t_fwd:.1f} ms, reverse planes {t_rev:.1f} ms, "
+          f"forward planes with {steps} overshoot steps {t_over:.1f} ms; "
+          f"total {total:.1f} ms", flush=True)
+    for reverse, s in ((False, 0), (True, 0), (False, steps)):
+        width = aligned_words(ts.words(s) + 1)
+        args = (data, *ts.tables(s), width, prof, reverse, s)
+        ms = _kernel_ms(lambda: batch.pack_set(*args))
+        bound = diagnostics.pack_bound(data.numel(), prof.planes,
+                                       prof.eq_mode == "ascii", width)
+        print(f"text set pack kernel, {'reverse' if reverse else 'forward'}"
+              f", {s} steps: {ms:.3f} ms a launch, bound "
+              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), "
+              f"{bound['bound_ms'] / ms:.1%} of it", flush=True)
+    again = TextSet(ts.texts, ts.device)
+    tracemalloc.start()
+    try:
+        again.planes(prof, False)
+        again.planes(prof, True)
+        torch.cuda.synchronize()
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    del again
+    print(f"preparation's host allocations (both strands, a second set): "
+          f"peak {peak / 2**20:.1f} MiB for {data.numel() / 2**20:.1f} MiB "
+          f"of texts", flush=True)
 
 
 def _profiled(fn):

@@ -4,9 +4,12 @@ slices against q1), every built member of the kernel-design family
 (scan_qn, also against q2) and the four row-step ablations (full's vp
 against q1's); the text pack kernel against ``pack_plain`` (the four
 pack descriptors, every nb, unaligned inputs, the three engines' calls,
-its refusals); and the port's Searcher on the card, single and batched,
-with and without overhang, ascii, and with the suffix prefilter forced
-on, against its CPU path and the numpy oracle.
+its refusals); the text set's pack kernel against ``pack_set_plain``
+(the four descriptors, both strands, overshoot steps, three layouts of
+the bytes, ``TextSet.planes``' one launch a strand, its refusals); and
+the port's Searcher on the card, single and batched, with and without
+overhang, ascii, and with the suffix prefilter forced on, against its
+CPU path and the numpy oracle.
 
 Marked ``cuda``: every test skips without a CUDA device. On a GPU machine
 without JAX, run them without the repository's conftest (which imports
@@ -1317,18 +1320,24 @@ def test_pack_engines_launch_the_kernel(cuda):
         assert torch.equal(got.planes.cpu(), want.planes)
     assert myers_cuda.pack.launches == before + 2
     dna = profiles.Dna()
+    plain_set = batch.pack_set_plain.calls
+    before_set = myers_cuda.pack_set.launches
     ts, ts_cpu = batch.TextSet(texts, cuda), batch.TextSet(texts, "cpu")
     for reverse in (False, True):
         assert torch.equal(ts.planes(dna, reverse).cpu(),
                            ts_cpu.planes(dna, reverse))
-    assert myers_cuda.pack.launches == before + 4
+    # the text set's planes: one launch of its own kernel a strand
+    assert myers_cuda.pack_set.launches == before_set + 2
+    assert myers_cuda.pack.launches == before + 2
     iupac = profiles.Iupac()
     got = ShardedText(iupac, text).planes_sharded(4, 600, 5, [0, 3], cuda)
     want = ShardedText(iupac, text).planes_sharded(4, 600, 5, [0, 3], "cpu")
     for d in (0, 3):
         assert torch.equal(got[d].cpu(), want[d])
-    assert myers_cuda.pack.launches == before + 6
-    # the CPU paths above ran the plain version; the card's never did
+    assert myers_cuda.pack.launches == before + 4
+    # the CPU paths above ran the plain versions (the set's plain pack
+    # through pack_plain); the card's never did
+    assert batch.pack_set_plain.calls == plain_set + 2
     assert myers_torch.pack_plain.calls == plain + 2 + 2 + 2
 
 
@@ -1352,3 +1361,100 @@ def test_pack_kernel_refuses_bad_inputs(cuda, bad):
     with pytest.raises(ValueError):
         myers_cuda.pack(args[0], args[1], args[2], **{**kw, **args[3]})
     assert myers_cuda.pack.launches == before
+
+
+# -- the text set's pack kernel ----------------------------------------------
+
+#: (profile, overhang steps): steps only on IUPAC, the profile with overhang
+PACK_SET_CASES = [("dna", 0), ("iupac", 0), ("iupac", 7), ("iupac", 101),
+                  ("ascii_fold", 0), ("ascii", 0)]
+
+
+def _pack_set_texts(seed: int) -> list:
+    """Texts of 0, 1, 31, 32 and 33 bytes and random lengths, of all 256
+    byte values."""
+    rng = np.random.default_rng(seed)
+    lens = [0, 1, 31, 32, 33, 0, 64, 95, 1000, 70_001]
+    lens += rng.integers(0, 5000, 40).tolist()
+    return [rng.integers(0, 256, n, dtype=np.uint8) for n in lens]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("name,steps", PACK_SET_CASES)
+def test_pack_set_kernel_equals_plain(cuda, name, steps, reverse):
+    """The text set's pack kernel against ``pack_set_plain`` on the same
+    bytes and tables, bit for bit: the set as ``TextSet`` uploads it, the
+    same bytes one byte past an aligned address, and the texts scattered in
+    a shuffled order with random bytes between them; one launch each."""
+    prof = PACK_PROFILES[name]
+    texts = _pack_set_texts(steps + reverse)
+    ts = batch.TextSet(texts, cuda)
+    data, (starts, lens, wofs) = ts.data(), ts.tables(steps)
+    width = myers_torch.aligned_words(ts.words(steps) + 1)
+    shifted = torch.empty(data.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted[1:] = data
+    rng = np.random.default_rng(7)
+    order = rng.permutation(len(texts))
+    gaps = rng.integers(0, 40, len(texts))
+    scattered = rng.integers(0, 256, data.numel() + int(gaps.sum()),
+                             dtype=np.uint8)
+    at, s_starts = 0, np.zeros(len(texts), np.int64)
+    for t, gap in zip(order, gaps):
+        at += int(gap)
+        s_starts[t] = at
+        scattered[at : at + len(texts[t])] = texts[t]
+        at += len(texts[t])
+    layouts = [(data, starts), (shifted[1:], starts),
+               (torch.from_numpy(scattered).to(cuda),
+                torch.from_numpy(s_starts).to(cuda))]
+    before = myers_cuda.pack_set.launches
+    for d, st in layouts:
+        got = myers_cuda.pack_set(d, st, lens, wofs, width, prof, reverse,
+                                  steps)
+        torch.cuda.synchronize()
+        want = batch.pack_set_plain(d.cpu(), st.cpu(), lens.cpu(),
+                                    wofs.cpu(), width, prof, reverse, steps)
+        assert torch.equal(got.cpu(), want)
+    assert myers_cuda.pack_set.launches == before + 3
+
+
+def test_pack_set_textset_one_launch_a_strand(cuda):
+    """``TextSet.planes`` on the card: one launch of the text set's kernel
+    per (strand, steps), cached after, no plain set pack and no one-text
+    pack, equal to the CPU text set's planes."""
+    texts = _pack_set_texts(11)
+    iupac = profiles.Iupac()
+    ts, ts_cpu = batch.TextSet(texts, cuda), batch.TextSet(texts, "cpu")
+    before, plain = myers_cuda.pack_set.launches, batch.pack_set_plain.calls
+    packs = myers_cuda.pack.launches
+    for _ in range(2):
+        for reverse in (False, True):
+            for steps in (0, 7):
+                ts.planes(iupac, reverse, steps)
+    assert myers_cuda.pack_set.launches == before + 4
+    assert batch.pack_set_plain.calls == plain
+    assert myers_cuda.pack.launches == packs
+    for reverse in (False, True):
+        for steps in (0, 7):
+            assert torch.equal(ts.planes(iupac, reverse, steps).cpu(),
+                               ts_cpu.planes(iupac, reverse, steps))
+
+
+@pytest.mark.parametrize("bad", ["no overhang", "table device", "int32",
+                                 "strided", "wofs"])
+def test_pack_set_kernel_refuses_bad_inputs(cuda, bad):
+    """ValueError before any launch: overhang steps on DNA, tables on the
+    CPU, int32 bytes, a strided buffer, a wofs of T entries."""
+    ts = batch.TextSet(_pack_set_texts(3), cuda)
+    data, (starts, lens, wofs) = ts.data(), ts.tables(0)
+    args = dict(data=data, starts=starts, lens=lens, wofs=wofs,
+                width=ts.words() + 4, profile=profiles.Iupac(), steps=0)
+    args.update({"no overhang": dict(profile=profiles.Dna(), steps=7),
+                 "table device": dict(lens=lens.cpu()),
+                 "int32": dict(data=data.to(torch.int32)),
+                 "strided": dict(data=data[::2]),
+                 "wofs": dict(wofs=wofs[1:])}[bad])
+    before = myers_cuda.pack_set.launches
+    with pytest.raises(ValueError):
+        myers_cuda.pack_set(**args)
+    assert myers_cuda.pack_set.launches == before

@@ -4,7 +4,37 @@
 // point does and packs the words one after another where the kernel's
 // threads take them side by side. The same argument list as the kernel's
 // C entry point (sassy_pack) without the stream, on host memory; returns 0,
-// or 1 for arguments the entry point refuses.
+// or 1 for arguments the entry point refuses. sassy_pack_set_host does the
+// same for the text set's pack (sassy_pack_set): the same checks and
+// table, then pack_set_word for each word in turn, every load checked to
+// lie inside a text (stats: the loads, those outside every text, the
+// vector loads).
+
+#include <cstdint>
+
+namespace {
+// The text set being packed, for the load check: every byte the set pack
+// loads must lie inside one of its texts.
+const long long* g_starts = nullptr;
+const long long* g_lens = nullptr;
+long long g_texts = 0;
+long long g_loads = 0;    // loads (a vector load's bytes count once)
+long long g_outside = 0;  // loads that left every text
+long long g_wide = 0;     // the vector loads among them
+
+void check_read(int64_t first, int64_t count) {
+  ++g_loads;
+  if (count > 1) ++g_wide;
+  for (long long t = 0; t < g_texts; ++t) {
+    if (first >= g_starts[t] && first + count <= g_starts[t] + g_lens[t]) {
+      return;
+    }
+  }
+  ++g_outside;
+}
+}  // namespace
+
+#define SASSY_PACK_READ_HOOK(first, count) check_read((first), (count))
 
 #include "pack.cuh"
 
@@ -39,5 +69,33 @@ extern "C" int sassy_pack_host(const void* text, long long len, void* out,
   const int64_t lim = pack_limit(a);
   const uint8_t* codes = reinterpret_cast<const uint8_t*>(tab.words);
   for (int64_t j = 0; j < gw; ++j) pack_word_host(a, j, lim, codes);
+  return 0;
+}
+
+extern "C" int sassy_pack_set_host(const void* text, long long len,
+                                   const long long* starts,
+                                   const long long* lens,
+                                   const long long* wofs, long long texts,
+                                   void* out, long long width,
+                                   long long steps, int reverse, int planes,
+                                   int with_valid, int mode, int shift,
+                                   int mask, const unsigned int* pmasks,
+                                   int fold, long long* stats) {
+  PackSetArgs a;
+  PackTable tab;
+  if (!pack_set_setup(text, len, starts, lens, wofs, texts, out, width,
+                      steps, reverse, planes, with_valid, mode, shift, mask,
+                      pmasks, fold, &a, &tab)) {
+    return 1;
+  }
+  g_starts = starts;
+  g_lens = lens;
+  g_texts = texts;
+  g_loads = g_outside = g_wide = 0;
+  const uint8_t* codes = reinterpret_cast<const uint8_t*>(tab.words);
+  for (int64_t w = 0; w < width; ++w) pack_set_word(a, w, codes);
+  stats[0] = g_loads;
+  stats[1] = g_outside;
+  stats[2] = g_wide;
   return 0;
 }
