@@ -47,7 +47,13 @@ against their plain versions, timed beside their bounds. Phases:
    .search over 1 GiB of random ACGT with mutated copies of the pattern
    planted on both strands; every copy must come back, through the
    kernel, with the cost and CIGAR of its one planted substitution; the
-   phases of one strand are timed (the upload and the pack apart);
+   phases of one strand are timed (the upload and the pack apart), and
+   both strands' preparation from one upload; the search must upload the
+   text once and launch the pack kernel once (the forward strand) and
+   the text set's pack kernel once (the reverse strand, read backwards
+   from the same bytes); then a read-only copy is searched twice, both
+   calls timed: the first prepares both strands from one upload, the
+   second uploads and packs nothing, and both return the same matches;
 4. end to end, the card against the port's CPU path (the plain version
    of the kernel) on a 50 kbp slice: search and search_all at k in
    {0, 1, 3}, Match for Match with CIGAR. The CPU path is held to the
@@ -247,7 +253,7 @@ against their plain versions, timed beside their bounds. Phases:
 After each main-path run of phases 3, 6, 8, 9, 11, 20 and 21a no plain
 selection and no plain pack (nor the text set's plain pack) ran, and the
 selection kernel of its level launched (the pack kernel too in phase 3
-and over phase 20's runs, the text set's pack kernel in phases 6 and
+and over phase 20's runs, the text set's pack kernel in phases 3, 6 and
 11); the pack kernel's launches there are row 12 of the kernels line
 (times from phase 2: DNA on 1 GiB of ACGT, the other cases under the
 row's "profiles" key), the text set's pack kernel's row 13 (times from
@@ -501,7 +507,8 @@ def window_builds() -> int:
 #: and 21a), row 12 of the kernels line
 PACKED = {"launches": 0}
 #: launches of the text set's pack kernel in the main path's runs (phases
-#: 6, 11 and 21a: every batched search's planes), row 13
+#: 6, 11 and 21a: every batched search's planes; phases 3, 8 and 9: the
+#: single engine's reverse strand), row 13
 PACKED_SET = {"launches": 0}
 
 
@@ -1053,7 +1060,7 @@ def hold_pack_set(label: str, data, tables, width: int, prof,
     n_bytes = int(tables[1].sum())
     rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
            **pack_bound(n_bytes, prof.planes, prof.eq_mode == "ascii",
-                        width)}
+                        width, texts=tables[1].numel())}
     log(f"{label}: text set pack ({prof.name}, "
         f"{'reverse' if reverse else 'forward'}, {steps} steps) of "
         f"{tables[1].numel()} texts, {n_bytes} bytes, {width} words vs "
@@ -1193,21 +1200,37 @@ def end_to_end(gen):
             + f" ({len(ends)} candidates)")
         del text_dev, prep, inp, outs
 
-    counts_zero()
-    t0 = time.perf_counter()
-    matches = searcher.search(pattern, text, K)
-    torch.cuda.synchronize()
-    e2e = time.perf_counter() - t0
-    launches = myers_cuda.scan_meta.launches
-    n_pack = selected("phase 3", ("select_words_chained",))["pack"]
+    # both strands' planes from one upload, timed apart (the text is
+    # writeable, so nothing is kept)
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pair = eng.prepare_strands(dna, text)
+        torch.cuda.synchronize()
+        log(f"phase 3: both strands prepared from one upload, {run}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        del pair
+
+    with counted_uploads() as uploads:
+        counts_zero()
+        t0 = time.perf_counter()
+        matches = searcher.search(pattern, text, K)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        launches = myers_cuda.scan_meta.launches
+        got = selected("phase 3", ("select_words_chained",))
     log(f"phase 3: Searcher.search, both strands, {N_TEXT >> 20} MiB: "
         f"{e2e:.3f} s, "
-        f"{len(matches)} matches, scan kernel launches {launches}, pack "
-        f"kernel launches {n_pack}")
-    if n_pack < 2:
-        fail(f"phase 3: the search launched the pack kernel {n_pack} times")
+        f"{len(matches)} matches, scan kernel launches {launches}, uploads "
+        f"{uploads['n']}, pack kernel launches {got['pack']}, text set "
+        f"pack kernel launches {got['pack_set']}")
+    if (uploads["n"], got["pack"], got["pack_set"]) != (1, 1, 1):
+        fail(f"phase 3: the two-strand search made {uploads['n']} uploads, "
+             f"{got['pack']} pack launches and {got['pack_set']} set pack "
+             "launches, not one each")
     if launches < 2:
         fail(f"the search launched the scan kernel {launches} times")
+    searched_twice(searcher, pattern, text, matches)
 
     # each planted copy, aligned as it was planted: one substitution
     m = PATTERN_LEN
@@ -1225,6 +1248,62 @@ def end_to_end(gen):
         log(f"phase 3: planted {strand} copy at {off}: found, cost {g.cost}, "
             f"cigar {g.cigar.to_string()}")
     return launches, text, pattern
+
+
+@contextlib.contextmanager
+def counted_uploads():
+    """Count the host texts ``myers_torch._upload`` sends to the card (the
+    count under the yielded dict's "n")."""
+    from sassy_tpu_torch.ops import myers_torch
+
+    upload = myers_torch._upload
+    got = {"n": 0}
+
+    def counting(text, device):
+        got["n"] += 1
+        return upload(text, device)
+
+    myers_torch._upload = counting
+    try:
+        yield got
+    finally:
+        myers_torch._upload = upload
+
+
+def searched_twice(searcher, pattern, text, want):
+    """Phase 3's warm search: a read-only copy of the text searched twice
+    on both strands; the first search uploads once and launches the pack
+    and the text set's pack once each, the second uploads and launches
+    neither (the pair of prepared strands is kept while the copy lives);
+    both return phase 3's Match list. Logs both calls' times."""
+    import numpy as np
+    import torch
+
+    frozen = np.frombuffer(text.tobytes(), np.uint8)
+    for call, want_launched in (("first", (1, 1, 1)), ("second", (0, 0, 0))):
+        with counted_uploads() as uploads:
+            counts_zero()
+            t0 = time.perf_counter()
+            got = searcher.search(pattern, frozen, K)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            n = selected(f"phase 3, read-only copy, {call} search",
+                         ("select_words_chained",))
+        launched = (uploads["n"], n["pack"], n["pack_set"])
+        log(f"phase 3: Searcher.search of a read-only copy, both strands, "
+            f"{call} call: {took:.3f} s, {len(got)} matches, uploads "
+            f"{launched[0]}, pack launches {launched[1]}, set pack "
+            f"launches {launched[2]}")
+        if launched != want_launched:
+            fail(f"phase 3: the {call} search of a read-only copy made "
+                 f"(uploads, packs, set packs) {launched}, not "
+                 f"{want_launched}")
+        if [(m.sort_key(), m.cigar.to_string()) for m in got] != [
+                (m.sort_key(), m.cigar.to_string()) for m in want]:
+            fail(f"phase 3: the {call} search of a read-only copy returned "
+                 "other matches")
+    del frozen
+    torch.cuda.empty_cache()
 
 
 def against_cpu(text, pattern):
@@ -4202,9 +4281,9 @@ def main() -> int:
          "profiles": head_pack["profiles"]},
         # row 13: the text set's preparation around the JAX pipeline's
         # pack (reverse_planes, the reversed host copies at batch.py:119,
-        # the overshoot's pad code at batch.py:436); launches of phases 6,
-        # 11 and 21a, times from phase 2 (nanopore_full's reads, forward,
-        # DNA; the other sets, strands and steps under "cases")
+        # the overshoot's pad code at batch.py:436); launches of phases 3,
+        # 6, 8, 9, 11 and 21a, times from phase 2 (nanopore_full's reads,
+        # forward, DNA; the other sets, strands and steps under "cases")
         {**entry("pack_set", "sassy_tpu_torch/csrc/pack.cu",
                  "sassy_tpu/ops/myers_xla.py:228", PACKED_SET["launches"],
                  head_set),

@@ -38,24 +38,36 @@
 // copies of the reversed texts (_texts_for, sassy_tpu/ops/batch.py:119)
 // and the device's reverse_planes (sassy_tpu/ops/myers_xla.py:228) for
 // the reverse strand, and the overshoot's overhang_pad_code of the host
-// packing (_pack_pieces_np, batch.py:436). Per plane word: its text by a
-// binary search over the texts' first words (the table stays in L1 and
-// L2), its 32 bytes read forwards or backwards (a reversed word is a
+// packing (_pack_pieces_np, batch.py:436). Per plane word: its text, its
+// 32 bytes read forwards or backwards (a reversed word is a
 // byte-reversed span of the forward bytes), the planes as above, the
 // text's n mask and its steps 'N' positions. No byte outside the word's
-// text is read.
+// text is read. The single engine's reverse strand is this kernel on a
+// one-text set (starts [0], lens [n], wofs [0, ceil(n / 32)]) over the
+// forward bytes, which the forward strand's pack reads from the same
+// upload.
 //
 // What bounds it: bytes, as the one-text pack: each byte read once, each
-// plane word written once; pack_bound at 3.12 GB of DNA and its 4 planes
-// is ~1.4 ms a strand, at 334 MB ~0.15 ms. What the design does about it:
-// one launch a strand, one thread a word, grid-stride, so a warp writes
-// 128 adjacent bytes of each plane and reads 1 KiB of adjacent text (in
-// either direction); each thread reads its 32 bytes with two or three
-// aligned 16-byte loads and funnel shifts wherever they lie inside the
-// text, however the text is aligned (the third load is the next thread's
-// first: L1), and a byte at a time only at a text's ends. It replaces
-// the port's PyTorch composition of a host buffer, a reverse gather, the
-// end masking and a regather of every plane word for the overshoot.
+// plane word written once (and the tables, 24 bytes a text); pack_bound
+// at 3.12 GB of DNA and its 4 planes is ~1.4 ms a strand, at 334 MB
+// ~0.15 ms. What the design does about it: one launch a strand, as many
+// blocks as the card holds at once, each warp one contiguous range of
+// plane words, 32 side by side, so a warp writes 128 adjacent bytes of
+// each plane and reads 1 KiB of adjacent text (in either direction) a
+// step. A word's text costs O(1) table reads amortised (pack.cuh,
+// SetText / SetStage): a lane keeps its text's entry until its words
+// pass that text's end, and then the warp stages the next 32 texts' entries
+// in shared memory with one load a lane and each lane finds its own there;
+// a range's first text comes from one search of the table, 32 probes a
+// round. Each thread reads its 32 bytes with two 16-byte loads through
+// the read-only cache (streaming loads were 4-8% slower at one text), or
+// three and funnel shifts where the span is not aligned (the third load
+// is the next thread's first: L1), wherever they lie inside the text,
+// and a byte at a time only at a text's ends. 55 registers, four blocks
+// an SM: capping them at 40 or 32 (__launch_bounds__) spilled and was
+// 8-46% slower. It replaces the
+// port's PyTorch composition of a host buffer, a reverse gather, the end
+// masking and a regather of every plane word for the overshoot.
 
 #include "pack.cuh"
 
@@ -63,6 +75,7 @@ namespace {
 
 constexpr int kPackThreads = 256;
 constexpr int kPackBlocksPerSm = 8;
+constexpr unsigned kAllLanes = 0xFFFFFFFFu;
 
 __global__ void __launch_bounds__(kPackThreads)
 pack_words(PackArgs a, PackTable tab, bool aligned) {
@@ -99,22 +112,50 @@ pack_words(PackArgs a, PackTable tab, bool aligned) {
 }
 
 __global__ void __launch_bounds__(kPackThreads)
-pack_set_words(PackSetArgs a, PackTable tab) {
+pack_set_words(PackSetArgs a, PackTable tab, int64_t per_warp) {
   __shared__ uint32_t table[64];
+  __shared__ SetStage stages[kPackThreads / kSetLanes];
   if (threadIdx.x < 64) table[threadIdx.x] = tab.words[threadIdx.x];
   __syncthreads();
   const uint8_t* codes = reinterpret_cast<const uint8_t*>(table);
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kPackThreads;
-  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kPackThreads +
-                   threadIdx.x;
-       w < a.width; w += step) {
-    pack_set_word(a, w, codes);
+  const int lane = threadIdx.x % kSetLanes;
+  SetStage* s = &stages[threadIdx.x / kSetLanes];
+  const int64_t w_begin =
+      (static_cast<int64_t>(blockIdx.x) * kPackThreads + threadIdx.x) /
+      kSetLanes * per_warp;
+  const int64_t w_end =
+      w_begin + per_warp < a.width ? w_begin + per_warp : a.width;
+  if (w_begin >= w_end) return;  // the whole warp
+  // the text of the range's first word: 32 probes a round
+  int64_t lo = -1;
+  int64_t hi = a.texts;
+  while (lo < hi) {
+    const unsigned below =
+        __ballot_sync(kAllLanes, a.wofs[set_probe(lo, hi, lane)] <= w_begin);
+    set_narrow(&lo, &hi, __popc(below));
+  }
+  SetText c = set_unknown(lo, w_begin);
+  for (int64_t w0 = w_begin; w0 < w_end; w0 += kSetLanes) {
+    const int64_t w = w0 + lane;
+    bool open = w >= c.end;  // the lane passed its text
+    if (__any_sync(kAllLanes, open)) {
+      const int64_t last = __shfl_sync(kAllLanes, c.t, kSetLanes - 1);
+      int64_t base = last > 0 ? last : 0;
+      do {
+        set_stage(a, base, lane, s);
+        __syncwarp();
+        if (open) open = !set_resolve(a, *s, base, w, &c);
+        __syncwarp();
+        base += kSetLanes;
+      } while (__any_sync(kAllLanes, open));
+    }
+    if (w < w_end) pack_set_word(a, w, c, codes);
   }
 }
 
-// Blocks of a grid-stride launch over `words` words: enough for one word a
-// thread, at most kPackBlocksPerSm a streaming multiprocessor.
-cudaError_t pack_blocks(long long words, unsigned* blocks) {
+// Blocks of a launch over `words` words: enough for one word a thread, at
+// most per_sm a streaming multiprocessor.
+cudaError_t pack_blocks(long long words, int per_sm, unsigned* blocks) {
   int dev = 0;
   int sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -122,7 +163,7 @@ cudaError_t pack_blocks(long long words, unsigned* blocks) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   const long long need = (words + kPackThreads - 1) / kPackThreads;
-  const long long most = static_cast<long long>(sms) * kPackBlocksPerSm;
+  const long long most = static_cast<long long>(sms) * per_sm;
   *blocks = static_cast<unsigned>(need < most ? need : most);
   return err;
 }
@@ -163,7 +204,7 @@ extern "C" int sassy_pack(const void* text, long long len, void* out,
   a.planes = planes;
   a.with_valid = with_valid != 0;
   unsigned blocks = 0;
-  const cudaError_t err = pack_blocks(gw, &blocks);
+  const cudaError_t err = pack_blocks(gw, kPackBlocksPerSm, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool aligned = reinterpret_cast<uintptr_t>(text) % 16 == 0;
   pack_words<<<blocks, kPackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -194,10 +235,18 @@ extern "C" int sassy_pack_set(const void* text, long long len,
                       pmasks, fold, &a, &tab)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // as many blocks as the card holds at once: each warp packs one range,
+  // so a block left waiting for a slot would add its range's time
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, pack_set_words, kPackThreads, 0);
   unsigned blocks = 0;
-  const cudaError_t err = pack_blocks(width, &blocks);
+  if (err == cudaSuccess) err = pack_blocks(width, per_sm, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t per_warp =
+      set_warp_words(width, static_cast<int64_t>(blocks) * kPackThreads /
+                                kSetLanes);
   pack_set_words<<<blocks, kPackThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a, tab);
+                   static_cast<cudaStream_t>(stream)>>>(a, tab, per_warp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -177,6 +177,21 @@ PACK_HD void store_word(const PackArgs& a, int64_t j, const uint32_t r[8],
 // Positions n_t .. n_t + steps - 1 are 'N': every plane bit set (IUPAC's
 // overhang_pad_code 15), the validity bit too; positions past them, and
 // the words from wofs[texts] up to the width, are zero in every plane.
+//
+// Which text holds a word: each warp packs one contiguous range of plane
+// words (set_warp_words), lane l word w0 + l of each step of 32. A lane
+// keeps its word's text (SetText) while its words stay below that text's
+// end. When a lane passes its text, the warp stages the table entries of
+// the 32 texts from its last lane's text on in shared memory (SetStage),
+// one a lane, and each lane that passed finds its text there by a binary
+// search over the 32 ends (set_resolve); more than 32 texts ending within
+// the warp's 32 words (empty texts) take another round. A range starts
+// from one search of the whole table, 32 probes a round (set_probe,
+// set_narrow). So a word's text costs O(1) table reads amortised, and
+// nothing searches the table per word.
+
+constexpr int kSetLanes = 32;
+constexpr int64_t kSetNoEnd = INT64_MAX;
 
 struct PackSetArgs {
   const uint8_t* text;    // the texts' bytes
@@ -194,21 +209,107 @@ struct PackSetArgs {
   bool aligned;           // text is 16-byte aligned: vector loads allowed
 };
 
-// The text whose words hold plane word w: the last t with wofs[t] <= w
-// (a text without words is passed over); texts for a word past them all,
-// -1 for one before the first.
-PACK_HD int64_t set_text_of(const PackSetArgs& a, int64_t w) {
-  int64_t lo = 0;
-  int64_t hi = a.texts + 1;  // the first i with wofs[i] > w is in [lo, hi]
-  while (lo < hi) {
-    const int64_t mid = lo + (hi - lo) / 2;
-    if (a.wofs[mid] <= w) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+// A lane's text: t in 0 .. texts - 1 with its table entry, -1 before the
+// first text, texts past them all; the lane's words below end stay in it.
+struct SetText {
+  int64_t t;
+  int64_t first;  // wofs[t]
+  int64_t end;    // wofs[t + 1]; wofs[0] before the first, kSetNoEnd past
+  int64_t start;  // starts[t]
+  int64_t len;    // lens[t]
+};
+
+// A warp's staged table entries: lane l's of text base + l; a lane past
+// the last text holds none (its first and end kSetNoEnd).
+struct SetStage {
+  int64_t first[kSetLanes];
+  int64_t end[kSetLanes];
+  int64_t start[kSetLanes];
+  int64_t len[kSetLanes];
+};
+
+// Plane words each warp packs: the width over `warps` warps, a multiple
+// of 32.
+PACK_HD int64_t set_warp_words(int64_t width, int64_t warps) {
+  const int64_t per = (width + warps - 1) / warps;
+  return (per + kSetLanes - 1) / kSetLanes * kSetLanes;
+}
+
+// Lane `lane`'s probe in one round of the search for the last text t with
+// wofs[t] <= w, known to lie in [lo, hi]: 32 rising indices in (lo, hi],
+// the last hi.
+PACK_HD int64_t set_probe(int64_t lo, int64_t hi, int lane) {
+  return lo + ((hi - lo) * (lane + 1) + kSetLanes - 1) / kSetLanes;
+}
+
+// [lo, hi] after a round whose first c probes had wofs[probe] <= w; the
+// search ends when lo == hi (lo starts at -1, hi at texts).
+PACK_HD void set_narrow(int64_t* lo, int64_t* hi, int c) {
+  const int64_t l = *lo;
+  const int64_t h = *hi;
+  if (c > 0) *lo = set_probe(l, h, c - 1);
+  if (c < kSetLanes) *hi = set_probe(l, h, c) - 1;
+}
+
+// A lane's state before its range's first step: text t, no words in it,
+// so the warp stages from t.
+PACK_HD SetText set_unknown(int64_t t, int64_t w) {
+  SetText c = {};
+  c.t = t;
+  c.end = w;
+  return c;
+}
+
+// Lane `lane`'s part of staging the texts base .. base + 31.
+PACK_HD void set_stage(const PackSetArgs& a, int64_t base, int lane,
+                       SetStage* s) {
+  const int64_t t = base + lane;
+  if (t < a.texts) {
+    s->first[lane] = a.wofs[t];
+    s->end[lane] = a.wofs[t + 1];
+    s->start[lane] = a.starts[t];
+    s->len[lane] = a.lens[t];
+  } else {
+    s->first[lane] = s->end[lane] = kSetNoEnd;
+    s->start[lane] = s->len[lane] = 0;
   }
-  return lo - 1;
+}
+
+// The first staged lane whose text ends past word w, 32 if none: a binary
+// search over the ends, which rise lane by lane.
+PACK_HD int set_find(const SetStage& s, int64_t w) {
+  int i = 0;  // every lane below i ends at or before w
+#pragma unroll
+  for (int step = kSetLanes / 2; step >= 1; step /= 2) {
+    if (s.end[i + step - 1] <= w) i += step;
+  }
+  return s.end[i] <= w ? i + 1 : i;
+}
+
+// Word w's text among the staged texts base ..: sets *c and returns true,
+// or false where its text lies past them.
+PACK_HD bool set_resolve(const PackSetArgs& a, const SetStage& s,
+                         int64_t base, int64_t w, SetText* c) {
+  const int i = set_find(s, w);
+  const int64_t left = a.texts - base;
+  const int64_t count = left < kSetLanes ? left : kSetLanes;
+  if (i < count) {
+    if (w < s.first[i]) {  // before the first text (wofs[0] > w)
+      *c = set_unknown(-1, s.first[i]);
+    } else {
+      c->t = base + i;
+      c->first = s.first[i];
+      c->end = s.end[i];
+      c->start = s.start[i];
+      c->len = s.len[i];
+    }
+    return true;
+  }
+  if (base + count >= a.texts) {  // past every text
+    *c = set_unknown(a.texts, kSetNoEnd);
+    return true;
+  }
+  return false;
 }
 
 // Bits of a word below its position b (b clamped to 0..32).
@@ -217,7 +318,8 @@ PACK_HD uint32_t bits_below(int64_t b) {
   return b <= 0 ? 0u : (1u << b) - 1u;
 }
 
-// 16 bytes at p, 16-byte aligned, as 4 little-endian words.
+// 16 bytes at p, 16-byte aligned, as 4 little-endian words (on the card
+// through the read-only cache: streaming loads, __ldcs, were slower).
 PACK_HD void load16(const uint8_t* p, uint32_t u[4]) {
 #if defined(__CUDA_ARCH__)
   const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
@@ -236,9 +338,10 @@ PACK_HD uint32_t pick(const uint32_t u[12], int i, int q) {
 }
 
 // Bytes a0 .. a0 + 31 of text as 8 little-endian words, zero where outside
-// [lo, hi) (0 <= lo, hi <= len): from two or three aligned 16-byte loads
-// and funnel shifts where those loads lie inside [lo, hi), else a byte at
-// a time. No byte outside [lo, hi) is read.
+// [lo, hi) (0 <= lo, hi <= len): two aligned 16-byte loads where a0 is
+// aligned, three and funnel shifts where it is not, wherever those loads
+// lie inside [lo, hi); else a byte at a time. No byte outside [lo, hi) is
+// read.
 PACK_HD void load_span(const PackSetArgs& a, int64_t a0, int64_t lo,
                        int64_t hi, uint32_t x[8]) {
   const int64_t base = a0 & ~int64_t{15};
@@ -247,14 +350,15 @@ PACK_HD void load_span(const PackSetArgs& a, int64_t a0, int64_t lo,
 #ifdef SASSY_PACK_READ_HOOK
     SASSY_PACK_READ_HOOK(base, sh ? 48 : 32);  // a host build's load check
 #endif
+    if (sh == 0) {
+      load16(a.text + base, x);
+      load16(a.text + base + 16, x + 4);
+      return;
+    }
     uint32_t u[12];
     load16(a.text + base, u);
     load16(a.text + base + 16, u + 4);
-    if (sh) {
-      load16(a.text + base + 32, u + 8);
-    } else {
-      u[8] = u[9] = u[10] = u[11] = 0u;
-    }
+    load16(a.text + base + 32, u + 8);
     const int q = sh >> 2;
     const int r = 8 * (sh & 3);
 #pragma unroll
@@ -295,26 +399,26 @@ PACK_HD void reverse_bytes(uint32_t x[8]) {
   }
 }
 
-// Plane word w of the set: its text's bytes (forwards or backwards), their
-// planes, the n_t mask and the 'N's, stored in every row of out.
-PACK_HD void pack_set_word(const PackSetArgs& a, int64_t w,
+// Plane word w of the set, in text c (set_resolve's): its bytes forwards
+// or backwards, their planes, the n_t mask and the 'N's, stored in every
+// row of out.
+PACK_HD void pack_set_word(const PackSetArgs& a, int64_t w, const SetText& c,
                            const uint8_t* codes) {
   uint32_t r[8] = {};
   uint32_t keep = 0u;  // positions < n_t
   uint32_t mark = 0u;  // positions n_t .. n_t + steps - 1
-  const int64_t t = set_text_of(a, w);
-  if (t >= 0 && t < a.texts) {
-    const int64_t n = a.lens[t];
-    const int64_t p0 = kWordBytes * (w - a.wofs[t]);  // the word's position 0
+  if (c.t >= 0 && c.t < a.texts) {
+    const int64_t n = c.len;
+    const int64_t p0 = kWordBytes * (w - c.first);  // the word's position 0
     keep = bits_below(n - p0);
     mark = bits_below(n + a.steps - p0) & ~keep;
     if (keep) {
-      const int64_t start = a.starts[t];
-      const int64_t lo = start > 0 ? start : 0;
-      const int64_t end = start + n;
+      const int64_t lo = c.start > 0 ? c.start : 0;
+      const int64_t end = c.start + n;
       const int64_t hi = end < a.len ? end : a.len;
       uint32_t x[8];
-      load_span(a, a.reverse ? end - p0 - kWordBytes : start + p0, lo, hi, x);
+      load_span(a, a.reverse ? end - p0 - kWordBytes : c.start + p0, lo, hi,
+                x);
       if (a.reverse) reverse_bytes(x);
       transpose_word(x, codes, r);
     }

@@ -189,13 +189,16 @@ def select_bound(entry: str, args: tuple, kwargs: dict, n_out: int) -> dict:
 
 
 def pack_bound(n_bytes: int, planes: int, with_valid: bool,
-               gw: int | None = None) -> dict:
+               gw: int | None = None, texts: int = 0) -> dict:
     """bound_ms and bound_by (and the bytes and ops they come from) of one
     text pack: ``n_bytes`` bytes read once and the (planes + with_valid,
     gw) int32 words written once (gw defaults to the words that hold the
-    bytes), against one operation a byte (its code's lookup)."""
+    bytes), against one operation a byte (its code's lookup); with
+    ``texts``, a text set's pack, whose tables (starts, lens and wofs:
+    3 * texts + 1 int64) are read once too."""
     gw = cdiv(n_bytes, WORD_BITS) if gw is None else gw
-    nbytes = n_bytes + 4 * (planes + int(bool(with_valid))) * gw
+    nbytes = (n_bytes + 4 * (planes + int(bool(with_valid))) * gw
+              + (8 * (3 * texts + 1) if texts else 0))
     ops = n_bytes
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3

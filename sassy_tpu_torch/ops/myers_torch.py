@@ -32,7 +32,10 @@ thread that both engines share (``dispatch_async``), on the caller's
 current CUDA stream, and returns a ``finish()`` that waits for the sorted
 candidate list; ``prepare`` keeps the prepared texts of live read-only
 source arrays (``_IdCache``), so a second search over the same array
-reuses its planes and window descriptors.
+reuses its planes and window descriptors; ``prepare_strands`` prepares
+both strands of a text from one upload of its bytes (the reverse strand
+packed backwards by the text set's pack kernel: ``pack_backwards``), and
+keeps the pair the same way.
 
 Device tensors hold uint32 bit words as int32; the plain versions compute
 on int64 values masked to 32 bits (see ``minima.u32``).
@@ -70,6 +73,7 @@ __all__ = [
     "pack",
     "pack_plain",
     "overlay_n_tail",
+    "pack_backwards",
     "Windows",
     "windows_plain",
     "tile_windows",
@@ -516,18 +520,16 @@ def _stage_chunks(texts, offs: np.ndarray, out: torch.Tensor, st) -> None:
 def _upload(text, device: torch.device) -> torch.Tensor:
     """Raw text bytes -> a contiguous 1-D uint8 tensor on ``device``: to a
     CUDA device through the pinned staging buffers (``_stage_chunks``),
-    on the CPU as they are."""
+    on the CPU as they are. A reversed view goes up in its own order (the
+    staging fills its buffers from it); ``PreparedText`` instead uploads
+    such a view's forward bytes and packs them backwards."""
     if isinstance(text, torch.Tensor):
         return text.to(device=device, dtype=torch.uint8).contiguous()
     a = as_bytes_array(text)
-    if a.strides[0] < 0:
-        # a reversed view (the reverse strand): upload the forward bytes
-        # and reverse on the device instead of copying on the host
-        return _upload(a[::-1], device).flip(0)
     device = torch.device(device)
     st = _staging_for(device) if a.shape[0] else None
     if st is None:
-        if not a.flags.writeable:
+        if not a.flags.writeable or a.strides[0] < 0:
             a = a.copy()
         return torch.from_numpy(a).to(device)
     out = torch.empty(a.shape[0], dtype=torch.uint8, device=device)
@@ -554,25 +556,58 @@ def _upload_set(texts, device: torch.device) -> torch.Tensor:
     return out
 
 
+def pack_backwards(data: torch.Tensor, profile: Profile,
+                   gw: int) -> torch.Tensor:
+    """(P[+1], gw) int32 planes of the text ``data`` read backwards: the
+    text set's pack of a one-text set (starts [0], lens [n], wofs [0,
+    ceil(n / 32)]) with ``reverse`` (``batch.pack_set``: its kernel on
+    the card, its plain version on the CPU), over the bytes as they are,
+    with no reversed copy."""
+    from .batch import pack_set  # batch imports this module
+
+    n = data.numel()
+    tab = torch.tensor([0, n, 0, cdiv(n, WORD_BITS)], dtype=torch.int64,
+                       device=data.device)
+    return pack_set(data, tab[0:1], tab[1:2], tab[2:4], gw, profile,
+                    reverse=True)
+
+
 class PreparedText:
     """Device-resident bit-planes of one text, reusable across patterns
     and k, with its window descriptors cached per tile plan and overhang
-    steps (the scan kernels read the windows from the planes)."""
+    steps (the scan kernels read the windows from the planes).
 
-    def __init__(self, profile: Profile, text, device):
+    ``text`` is the text's bytes (host or device); with ``reverse`` the
+    text is those bytes read backwards, packed by ``pack_backwards`` from
+    the bytes as they are. A reversed view of a host array (a negative
+    stride, as ``CachedRev.rev_text`` gives) is packed that way from its
+    forward bytes, uploaded in their own order."""
+
+    def __init__(self, profile: Profile, text, device,
+                 reverse: bool = False):
         self.profile = profile
         self.device = torch.device(device)
-        self.n = len(text)
+        if isinstance(text, torch.Tensor):
+            data = text.to(device=self.device, dtype=torch.uint8).contiguous()
+        else:
+            a = as_bytes_array(text)
+            if a.strides[0] < 0:
+                a, reverse = a[::-1], not reverse
+            data = _upload(a, self.device)
+        self.n = data.numel()
         # a multiple of PLANE_ALIGN_WORDS: the bucket lattice's are
         self.gw = _bucket_words(cdiv(self.n, WORD_BITS) + TAIL_RESERVE_WORDS)
-        # the n uploaded bytes as they are: the pack zeroes words past them
-        self.planes = pack(
-            _upload(text, self.device), self.n // WORD_BITS,
-            self.n % WORD_BITS, profile.planes, profile.eq_mode == "ascii",
-            profile.pack_mode, profile.pack_shift, profile.pack_mask,
-            tuple(profile.pack_plane_masks), profile.pack_fold_case,
-            self.gw,
-        )
+        # the n uploaded bytes as they are: the packs zero words past them
+        if reverse:
+            self.planes = pack_backwards(data, profile, self.gw)
+        else:
+            self.planes = pack(
+                data, self.n // WORD_BITS, self.n % WORD_BITS,
+                profile.planes, profile.eq_mode == "ascii",
+                profile.pack_mode, profile.pack_shift, profile.pack_mask,
+                tuple(profile.pack_plane_masks), profile.pack_fold_case,
+                self.gw,
+            )
         self._descs: dict = {}
         self._overlay: tuple | None = None
 
@@ -609,16 +644,19 @@ class PreparedText:
 
 class _IdCache:
     """Prepared texts keyed by their source's identity and profile, at most
-    ``max_items`` of them (reference ``_IdCache``, myers_xla.py:1188-1214).
+    ``max_items`` of them (reference ``_IdCache``, myers_xla.py:1188-1214):
+    one strand's ``PreparedText``, or the pair of both strands
+    (``TorchEngine.prepare_strands``), an entry of its own under the
+    forward source's key.
 
     Each entry holds a weakref to its source whose callback drops the entry
-    when the source dies: on the card an entry holds a text's planes (0.5
-    GiB for 1 GiB of DNA, 1.125 GiB of ascii), with overhang one 'N'
-    overlay copy of them, and the descriptors of up to two tile plans (16
-    bytes a tile, ~8.5 MB at 1 GiB), and the reverse strand is a fresh view
-    on every search, so only live sources may keep one. The
-    key takes the profile's name and case sensitivity, which set the
-    packing.
+    when the source dies: on the card a one-strand entry holds a text's
+    planes (0.5 GiB for 1 GiB of DNA, 1.125 GiB of ascii), a two-strand
+    entry both strands' planes (1 GiB for 1 GiB of DNA), with overhang an
+    'N' overlay copy of each, and the descriptors of up to two tile plans
+    a strand (16 bytes a tile, ~8.5 MB at 1 GiB), so only live sources
+    may keep one. The key takes the profile's name and case sensitivity,
+    which set the packing, and the number of strands.
 
     Only sources that cannot change are cached: numpy arrays that are
     read-only down to an immutable base (``bytes``, or memory the array
@@ -634,15 +672,16 @@ class _IdCache:
         self._lock = threading.RLock()
 
     @staticmethod
-    def _key(profile: Profile, src) -> tuple:
-        return id(src), profile.name, getattr(profile, "case_sensitive", None)
+    def _key(profile: Profile, src, strands: int) -> tuple:
+        return (id(src), profile.name, getattr(profile, "case_sensitive", None),
+                strands)
 
     def __len__(self) -> int:
         return len(self._items)
 
-    def get(self, profile: Profile, src) -> PreparedText | None:
+    def get(self, profile: Profile, src, strands: int = 1):
         with self._lock:
-            got = self._items.get(self._key(profile, src))
+            got = self._items.get(self._key(profile, src, strands))
         if got is None or got[0]() is not src:
             return None
         return got[1]
@@ -660,10 +699,10 @@ class _IdCache:
             src = src.base
         return src is None or isinstance(src, bytes)
 
-    def put(self, profile: Profile, src, prep: PreparedText) -> None:
+    def put(self, profile: Profile, src, prep, strands: int = 1) -> None:
         if not self.frozen(src):
             return
-        key = self._key(profile, src)
+        key = self._key(profile, src, strands)
         cache = weakref.ref(self)  # an entry must not keep its cache alive
 
         def drop(ref):
@@ -732,12 +771,32 @@ class TorchEngine:
 
     def prepare(self, profile: Profile, text) -> PreparedText:
         """The text's ``PreparedText``, reused while the same read-only
-        source array lives (``_IdCache``)."""
+        source array lives (``_IdCache``: its own entry, or the forward
+        strand of a two-strand one)."""
         prep = self._prep_cache.get(profile, text)
         if prep is None:
+            pair = self._prep_cache.get(profile, text, strands=2)
+            if pair is not None:
+                return pair[0]
             prep = PreparedText(profile, text, self.device)
             self._prep_cache.put(profile, text, prep)
         return prep
+
+    def prepare_strands(self, profile: Profile,
+                        text) -> tuple[PreparedText, PreparedText]:
+        """The ``PreparedText`` of the text and of the text read backwards
+        (the reverse strand's), from one upload of its bytes: the forward
+        planes by the pack kernel, the reverse ones by the text set's pack
+        kernel over the same device bytes (``pack_backwards``), which go
+        when both are packed. The pair is reused while the same read-only
+        source array lives (one ``_IdCache`` entry)."""
+        pair = self._prep_cache.get(profile, text, strands=2)
+        if pair is None:
+            data = _upload(text, self.device)
+            pair = (PreparedText(profile, data, self.device),
+                    PreparedText(profile, data, self.device, reverse=True))
+            self._prep_cache.put(profile, text, pair, strands=2)
+        return pair
 
     def build_inputs(self, profile: Profile, pattern_codes: np.ndarray, text,
                      k: int, alpha=None, max_overhang=None,

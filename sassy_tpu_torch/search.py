@@ -390,27 +390,39 @@ class Searcher:
     def _search_handle_rc(self, pattern, text, k: int, all_minima: bool,
                           filter_fn=None, pattern_idx: int = 0,
                           text_idx: int = 0) -> list[Match]:
+        """One pattern on one text, both strands with ``rc``: their planes
+        come from one upload of the forward bytes
+        (``TorchEngine.prepare_strands``, kept while a read-only source
+        lives); the host traceback reads the reversed text."""
         pat = as_bytes_array(pattern)
         rc_text = _as_rc_searchable(text)
         fwd = rc_text.text()
-        out = self._search_one_strand(pat, fwd, k, all_minima, filter_fn,
-                                      Strand.FWD, pattern_idx, text_idx)
-        if self.rc:
-            comp = as_bytes_array(self.profile.complement(pat))
-            out.extend(self._to_forward(self._search_one_strand(
-                comp, rc_text.rev_text(), k, all_minima, filter_fn,
-                Strand.RC, pattern_idx, text_idx,
-            ), len(fwd)))
+        if not self.rc:
+            return self._search_one_strand(pat, fwd, fwd, k, all_minima,
+                                           filter_fn, Strand.FWD,
+                                           pattern_idx, text_idx)
+        comp = as_bytes_array(self.profile.complement(pat))
+        fprep, rprep = self.engine.prepare_strands(self.profile, fwd)
+        out = self._search_one_strand(pat, fwd, fprep, k, all_minima,
+                                      filter_fn, Strand.FWD, pattern_idx,
+                                      text_idx)
+        out.extend(self._to_forward(self._search_one_strand(
+            comp, rc_text.rev_text(), rprep, k, all_minima, filter_fn,
+            Strand.RC, pattern_idx, text_idx,
+        ), len(fwd)))
         return out
 
     def _search_one_strand(self, pattern: np.ndarray, text: np.ndarray,
-                           k: int, all_minima: bool, filter_fn,
+                           prepared, k: int, all_minima: bool, filter_fn,
                            strand: Strand, pattern_idx: int,
                            text_idx: int) -> list[Match]:
+        """The candidates of one strand on ``prepared`` (its
+        ``PreparedText``, or the text itself), traced on the host
+        ``text``."""
         p_codes = self.profile.encode(pattern)
         cands = self.engine.candidates(
-            self.profile, p_codes, text, k, self.alpha, self.max_overhang,
-            all_minima,
+            self.profile, p_codes, prepared, k, self.alpha,
+            self.max_overhang, all_minima,
         )
         return self._postprocess(pattern, p_codes, text, k, cands, filter_fn,
                                  strand, pattern_idx, text_idx)

@@ -3,7 +3,7 @@
     python -m sassy_tpu_torch.tools.compare_builds OLD_ROOT NEW_ROOT \
         [--turns 2] [--q2-reads N]
         [--off-target] [--search-many N [--plant]] [--overhang-reads N]
-        [--out FILE]
+        [--pack-set] [--strands] [--no-scans] [--out FILE]
 
 Each run is a fresh process that imports the ``sassy_tpu_torch`` of one
 checkout root, builds that checkout's kernel library from its own sources,
@@ -54,6 +54,25 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   twice (cold, warm): ``BatchEngine.dispatch`` with its window gathers,
   scan launches and selections each timed on the host clock and ended by
   a synchronise, and their counts.
+
+- with ``--pack-set``: the text set's pack kernel (``batch.pack_set``,
+  DNA, both strands) on three sets of random ACGT made on the card: one
+  text of off_targets_full's 3.12 Gbp, nanopore_full's 33,400 x 10 kbp
+  reads and pattern_scaling's 671,088 x 50 bp texts (its 50 bp row,
+  amortised to 33,554,432 bp); each beside its bound (the bytes read
+  once, the planes written once, the tables read once, at
+  ``diagnostics.MEM_BYTES_PER_S``) with a checksum of the planes (each
+  word weighted by its plane and column), so that the two checkouts'
+  planes can be compared;
+- with ``--strands``: ``Searcher("dna", rc=True).search`` of a 23 bp
+  pattern at k=3 over ``--mib`` MiB of random ACGT, both strands, end to
+  end (host clock, ended by a synchronise): twice on a writeable array
+  (each search prepares both strands), with the device memory's peak
+  above what it held before the first; then twice on a read-only copy
+  (a checkout that keeps both strands prepares nothing the second
+  time);
+- with ``--no-scans``, none of the scan kernels' timings above (the
+  prepared text, q1meta, q1, q2meta, q2), nor ``--overhang-reads``.
 
 The runs go OLD, NEW, NEW, OLD for ``--turns 2`` (ABBA per turn), so a
 drift of the card's clocks falls on both. Prints the card's name and
@@ -108,7 +127,9 @@ def _cuda_ms(fn, reps: int) -> float:
 
 def _child(root: str, seed: int, mib: int, reps: int,
            search_reads: int, plant: bool, overhang_reads: int,
-           q2_reads: int = 0, off_target: bool = False) -> dict:
+           q2_reads: int = 0, off_target: bool = False,
+           pack_sets: bool = False, strands: bool = False,
+           scans: bool = True) -> dict:
     """One run: the kernels of the checkout at ``root``."""
     sys.path.insert(0, root)
     import torch
@@ -130,6 +151,16 @@ def _child(root: str, seed: int, mib: int, reps: int,
 
     dna = profiles.Dna()
     out = {"root": root}
+    if pack_sets:
+        out.update(_pack_sets(acgt, dna, reps))
+    if strands:
+        out.update(_strands(acgt, dna, mib))
+    if not scans:
+        if search_reads:
+            barcodes = acgt(N_BARCODES * BARCODE_LEN).cpu().numpy()
+            out.update(_search_many(dna, barcodes.reshape(N_BARCODES, -1),
+                                    acgt, search_reads, plant))
+        return out
     eng = TorchEngine(dev)
     text = acgt(mib << 20)
     pattern = acgt(PATTERN_LEN).cpu().numpy()
@@ -231,6 +262,87 @@ def _off_target_chunk(acgt, dna, beng, reps: int) -> dict:
     return {"q2meta_off_shape": [q1 - q0, pp.NW, t1 - t0],
             "q2meta_off_ms": _cuda_ms(
                 lambda: beng.scan(win, g, pp, q0, q1, t0, t1, K), reps)}
+
+
+#: --pack-set's sets: (label, texts, bytes a text)
+PACK_SETS = (("one text", 1, OFF_GENOME_BP),
+             ("nanopore_full", 33_400, READ_LEN),
+             ("pattern_scaling 50 bp", 33_554_432 // 50, 50))
+
+
+def _pack_sets(acgt, dna, reps: int) -> dict:
+    """The text set's pack kernel on ``PACK_SETS``, both strands."""
+    import torch
+
+    from sassy_tpu_torch import diagnostics
+    from sassy_tpu_torch.ops import batch
+
+    out = {}
+    for label, texts, n in PACK_SETS:
+        data = torch.empty(texts * n, dtype=torch.uint8, device=DEVICE)
+        for c0 in range(0, data.numel(), 1 << 28):
+            c1 = min(data.numel(), c0 + (1 << 28))
+            data[c0:c1] = acgt(c1 - c0)
+        words = -(-n // 32)
+        i64 = dict(dtype=torch.int64, device=DEVICE)
+        starts = torch.arange(texts, **i64) * n
+        lens = torch.full((texts,), n, **i64)
+        wofs = torch.arange(texts + 1, **i64) * words
+        width = -(-(texts * words + 1) // 4) * 4
+        nbytes = (data.numel() + 4 * dna.planes * width
+                  + 8 * (3 * texts + 1))
+        rec = {"texts": texts, "bytes": data.numel(), "width": width,
+               "bound_ms": nbytes / diagnostics.MEM_BYTES_PER_S * 1e3}
+        for reverse in (False, True):
+            args = (data, starts, lens, wofs, width, dna, reverse)
+            planes = batch.pack_set(*args).to(torch.int64)
+            weight = (torch.arange(planes.shape[1], device=DEVICE) % 1009
+                      + 1) * 4
+            rec[f"{'reverse' if reverse else 'forward'}_sum"] = int(sum(
+                (row * (weight + p)).sum() for p, row in enumerate(planes)))
+            del planes
+            rec[f"{'reverse' if reverse else 'forward'}_ms"] = _cuda_ms(
+                lambda: batch.pack_set(*args), reps)
+        out[f"pack_set {label}"] = rec
+        del data, starts, lens, wofs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _strands(acgt, dna, mib: int) -> dict:
+    """Two-strand single-engine searches over ``mib`` MiB, on a writeable
+    array and on a read-only copy."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import Searcher
+
+    text = acgt(mib << 20).cpu().numpy()
+    pattern = acgt(PATTERN_LEN).cpu().numpy()
+    searcher = Searcher("dna", rc=True, device=DEVICE)
+    out = {"strands_writeable_s": [], "strands_read_only_s": []}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for key, src in (("strands_writeable_s", text),
+                     ("strands_writeable_s", text),
+                     ("strands_read_only_s", None),
+                     ("strands_read_only_s", None)):
+        if src is None:
+            src = out.setdefault("_frozen", np.frombuffer(text.tobytes(),
+                                                          np.uint8))
+        t0 = time.perf_counter()
+        matches = searcher.search(pattern, src, K)
+        torch.cuda.synchronize()
+        out[key].append(time.perf_counter() - t0)
+        if "strands_peak_gib" not in out:
+            out["strands_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                       - before) / 2**30
+    out["strands_matches"] = len(matches)
+    del out["_frozen"]
+    return out
 
 
 def _chunk_windows(ts, prof, pp, t0, t1):
@@ -381,13 +493,17 @@ def main(argv=None) -> int:
     ap.add_argument("--overhang-reads", type=int, default=0, metavar="N")
     ap.add_argument("--q2-reads", type=int, default=0, metavar="N")
     ap.add_argument("--off-target", action="store_true")
+    ap.add_argument("--pack-set", action="store_true")
+    ap.add_argument("--strands", action="store_true")
+    ap.add_argument("--no-scans", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.child:
         print(json.dumps(_child(a.child, a.seed, a.mib, a.reps,
                                 a.search_many, a.plant, a.overhang_reads,
-                                a.q2_reads, a.off_target)),
+                                a.q2_reads, a.off_target, a.pack_set,
+                                a.strands, not a.no_scans)),
               flush=True)
         return 0
     card = subprocess.run(
@@ -408,7 +524,10 @@ def main(argv=None) -> int:
              str(a.search_many), "--overhang-reads", str(a.overhang_reads),
              "--q2-reads", str(a.q2_reads)]
             + (["--plant"] if a.plant else [])
-            + (["--off-target"] if a.off_target else []),
+            + (["--off-target"] if a.off_target else [])
+            + (["--pack-set"] if a.pack_set else [])
+            + (["--strands"] if a.strands else [])
+            + (["--no-scans"] if a.no_scans else []),
             capture_output=True, text=True,
         )
         if proc.returncode != 0:

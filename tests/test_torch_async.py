@@ -150,26 +150,34 @@ def test_prepare_cache_reuses_and_frees():
 
 
 def test_reverse_strand_views_leave_no_cache_entry(monkeypatch):
-    """A two-strand search prepares the text once per strand; a second
-    search over the same array reuses the forward strand's prepared text,
-    and the reverse strand's (a fresh view each time) is gone after each
-    search."""
+    """A two-strand search prepares both strands from one upload, as one
+    pair cached under the forward array: the pair is made once, on the
+    first search; no entry is keyed by a short-lived view (the reversed
+    text); a second search over the same array makes no PreparedText and
+    uploads nothing."""
     made = []
     init = PreparedText.__init__
 
-    def counting(self, profile, text, device):
-        made.append(len(text))
-        init(self, profile, text, device)
+    def counting(self, profile, text, device, reverse=False):
+        made.append((len(text), reverse))
+        init(self, profile, text, device, reverse)
 
     monkeypatch.setattr(PreparedText, "__init__", counting)
+    uploads = []
+    upload = myers_torch._upload
+    monkeypatch.setattr(myers_torch, "_upload",
+                        lambda t, d: uploads.append(len(t)) or upload(t, d))
     text, pat = _planted(4, 3000, 23)
     text = np.frombuffer(text.tobytes(), np.uint8)  # read-only, over bytes
     s = Searcher("dna", rc=True, device="cpu")
     first = s.search(pat, text, 2)
-    assert len(made) == 2 and len(s.engine._prep_cache) == 1
+    assert made == [(3000, False), (3000, True)] and uploads == [3000]
+    keys = list(s.engine._prep_cache._items)
+    assert len(keys) == 1 and keys[0][0] == id(text) and keys[0][-1] == 2
     assert [m.sort_key() for m in s.search(pat, text, 2)] == [
         m.sort_key() for m in first]
-    assert len(made) == 3 and len(s.engine._prep_cache) == 1
+    assert len(made) == 2 and uploads == [3000]
+    assert list(s.engine._prep_cache._items) == keys
 
 
 @pytest.mark.parametrize("make", [
@@ -246,13 +254,16 @@ def test_only_arrays_that_cannot_change_are_cached():
 
 def test_an_array_changed_in_place_is_searched_anew():
     """A writeable text changed between two searches: the second finds the
-    new copy (a cache keyed by identity alone would return the old text's
-    candidates)."""
+    new copies, on the forward strand and on the reverse (a cache keyed by
+    identity alone would return the old text's candidates)."""
     text, pat = _planted(5, 4000, 23)
+    rc = np.frombuffer(profiles.Dna().reverse_complement(pat), np.uint8)
     s = Searcher("dna", rc=True, device="cpu")
-    first = {m.text_start for m in s.search(pat, text, 1)}
-    assert 1000 not in first
+    first = {(m.strand.name, m.text_start) for m in s.search(pat, text, 1)}
+    assert ("FWD", 1000) not in first and ("RC", 2000) not in first
     text[1000:1023] = pat
+    text[2000:2023] = rc
     again = s.search(pat, text, 1)
-    assert 1000 in {m.text_start for m in again}
+    assert {("FWD", 1000), ("RC", 2000)} <= {
+        (m.strand.name, m.text_start) for m in again}
     assert len(s.engine._prep_cache) == 0

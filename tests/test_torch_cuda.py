@@ -6,8 +6,11 @@ against q1's); the text pack kernel against ``pack_plain`` (the four
 pack descriptors, every nb, unaligned inputs, the three engines' calls,
 its refusals); the text set's pack kernel against ``pack_set_plain``
 (the four descriptors, both strands, overshoot steps, three layouts of
-the bytes, ``TextSet.planes``' one launch a strand, its refusals); and
-the port's Searcher on the card, single and batched, with and without
+the bytes, 50,000 texts of 1-3 words and one of 2 MB, ``TextSet.planes``'
+one launch a strand, its refusals); the single engine's two strands from
+one upload (``prepare_strands``: the reverse strand equal to the pack of
+the flipped bytes; a second search of a read-only array packs nothing);
+and the port's Searcher on the card, single and batched, with and without
 overhang, ascii, and with the suffix prefilter forced on, against its
 CPU path and the numpy oracle.
 
@@ -1458,3 +1461,91 @@ def test_pack_set_kernel_refuses_bad_inputs(cuda, bad):
     with pytest.raises(ValueError):
         myers_cuda.pack_set(**args)
     assert myers_cuda.pack_set.launches == before
+
+
+def _tiny_pack_set_texts(seed: int, n_texts: int) -> list:
+    """Many texts of 1-3 words (1-96 bytes) with runs of empty ones (one
+    of 40, more than a warp's lanes) and one text of 300 words among
+    them, of all 256 byte values."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 97, n_texts).tolist()
+    lens[100:100] = [0] * 40
+    lens[n_texts // 2:n_texts // 2] = [300 * 32 - 5, 0, 0, 1, 0]
+    return [rng.integers(0, 256, n, dtype=np.uint8) for n in lens]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("name,steps", [("dna", 0), ("iupac", 7),
+                                        ("iupac", 101)])
+def test_pack_set_kernel_many_tiny_texts(cuda, name, steps, reverse):
+    """The text set's pack kernel on 50,000 texts of 1-3 words (each
+    warp's words span many texts; a run of 40 empty texts takes a second
+    staging round) and on one text of 2 MB (every warp's range inside it),
+    both against ``pack_set_plain``, bit for bit, aligned and one byte
+    past."""
+    prof = PACK_PROFILES[name]
+    for texts in (_tiny_pack_set_texts(steps + reverse, 50_000),
+                  [np.random.default_rng(5).integers(
+                      0, 256, (2 << 20) + 13, dtype=np.uint8)]):
+        ts = batch.TextSet(texts, cuda)
+        data, (starts, lens, wofs) = ts.data(), ts.tables(steps)
+        width = myers_torch.aligned_words(ts.words(steps) + 1)
+        shifted = torch.empty(data.numel() + 1, dtype=torch.uint8,
+                              device=cuda)
+        shifted[1:] = data
+        for d in (data, shifted[1:]):
+            got = myers_cuda.pack_set(d, starts, lens, wofs, width, prof,
+                                      reverse, steps)
+            want = batch.pack_set_plain(d.cpu(), starts.cpu(), lens.cpu(),
+                                        wofs.cpu(), width, prof, reverse,
+                                        steps)
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["dna", "iupac", "ascii_fold"])
+def test_single_engine_strands_from_one_upload(cuda, name):
+    """``prepare_strands`` on the card: one pack launch and one set pack
+    launch; the reverse strand's planes equal the pack of the flipped
+    bytes, the forward strand's the pack of the bytes, and the CPU pair's
+    planes."""
+    prof = PACK_PROFILES[name]
+    text = np.random.default_rng(4).integers(0, 256, 1_000_003,
+                                             dtype=np.uint8)
+    eng = myers_torch.TorchEngine(cuda)
+    packs, sets = myers_cuda.pack.launches, myers_cuda.pack_set.launches
+    fwd, rev = eng.prepare_strands(prof, text)
+    assert (myers_cuda.pack.launches - packs,
+            myers_cuda.pack_set.launches - sets) == (1, 1)
+    flipped = torch.from_numpy(text).to(cuda).flip(0)
+    kw = _pack_kw(prof)
+    want = myers_cuda.pack(flipped, len(text) // 32, len(text) % 32,
+                           gw=rev.gw, **kw)
+    assert torch.equal(rev.planes, want)
+    assert torch.equal(fwd.planes, myers_cuda.pack(
+        torch.from_numpy(text).to(cuda), len(text) // 32, len(text) % 32,
+        gw=fwd.gw, **kw))
+    cpu = myers_torch.TorchEngine("cpu").prepare_strands(prof, text)
+    assert torch.equal(fwd.planes.cpu(), cpu[0].planes)
+    assert torch.equal(rev.planes.cpu(), cpu[1].planes)
+
+
+def test_two_strand_search_on_the_card_prepares_once(cuda):
+    """A two-strand ``Searcher.search`` of a read-only array on the card:
+    the first search launches the pack and the set pack once each, the
+    second neither, and both equal the CPU path's Match list."""
+    rng = np.random.default_rng(12)
+    text = rng.choice(np.frombuffer(b"ACGT", np.uint8), 200_000)
+    pat = text[150_000:150_023].copy()
+    rc = np.frombuffer(profiles.Dna().reverse_complement(pat), np.uint8)
+    text[50_000:50_023] = rc
+    text = np.frombuffer(text.tobytes(), np.uint8)
+    s = Searcher("dna", rc=True, device=cuda)
+    want = Searcher("dna", rc=True, device="cpu").search(pat, text, 2)
+    for launched in ((1, 1), (0, 0)):
+        packs, sets = myers_cuda.pack.launches, myers_cuda.pack_set.launches
+        got = s.search(pat, text, 2)
+        assert (myers_cuda.pack.launches - packs,
+                myers_cuda.pack_set.launches - sets) == launched
+        assert [(m.sort_key(), m.cigar.to_string()) for m in got] == [
+            (m.sort_key(), m.cigar.to_string()) for m in want]
+    assert {m.strand.name for m in want} == {"FWD", "RC"}

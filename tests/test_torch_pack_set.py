@@ -11,10 +11,13 @@ version ``pack_set_plain`` for a set on the CPU, the kernel
   jitted ``pack``, then ``reverse_planes`` for the reverse strand, then
   ``overlay_n_tail`` for the overshoot), and the pieces' windows equal its
   host packing ``_pack_pieces_np`` of the (reversed) texts;
-- a g++ build of the kernel's per-word code (``tests/torch_pack_host.cc``)
-  equals the plain version on the same inputs, aligned or not, with the
-  texts in any order and garbage between them, and loads no byte outside
-  a text;
+- a g++ build of the kernel's code (``tests/torch_pack_host.cc``: its
+  warps one after another, each finding its words' texts as the kernel
+  does, the shared-memory staging emulated lane by lane) equals the plain
+  version on the same inputs, aligned or not, with the texts in any order
+  and garbage between them, over one warp or many, and loads no byte
+  outside a text; a word's text costs O(1) stagings amortised and a
+  warp's range one search of the table;
 - the staged upload of a set fills the pinned buffers from the texts'
   own arrays, chunk by chunk, with no host array of the set;
 - the wrapper's refusals, before any build.
@@ -190,28 +193,30 @@ def _host():
     ptr, num, big = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sassy_pack_set_host.argtypes = (
         [ptr, big] + [ptr] * 3 + [big, ptr, big, big] + [num] * 6
-        + [ctypes.POINTER(ctypes.c_uint), num, ptr])
+        + [ctypes.POINTER(ctypes.c_uint), num, big, ptr])
     lib.sassy_pack_set_host.restype = num
     return lib
 
 
 def _host_set(lib, data: np.ndarray, starts, lens, wofs, width: int, prof,
-              reverse: bool, steps: int):
-    """The host program on one set, as the wrapper drives the kernel:
-    ((P[+1], width) int32, the return code, (loads, loads outside every
-    text, vector loads))."""
+              reverse: bool, steps: int, warps: int = 4):
+    """The host program on one set, as the wrapper drives the kernel, its
+    words split over ``warps`` warps: ((P[+1], width) int32, the return
+    code, (loads, loads outside every text, vector loads, stagings,
+    search rounds))."""
     with_valid = prof.eq_mode == "ascii"
     out = np.full((prof.planes + with_valid, width), -7, np.int32)
     pm = (ctypes.c_uint * myers_cuda.PACK_MAX_PLANES)(
         *[int(v) for v in prof.pack_plane_masks])
-    stats = np.zeros(3, np.int64)
+    stats = np.zeros(5, np.int64)
     tabs = [np.ascontiguousarray(a, np.int64) for a in (starts, lens, wofs)]
     err = lib.sassy_pack_set_host(
         data.ctypes.data if len(data) else None, len(data),
         *[a.ctypes.data for a in tabs], len(tabs[0]), out.ctypes.data,
         width, steps, int(reverse), prof.planes, int(with_valid),
         myers_cuda.PACK_MODES[prof.pack_mode], prof.pack_shift,
-        prof.pack_mask, pm, int(prof.pack_fold_case), stats.ctypes.data)
+        prof.pack_mask, pm, int(prof.pack_fold_case), warps,
+        stats.ctypes.data)
     return out, err, stats
 
 
@@ -247,11 +252,13 @@ def _layouts(texts, seed: int):
     return out
 
 
+@pytest.mark.parametrize("warps", [1, 7])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("name,steps", CASES)
-def test_host_pack_set_equals_plain(name, steps, reverse):
-    """The kernel's per-word code equals the plain version on the same
-    bytes and tables, for each layout; no load leaves a text."""
+def test_host_pack_set_equals_plain(name, steps, reverse, warps):
+    """The kernel's code equals the plain version on the same bytes and
+    tables, for each layout, its words in one warp's range or split over
+    seven; no load leaves a text."""
     prof = PROFILES[name][0]
     texts = _texts(100 + steps + reverse)
     ts = batch.TextSet(texts, "cpu")
@@ -264,8 +271,9 @@ def test_host_pack_set_equals_plain(name, steps, reverse):
             torch.from_numpy(data.copy()), torch.from_numpy(starts.copy()),
             torch.from_numpy(lens), torch.from_numpy(wofs), width, prof,
             reverse, steps).numpy()
-        got, err, (loads, outside, wide) = _host_set(
-            lib, data, starts, lens, wofs, width, prof, reverse, steps)
+        got, err, (loads, outside, wide, _, _) = _host_set(
+            lib, data, starts, lens, wofs, width, prof, reverse, steps,
+            warps)
         assert err == 0
         np.testing.assert_array_equal(got, want, err_msg=label)
         # words inside a text take the vector loads, its ends byte loads;
@@ -297,11 +305,106 @@ def test_host_pack_set_every_length_and_alignment(name, steps, reverse):
             torch.from_numpy(data.copy()), torch.from_numpy(starts),
             torch.from_numpy(lens), torch.from_numpy(wofs), width, prof,
             reverse, steps).numpy()
-        got, err, (_, outside, wide) = _host_set(lib, data, starts, lens,
-                                                 wofs, width, prof, reverse,
-                                                 steps)
+        got, err, (_, outside, wide, _, _) = _host_set(
+            lib, data, starts, lens, wofs, width, prof, reverse, steps)
         assert err == 0 and outside == 0 and wide > 0
         np.testing.assert_array_equal(got, want, err_msg=f"shift {shift}")
+
+
+def _tiny_texts(seed: int) -> list[np.ndarray]:
+    """Many texts of 1-3 words (1-96 bytes), runs of empty texts (one of
+    40, more than a warp's 32 lanes), and one long text of 300 words that
+    crosses a block's 256 words and the warps' range edges."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 97, 700).tolist()
+    lens[100:100] = [0] * 40
+    lens[400:400] = [0, 0, 1, 0, 32, 0]
+    lens[550:550] = [300 * 32 - 5]
+    lens = [0] * 3 + lens + [0] * 2
+    return [rng.integers(0, 256, n, dtype=np.uint8) for n in lens]
+
+
+@pytest.mark.parametrize("warps", [1, 3, 64, 1000])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("name,steps", [("dna", 0), ("iupac", 7),
+                                        ("iupac", 101)])
+def test_host_pack_set_many_tiny_texts(name, steps, reverse, warps):
+    """Hundreds of 1-3 word texts, runs of empty ones and a text across the
+    warps' range edges, over 1, 3, 64 and 1,000 warps (ranges of 32
+    words), aligned and not: equal to the plain version, no load outside a
+    text, and the texts found in O(1) stagings a warp step (a run of 40
+    empty texts within a warp's 32 words takes a second round) and a
+    range's first text in a few rounds of 32 probes."""
+    prof = PROFILES[name][0]
+    texts = _tiny_texts(7 + steps + reverse)
+    ts = batch.TextSet(texts, "cpu")
+    lens = np.asarray(ts.lens, np.int64)
+    wofs = ts.layout(steps)[1]
+    width = myers_torch.aligned_words(int(wofs[-1]) + 1) + 40
+    per = -(-(-(-width // warps)) // 32) * 32
+    ranges = -(-width // per)
+    steps_taken = sum(-(-min(per, width - w) // 32)
+                      for w in range(0, width, per))
+    lib = _host()
+    for label, data, starts in _layouts(texts, 3 + steps)[:2]:
+        want = batch.pack_set_plain(
+            torch.from_numpy(data.copy()), torch.from_numpy(starts.copy()),
+            torch.from_numpy(lens), torch.from_numpy(wofs), width, prof,
+            reverse, steps).numpy()
+        got, err, (_, outside, _, stagings, rounds) = _host_set(
+            lib, data, starts, lens, wofs, width, prof, reverse, steps,
+            warps)
+        assert err == 0 and outside == 0, label
+        np.testing.assert_array_equal(got, want, err_msg=label)
+        assert stagings <= steps_taken + 2 * ranges, label
+        assert rounds <= 5 * ranges, label
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_host_pack_set_one_text_stages_once_a_warp(reverse):
+    """One text over eight warps: each warp stages once, at its range's
+    first step, and then keeps the text to its range's end; the last warp
+    once more, where its words pass the text's end."""
+    prof = PROFILES["dna"][0]
+    rng = np.random.default_rng(8)
+    text = _at(rng.integers(0, 256, 40_100, dtype=np.uint8), 0, 40_000)
+    wofs = np.asarray([0, 1250], np.int64)
+    width = 1256
+    want = batch.pack_set_plain(
+        torch.from_numpy(text.copy()), torch.zeros(1, dtype=torch.int64),
+        torch.tensor([40_000]), torch.from_numpy(wofs), width, prof,
+        reverse).numpy()
+    got, err, (loads, outside, wide, stagings, rounds) = _host_set(
+        lib := _host(), text, [0], [40_000], wofs, width, prof, reverse, 0,
+        warps=8)
+    assert err == 0 and outside == 0 and wide == loads == 1250
+    np.testing.assert_array_equal(got, want)
+    assert stagings == 8 + 1 and rounds <= 16
+    del lib
+
+
+def test_host_pack_set_words_before_the_first_text():
+    """A set whose first text starts at plane word 5 (wofs[0] = 5): the
+    five words before it are zero in every plane and the rest are the set
+    packed from word 0, over one warp and over many."""
+    prof = PROFILES["iupac"][0]
+    texts = _texts(21)
+    ts = batch.TextSet(texts, "cpu")
+    lens = np.asarray(ts.lens, np.int64)
+    wofs = ts.layout(7)[1]
+    width = myers_torch.aligned_words(int(wofs[-1]) + 1)
+    data = np.concatenate(texts)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    want, err, _ = _host_set(_host(), data, starts, lens, wofs, width, prof,
+                             True, 7, warps=1)
+    assert err == 0
+    for warps in (1, 9):
+        got, err, (_, outside, _, _, _) = _host_set(
+            _host(), data, starts, lens, wofs + 5, width + 5, prof, True, 7,
+            warps)
+        assert err == 0 and outside == 0
+        assert not got[:, :5].any()
+        np.testing.assert_array_equal(got[:, 5:], want)
 
 
 def test_host_pack_set_past_2_31():
@@ -319,12 +422,12 @@ def test_host_pack_set_past_2_31():
         assert err == 0
         out = np.full((prof.planes, 36), -7, np.int32)
         tabs = [np.asarray(a, np.int64) for a in ([base], [1001], [0, 32])]
-        stats = np.zeros(3, np.int64)
+        stats = np.zeros(5, np.int64)
         assert lib.sassy_pack_set_host(
             text.ctypes.data - base, base + 1001,
             *[a.ctypes.data for a in tabs], 1, out.ctypes.data, 36, 7,
             int(reverse), prof.planes, 0, 0, prof.pack_shift,
-            prof.pack_mask, pm, 0, stats.ctypes.data) == 0
+            prof.pack_mask, pm, 0, 4, stats.ctypes.data) == 0
         np.testing.assert_array_equal(out, want)
         assert stats[0] > 0 and stats[1] == 0
 
@@ -332,26 +435,39 @@ def test_host_pack_set_past_2_31():
 def test_host_pack_set_refuses_bad_arguments():
     """The host program (like the kernel's C entry point) refuses no
     output words, negative steps, more than 8 planes, a table5 shift past
-    7, and texts without tables."""
+    7, and texts without tables (and no warps)."""
     lib = _host()
     prof = PROFILES["iupac"][0]
     pm = (ctypes.c_uint * 8)(*[int(v) for v in prof.pack_plane_masks])
     out = np.zeros((9, 8), np.int32)
     data = np.zeros(64, np.uint8)
     tab = np.zeros(2, np.int64)
-    stats = np.zeros(3, np.int64)
+    stats = np.zeros(5, np.int64)
 
-    def call(width=8, steps=0, planes=4, shift=0, tables=True):
+    def call(width=8, steps=0, planes=4, shift=0, tables=True, warps=1):
         t = tab.ctypes.data if tables else None
         return lib.sassy_pack_set_host(
             data.ctypes.data, 64, t, t, tab.ctypes.data, 1, out.ctypes.data,
-            width, steps, 0, planes, 0, 0, shift, 31, pm, 0,
+            width, steps, 0, planes, 0, 0, shift, 31, pm, 0, warps,
             stats.ctypes.data)
 
     assert call() == 0
     for bad in (dict(width=0), dict(steps=-1), dict(planes=9),
-                dict(shift=8), dict(tables=False)):
+                dict(shift=8), dict(tables=False), dict(warps=0)):
         assert call(**bad) == 1, bad
+
+
+def test_pack_set_bound_counts_the_tables():
+    """``diagnostics.pack_bound`` of a text set's pack: the bytes, the
+    planes and the tables (three int64 a text and the total), each once;
+    a one-text pack's bound is unchanged."""
+    from sassy_tpu_torch import diagnostics
+
+    one = diagnostics.pack_bound(100, 4, False, gw=10)
+    assert one["bytes"] == 260
+    got = diagnostics.pack_bound(100, 4, False, gw=10, texts=3)
+    assert got["bytes"] == 260 + 8 * 10
+    assert got["bound_ms"] > one["bound_ms"]
 
 
 @pytest.mark.parametrize("bad", ["dtype", "dim", "strided", "table dtype",

@@ -6,9 +6,13 @@
 // C entry point (sassy_pack) without the stream, on host memory; returns 0,
 // or 1 for arguments the entry point refuses. sassy_pack_set_host does the
 // same for the text set's pack (sassy_pack_set): the same checks and
-// table, then pack_set_word for each word in turn, every load checked to
+// table, then the kernel's warps one after another, each as the kernel
+// runs it (pack_set_words): its range's first text by rounds of 32
+// probes, then step by step the lanes' texts (where a lane passed its
+// text: the warp's shared-memory staging, every lane's part in turn, then
+// each lane's search of it) and each lane's word, every load checked to
 // lie inside a text (stats: the loads, those outside every text, the
-// vector loads).
+// vector loads, the stagings, the search rounds).
 
 #include <cstdint>
 
@@ -80,10 +84,12 @@ extern "C" int sassy_pack_set_host(const void* text, long long len,
                                    long long steps, int reverse, int planes,
                                    int with_valid, int mode, int shift,
                                    int mask, const unsigned int* pmasks,
-                                   int fold, long long* stats) {
+                                   int fold, long long warps,
+                                   long long* stats) {
   PackSetArgs a;
   PackTable tab;
-  if (!pack_set_setup(text, len, starts, lens, wofs, texts, out, width,
+  if (warps < 1 ||
+      !pack_set_setup(text, len, starts, lens, wofs, texts, out, width,
                       steps, reverse, planes, with_valid, mode, shift, mask,
                       pmasks, fold, &a, &tab)) {
     return 1;
@@ -92,10 +98,62 @@ extern "C" int sassy_pack_set_host(const void* text, long long len,
   g_lens = lens;
   g_texts = texts;
   g_loads = g_outside = g_wide = 0;
+  long long stagings = 0;
+  long long rounds = 0;
   const uint8_t* codes = reinterpret_cast<const uint8_t*>(tab.words);
-  for (int64_t w = 0; w < width; ++w) pack_set_word(a, w, codes);
+  const int64_t per_warp = set_warp_words(width, warps);
+  SetStage s;  // the warp's shared memory
+  SetText c[kSetLanes];
+  bool open[kSetLanes];
+  for (int64_t w_begin = 0; w_begin < width; w_begin += per_warp) {
+    const int64_t w_end =
+        w_begin + per_warp < width ? w_begin + per_warp : width;
+    int64_t lo = -1;
+    int64_t hi = a.texts;
+    while (lo < hi) {
+      int below = 0;  // the ballot's count
+      for (int lane = 0; lane < kSetLanes; ++lane) {
+        below += a.wofs[set_probe(lo, hi, lane)] <= w_begin;
+      }
+      set_narrow(&lo, &hi, below);
+      ++rounds;
+    }
+    for (int lane = 0; lane < kSetLanes; ++lane) {
+      c[lane] = set_unknown(lo, w_begin);
+    }
+    for (int64_t w0 = w_begin; w0 < w_end; w0 += kSetLanes) {
+      bool any = false;
+      for (int lane = 0; lane < kSetLanes; ++lane) {
+        open[lane] = w0 + lane >= c[lane].end;
+        any = any || open[lane];
+      }
+      if (any) {
+        const int64_t last = c[kSetLanes - 1].t;
+        int64_t base = last > 0 ? last : 0;
+        do {
+          for (int lane = 0; lane < kSetLanes; ++lane) {
+            set_stage(a, base, lane, &s);
+          }
+          ++stagings;
+          any = false;
+          for (int lane = 0; lane < kSetLanes; ++lane) {
+            if (open[lane]) {
+              open[lane] = !set_resolve(a, s, base, w0 + lane, &c[lane]);
+            }
+            any = any || open[lane];
+          }
+          base += kSetLanes;
+        } while (any);
+      }
+      for (int lane = 0; lane < kSetLanes; ++lane) {
+        if (w0 + lane < w_end) pack_set_word(a, w0 + lane, c[lane], codes);
+      }
+    }
+  }
   stats[0] = g_loads;
   stats[1] = g_outside;
   stats[2] = g_wide;
+  stats[3] = stagings;
+  stats[4] = rounds;
   return 0;
 }
