@@ -83,7 +83,8 @@ against their plain versions, timed beside their bounds. Phases:
    other match, and
    a sample of the others, is searched again on the port's CPU path (the
    plain versions), Match for Match with CIGAR; the phases of one strand
-   are timed (its traceback over the first 4,096 reads), and the async
+   are timed, with its host finish's split (filters, window gather, fill,
+   walk, Match build), as is the main run's finish, and the async
    dispatch is shown to return before its work;
 7. batched vs single on the card: 4 barcodes over 200 reads, search_many
    against the per-pair Searcher.search results (q1meta), and
@@ -180,8 +181,8 @@ against their plain versions, timed beside their bounds. Phases:
    search at evals/configs/nanopore.toml's shape, 96 barcodes of 24 bp at
    k=3 over 6,400 reads of 10 kbp with one copy planted per read, every
    copy in the TSV; the runs of (a) and (b) with their wall split into
-   dispatch, waits for the device, filters and traceback, and the
-   device's busy share; (c) search, search --sam, search --overhang 0.5,
+   dispatch, waits for the device, the host finish (filters, window
+   gather, fill, walk, Match build), and the device's busy share; (c) search, search --sam, search --overhang 0.5,
    grep, filter -v and agrep on a 32-read subset (and 1 MB of printable
    text), --device cuda and --device cpu equal byte for byte on stdout
    and stderr; (d) (b) with --resume, killed after
@@ -318,9 +319,6 @@ Q_KERNEL = 8
 READS_CPU = 64
 Q_SINGLE = 4
 READS_SINGLE = 200
-#: phase 6's timed strand: the reads whose candidates it traces back (its
-#: search_many run traces every read of both strands)
-TRACE_READS = 4096
 #: the planted copies' one edit: a substitution at this pattern index
 MUT_AT = 11
 #: phases 8-11: overhang. (alpha, k, pattern length, chars a planted copy
@@ -1156,7 +1154,7 @@ def end_to_end(gen):
     import numpy as np
     import torch
 
-    from sassy_tpu_torch import Searcher, Strand, profiles
+    from sassy_tpu_torch import Searcher, profiles
     from sassy_tpu_torch.ops import myers_cuda
     from sassy_tpu_torch.ops.myers_torch import _upload
 
@@ -1190,14 +1188,12 @@ def end_to_end(gen):
         mark()
         cands = eng.select(inp, outs).cpu()
         mark()
-        ends = sorted(zip(*cands.tolist()))
-        searcher._postprocess(pattern, pcodes, text, K, ends, None,
-                              Strand.FWD, 0, 0)
+        host_finish(searcher, pattern, pcodes, text, K, cands)
         mark()
         log(f"phase 3: forward strand, {N_TEXT >> 20} MiB, {run}: "
             + ", ".join(f"{nm} {(b - a) * 1e3:.1f} ms"
                         for nm, a, b in zip(names, marks, marks[1:]))
-            + f" ({len(ends)} candidates)")
+            + f" ({cands.shape[1]} candidates)")
         del text_dev, prep, inp, outs
 
     # both strands' planes from one upload, timed apart (the text is
@@ -1499,15 +1495,28 @@ def off_targets_chunk() -> dict:
     return rec
 
 
-def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha,
-                          trace_texts=None):
+def finish_split_text(sp: dict) -> str:
+    """A ``Searcher.last_finish_split`` as one clause: its steps' host
+    times and sizes."""
+    return (f"filters {sp.get('filters', 0) * 1e3:.1f} ms "
+            f"({sp.get('candidates', 0)} candidates, {sp.get('kept', 0)} "
+            f"kept), window gather {sp.get('gather', 0) * 1e3:.1f} ms "
+            f"({sp.get('windows', 0)} windows), fill "
+            f"{sp.get('fill', 0) * 1e3:.1f} ms, walk "
+            f"{sp.get('walk', 0) * 1e3:.1f} ms, Match build "
+            f"{sp.get('build', 0) * 1e3:.1f} ms ({sp.get('matches', 0)} "
+            "matches)")
+
+
+def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha):
     """The phases of the forward strand of a batched search: the engine's
     own dispatch, with its window, scan and selection steps timed (each
     ended by a synchronise); the first run pays one-time costs. The warm
-    run traces back the candidates of the first ``trace_texts`` texts (all
-    by default)."""
+    run also finishes the candidates on the host, as ``search_many`` does,
+    with the finish's split."""
     import torch
 
+    from sassy_tpu_torch import Strand
     from sassy_tpu_torch.ops import batch
 
     pcodes = [prof.encode(p) for p in pats]
@@ -1541,19 +1550,17 @@ def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha,
         pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
         found = eng.dispatch(prof, ts, g, k, False, False)
         t0 = time.perf_counter()
-        dense = batch._decode(batch._fetch(found), len(pats), len(texts),
-                              False)
+        flat = batch._decode(batch._fetch(found), len(pats), len(texts),
+                             True)
         t_decode = time.perf_counter() - t0
-        post = "not run"  # the host traceback has no cold cost to show
+        post = "not run"  # the host finish has no cold cost to show
         if run == "warm":
-            nt = len(texts) if trace_texts is None else trace_texts
-            part = [row[:nt] for row in dense]
             t0 = time.perf_counter()
             ms = searcher._finish_many_batched(
-                lambda: part, None, pats, pcodes, None, None, texts[:nt],
-                texts[:nt], k, None)
+                [(Strand.FWD, pats, pcodes, lambda: flat)], texts, k, None)
             post = (f"{(time.perf_counter() - t0) * 1e3:.1f} ms "
-                    f"({len(ms)} matches of {nt} texts)")
+                    f"({len(ms)} matches: "
+                    f"{finish_split_text(searcher.last_finish_split)})")
         n_chunks = len(list(eng.chunks(g, pp)))
         log(f"{label}: forward strand, {len(pats)} x {len(pats[0])} bp over "
             f"{len(texts)} x {READ_LEN} bp, {run}: upload+pack "
@@ -1561,10 +1568,10 @@ def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha,
             f"{acc['windows'] * 1e3:.1f} ms, suffix prefilter "
             f"{acc['prefilter'] * 1e3:.1f} ms, kernel "
             f"{acc['scan'] * 1e3:.1f} ms, selection {acc['select'] * 1e3:.1f} ms, host copy+decode "
-            f"{t_decode * 1e3:.1f} ms, traceback+dense assembly {post} "
+            f"{t_decode * 1e3:.1f} ms, host finish {post} "
             f"(M={g.pmasks.shape[1]} eq={g.eq_mode} steps={g.steps} "
             f"pieces={pp.T} NW={pp.NW} chunks={n_chunks})")
-        del ts, eng, found, dense
+        del ts, eng, found, flat
 
 
 def batched_end_to_end(reads, barcodes):
@@ -1581,8 +1588,7 @@ def batched_end_to_end(reads, barcodes):
     pcodes = [dna.encode(p) for p in pats]
     searcher = Searcher("dna", rc=True, device=DEVICE)
 
-    batched_strand_phases("phase 6", searcher, dna, pats, texts, K, None,
-                          TRACE_READS)
+    batched_strand_phases("phase 6", searcher, dna, pats, texts, K, None)
 
     # the async dispatch returns before its device work ends: dispatch
     # both strands, then wait for each
@@ -1617,7 +1623,9 @@ def batched_end_to_end(reads, barcodes):
     log(f"phase 6: Searcher.search_many, both strands: {e2e:.3f} s, "
         f"{len(matches)} matches, q2meta launches {launches}, q1meta "
         f"launches {single}, text set pack kernel launches {n_set}, one-text "
-        f"pack kernel launches {got['pack']}, plain set packs 0")
+        f"pack kernel launches {got['pack']}, plain set packs 0; its host "
+        f"finish, both strands: "
+        f"{finish_split_text(searcher.last_finish_split)}")
     if launches < 2 or single or n_set < 2:
         fail(f"search_many launched q2meta {launches}, q1meta {single} and "
              f"the text set's pack kernel {n_set} times")
@@ -1737,12 +1745,30 @@ def planted_end(pattern, strand: str, where: str, hang: int, n: int):
                                              else (0, m - hang))
 
 
+def host_finish(searcher, pattern, pcodes, text, k: int, cands):
+    """One strand's candidates ((2, N) end positions and costs, on the
+    host) through the Searcher's host finish as one (pattern, text) cell,
+    as ``Searcher.search`` runs it: the filters, the traceback and the
+    Match build."""
+    import numpy as np
+
+    from sassy_tpu_torch import Strand
+
+    pos, cost = cands.numpy().astype(np.int64)
+    order = np.lexsort((cost, pos))
+    zeros = np.zeros(len(pos), np.int64)
+    lens = np.array([len(text)], np.int64)
+    searcher.last_finish_split = {}
+    found = searcher._finish_strand(
+        [pattern], [pcodes], [text], lens,
+        (zeros, zeros, pos[order], cost[order]), k, None, Strand.FWD)
+    return searcher._matches([found], lens)
+
+
 def single_strand_phases(label, searcher, prof, pattern, text, k):
     """The phases of one strand of a single-pattern search, each ended by a
     synchronise; the first run pays one-time costs."""
     import torch
-
-    from sassy_tpu_torch import Strand
 
     eng = searcher.engine
     pcodes = prof.encode(pattern)
@@ -1764,16 +1790,14 @@ def single_strand_phases(label, searcher, prof, pattern, text, k):
         mark()
         cands = eng.select(inp, outs).cpu()
         mark()
-        ends = sorted(zip(*cands.tolist()))
-        searcher._postprocess(pattern, pcodes, text, k, ends, None,
-                              Strand.FWD, 0, 0)
+        host_finish(searcher, pattern, pcodes, text, k, cands)
         mark()
         log(f"{label}: forward strand, {len(text) >> 20} MiB, {run}, "
             f"{'word' if inp.fast else 'position'} level (T="
             f"{inp.windows.shape[2]} NW={inp.windows.shape[0]}): "
             + ", ".join(f"{nm} {(b - a) * 1e3:.1f} ms"
                         for nm, a, b in zip(names, marks, marks[1:]))
-            + f" ({len(ends)} candidates)")
+            + f" ({cands.shape[1]} candidates)")
         del prep, inp, outs
 
 
@@ -2728,10 +2752,10 @@ def write_fasta(path: Path, names, seqs, width: int = 0) -> None:
 def split_times(acc: dict):
     """Time one CLI run's parts into ``acc``: the TextSet and dispatch
     calls, the host's waits for the dispatch thread (the engines'
-    finish()), ``Searcher._postprocess`` (the end-position and N filters
-    and the traceback) and the candidates it was given, the traceback
-    alone, the wall, and the device's busy time (the CUDA kernels
-    torch.profiler sees)."""
+    finish()), the Searchers' host finish (each finish's
+    ``last_finish_split``, summed: the filters, window gather, fill, walk
+    and Match build, with their sizes), the wall, and the device's busy
+    time (the CUDA kernels torch.profiler sees)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2739,17 +2763,14 @@ def split_times(acc: dict):
     from sassy_tpu_torch import search
     from sassy_tpu_torch.ops import batch
 
-    acc.update(dict.fromkeys(("dispatch", "wait", "postprocess",
-                              "traceback"), 0.0), candidates=0)
+    acc.update(dict.fromkeys(("dispatch", "wait"), 0.0), finish={})
     restore = []
 
-    def timed(owner, name, key, on_result=None, count=None):
+    def timed(owner, name, key, on_result=None):
         fn = getattr(owner, name)
         restore.append((owner, name, fn))
 
         def wrapper(*a, **kw):
-            if count:
-                acc["candidates"] += count(*a)
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             acc[key] += time.perf_counter() - t0
@@ -2767,9 +2788,21 @@ def split_times(acc: dict):
     timed(batch.TextSet, "__init__", "dispatch")
     timed(batch.BatchEngine, "candidates_many_async", "dispatch",
           timed_finish)
-    timed(search.Searcher, "_postprocess", "postprocess",
-          count=lambda _self, _pat, _codes, _text, _k, cands, *a: len(cands))
-    timed(search, "trace_candidates_batch", "traceback")
+
+    def add_split(name):  # a Searcher method that runs a host finish
+        fn = getattr(search.Searcher, name)
+        restore.append((search.Searcher, name, fn))
+
+        def wrapper(self, *a, **kw):
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                for key, v in self.last_finish_split.items():
+                    acc["finish"][key] = acc["finish"].get(key, 0) + v
+        setattr(search.Searcher, name, wrapper)
+
+    add_split("_finish_many_batched")
+    add_split("_search_handle_rc")
     prof = profile(activities=[ProfilerActivity.CUDA])
     try:
         with prof:
@@ -2900,6 +2933,9 @@ def parse_time(fasta: Path) -> tuple[int, float]:
 def log_split(what: str, s: dict, parsed: tuple[int, float]) -> None:
     """Log a run's ``split_times``, beside the parse of its input alone."""
     wall, busy = s["wall"], s["busy"]
+    fin = s["finish"]
+    finish = sum(fin.get(key, 0.0)
+                 for key in ("filters", "gather", "fill", "walk", "build"))
     share = (f"device busy {busy:.3f} s = {busy / wall:.2%} of the wall, "
              f"idle {1 - busy / wall:.2%}" if busy else
              "device busy time not measured (the profiler saw no kernel)")
@@ -2907,12 +2943,10 @@ def log_split(what: str, s: dict, parsed: tuple[int, float]) -> None:
         f"the parse of the {parsed[0]} records alone {parsed[1]:.3f} s (on "
         f"the reader thread in the run); TextSet and dispatch calls "
         f"{s['dispatch']:.3f} s, host waits for the dispatch thread "
-        f"{s['wait']:.3f} s, filters and traceback {s['postprocess']:.3f} s "
-        f"over {s['candidates']} candidates (the traceback "
-        f"{s['traceback']:.3f} s), the rest (waits for the "
-        f"reader, formatting, writing) "
-        f"{wall - s['dispatch'] - s['wait'] - s['postprocess']:.3f} s; "
-        f"{share}")
+        f"{s['wait']:.3f} s, host finish {finish:.3f} s "
+        f"({finish_split_text(fin)}), the rest (waits for the reader, "
+        f"formatting, writing) "
+        f"{wall - s['dispatch'] - s['wait'] - finish:.3f} s; {share}")
 
 
 def crispr_genome(gen):

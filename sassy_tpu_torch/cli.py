@@ -24,6 +24,7 @@ import argparse
 import os
 import sys
 import time
+from operator import attrgetter
 
 import numpy as np
 import torch
@@ -364,6 +365,42 @@ def run_agrep(args) -> int:
 # crispr (bin/crispr.rs)
 
 
+class _PamFilter:
+    """crispr's PAM check on a candidate's end: the ``pam`` bytes (their
+    complement on RC) must match, by the profile's own test, the first
+    ``len(pam)`` of the last ``pam_length`` bytes before the end (``pam``
+    is shorter than ``pam_length`` only for a guide that is). Called as a
+    ``filter_fn`` with ``(pattern, text[:end], strand)``, or through
+    ``mask_ends``, which the Searcher's finish uses: all ends of one text
+    in one call."""
+
+    def __init__(self, prof, pam: np.ndarray, pam_compl: np.ndarray,
+                 pam_length: int):
+        self.prof = prof
+        self.ref = {Strand.FWD: pam, Strand.RC: pam_compl}
+        self.pam_length = pam_length
+
+    def __call__(self, _pattern, text_up_to_end, strand) -> bool:
+        return bool(self.mask_ends(text_up_to_end,
+                                   np.array([len(text_up_to_end)]),
+                                   strand)[0])
+
+    def mask_ends(self, text, ends, strand) -> np.ndarray:
+        """A mask over ``ends`` (positions in ``text``, clipped to its
+        length): False where fewer than ``pam_length`` bytes precede."""
+        ref, pl = self.ref[strand], self.pam_length
+        e = np.minimum(np.asarray(ends, np.int64), len(text))
+        if not len(text):  # an empty tail: nothing to compare
+            return e >= pl
+        # the tail text[:e][-pl:] from its start s, compared as far as it
+        # and the PAM both reach
+        s = e - pl if pl > 0 else np.minimum(-pl, e)
+        pos = s[:, None] + np.arange(len(ref))
+        tail = np.asarray(text)[np.clip(pos, 0, len(text) - 1)]
+        same = self.prof.is_match_bytes(tail, ref) | (pos >= e[:, None])
+        return (e >= pl) & same.all(1)
+
+
 def run_crispr(args) -> int:
     with open(args.guide) as fh:
         guides = [line.strip().encode() for line in fh if line.strip()]
@@ -418,12 +455,7 @@ def run_crispr(args) -> int:
         prof, rc=not args.no_rc, device=args.device
     ).with_max_n_frac(args.max_n_frac)
 
-    def filter_fn(_pattern, text_up_to_end, strand):
-        if len(text_up_to_end) < args.pam_length:
-            return False
-        tail = text_up_to_end[-args.pam_length :]
-        ref = pam_arr if strand is Strand.FWD else pam_compl
-        return all(prof.is_match(int(a), int(b)) for a, b in zip(tail, ref))
+    filter_fn = _PamFilter(prof, pam_arr, pam_compl, args.pam_length)
 
     total = prog.matches if prog is not None else 0
     t0 = time.perf_counter()
@@ -445,22 +477,20 @@ def run_crispr(args) -> int:
 
     def write_out(recs, matches):
         nonlocal total
-        by_pair: dict = {}
-        for m in matches:
-            by_pair.setdefault((m.text_idx, m.pattern_idx), []).append(m)
-        for ti, rec in enumerate(recs):
-            seq = np.frombuffer(rec.seq, dtype=np.uint8)
-            for gi, gs in enumerate(guide_strs):
-                for m in by_pair.get((ti, gi), ()):
-                    total += 1
-                    region = _format_match_region(
-                        prof, seq[m.text_start : m.text_end], m.strand, False
-                    )
-                    out.write(
-                        f"{gs}\t{rec.rid}\t{m.cost}\t{m.strand}\t"
-                        f"{m.text_start}\t{m.text_end}\t{region}\t"
-                        f"{m.cigar.to_string()}\n"
-                    )
+        # record, then guide; a (guide, record) cell's matches in the
+        # Searcher's order (a stable sort)
+        seqs = [np.frombuffer(rec.seq, dtype=np.uint8) for rec in recs]
+        for m in sorted(matches, key=attrgetter("text_idx", "pattern_idx")):
+            total += 1
+            region = _format_match_region(
+                prof, seqs[m.text_idx][m.text_start : m.text_end], m.strand,
+                False
+            )
+            out.write(
+                f"{guide_strs[m.pattern_idx]}\t{recs[m.text_idx].rid}\t"
+                f"{m.cost}\t{m.strand}\t{m.text_start}\t{m.text_end}\t"
+                f"{region}\t{m.cigar.to_string()}\n"
+            )
 
     def record_batches():
         pending: list = []

@@ -7,8 +7,9 @@ records are streamed from fasta/fastq files (gzip transparently), grouped
 into ~1 MiB text batches and <=64-pattern batches, and every text batch is
 paired with every pattern batch (input_iterator.rs:110,188-204).
 
-Reverse texts are materialized per record after batching via CachedRev so RC
-searches reuse them (input_iterator.rs:131,178-182).
+Each record is wrapped in a CachedRev after batching, as the reference
+does (input_iterator.rs:131,178-182), but without a reversed copy: the
+Searcher reads the reverse strand from the forward bytes.
 """
 
 from __future__ import annotations
@@ -309,8 +310,10 @@ def iter_batches(
     """Yield (pattern batch x text batch) work items in deterministic order.
 
     Batch ids are sequential so downstream consumers can reorder output
-    deterministically (grep.rs:544-572).
+    deterministically (grep.rs:544-572). ``rc`` is kept for the
+    reference's signature: no record is copied reversed either way.
     """
+    del rc
     pattern_batches = [
         (i, pattern_ids[i : i + batch_patterns], patterns[i : i + batch_patterns])
         for i in range(0, len(patterns), batch_patterns)
@@ -324,7 +327,7 @@ def iter_batches(
         def flush(batch, record_offset):
             nonlocal batch_id
             for rec in batch:
-                rec.cached = CachedRev(rec.seq, cache=rc)
+                rec.cached = CachedRev(rec.seq, cache=False)
             for poff, pids, pats in pattern_batches:
                 yield WorkItem(path, batch_id, pids, pats, poff, batch, record_offset)
                 batch_id += 1

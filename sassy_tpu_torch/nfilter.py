@@ -15,7 +15,8 @@ import numpy as np
 from .matchrec import Match
 from .profiles import as_bytes_array
 
-__all__ = ["check_n_fraction", "satisfy_n_endpoint_filter", "traced_satisfy_n_frac"]
+__all__ = ["check_n_fraction", "satisfy_n_endpoint_filter", "traced_satisfy_n_frac",
+           "n_fraction_ok"]
 
 
 def _count_n(text: np.ndarray, start: int, end: int) -> int:
@@ -59,3 +60,17 @@ def traced_satisfy_n_frac(m: Match, text, max_n_frac: float) -> bool:
     """Exact post-trace filter over the matched region (n_filter.rs:58-60)."""
     t = as_bytes_array(text)
     return check_n_fraction(t, m.text_start, m.text_end, max_n_frac)
+
+
+def n_fraction_ok(n_count, length, max_n_frac: float,
+                  denominator=None) -> np.ndarray:
+    """``check_n_fraction`` over a batch, bit for bit, from each region's
+    N count and length (the region clipped to its text): the count over
+    the length (or ``denominator``, per region or one), compared in
+    float32; a region of length <= 0 passes."""
+    length = np.asarray(length, np.int64)
+    denom = length if denominator is None else denominator
+    with np.errstate(divide="ignore", invalid="ignore"):
+        frac = (np.asarray(n_count).astype(np.float32)
+                / np.asarray(denom).astype(np.float32))
+    return (length <= 0) | (frac <= np.float32(max_n_frac))

@@ -225,6 +225,10 @@ class Iupac(Profile):
     def is_match(self, c1: int, c2: int) -> bool:
         return (int(_IUPAC_CODE256[c1]) & int(_IUPAC_CODE256[c2])) > 0
 
+    def is_match_bytes(self, a, b) -> np.ndarray:
+        """``is_match`` elementwise over two byte arrays (broadcast)."""
+        return (_IUPAC_CODE256[a] & _IUPAC_CODE256[b]) > 0
+
     def match_mask(self, pattern_codes, text_codes):
         return (pattern_codes[:, None] & text_codes[None, :]) > 0
 

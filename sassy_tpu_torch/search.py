@@ -9,7 +9,10 @@ complement, overhang (``alpha``, ``max_overhang``), ``only_best_match``,
 ``device``: ``TorchEngine`` (one pattern, one text) and ``BatchEngine``
 (patterns x texts). The end-position filter, the N-fraction filter,
 only-best selection and the CIGAR traceback run on the host, as in the
-reference, from the port's own copies of its host modules.
+reference, from the port's own copies of its host modules: one finish
+for both engines, over the arrays of all candidates of a strand at once
+(``_finish_strand``, ``traceback.trace_cells_batch``), never a loop over
+(pattern, text) cells.
 
 Reverse-complement handling follows the reference exactly (search.rs:
 787-881): search the *complemented* pattern against the *reversed* text,
@@ -19,16 +22,21 @@ rc_end``), keeping the CIGAR in pattern direction.
 
 from __future__ import annotations
 
+import time
+from typing import NamedTuple
+
 import numpy as np
 
 from .matchrec import UNKNOWN, Match, Strand
-from .nfilter import satisfy_n_endpoint_filter, traced_satisfy_n_frac
+from .nfilter import n_fraction_ok
 from .ops.batch import BatchEngine, TextSet
 from .ops.myers_torch import TorchEngine, engine_device
 from .profiles import Profile, as_bytes_array, get_profile
-from .traceback import trace_candidates_batch
+from .traceback import TextSpans, _tick, trace_cells_batch
 
 __all__ = ["Searcher", "CachedRev", "EncodedPatterns", "SearchMode"]
+
+_STRANDS = (Strand.FWD, Strand.RC)
 
 
 class EncodedPatterns:
@@ -131,6 +139,10 @@ class Searcher:
         self.device = device
         self.engine = TorchEngine(device)
         self.batch = BatchEngine(device)
+        #: the last call's host finish: its steps' seconds and sizes
+        #: ("filters", "gather", "fill", "walk", "build"; "candidates",
+        #: "kept", "windows", "matches")
+        self.last_finish_split: dict = {}
 
     # ------------------------------------------------------------------
     # builders (reference search.rs:364-483)
@@ -334,58 +346,35 @@ class Searcher:
         pcodes = [prof.encode(p) for p in pats]
         fwd_texts = [t.text() for t in rc_texts]
         ts = TextSet(fwd_texts, self.device)
-        fin = self.batch.candidates_many_async(
+        fin = self.batch.candidates_many_flat_async(
             prof, pcodes, ts, k, self.alpha, self.max_overhang, all_minima)
-        rfin = comp = ccodes = None
+        strands = [(Strand.FWD, pats, pcodes, fin)]
         if rc:
             comp = [as_bytes_array(prof.complement(p)) for p in pats]
             ccodes = [prof.encode(c) for c in comp]
-            rfin = self.batch.candidates_many_async(
-                prof, ccodes, ts, k, self.alpha, self.max_overhang,
-                all_minima, reverse=True,
-            )
-        return lambda: self._finish_many_batched(
-            fin, rfin, pats, pcodes, comp, ccodes, rc_texts, fwd_texts,
-            k, filter_fn,
-        )
+            strands.append((Strand.RC, comp, ccodes,
+                            self.batch.candidates_many_flat_async(
+                                prof, ccodes, ts, k, self.alpha,
+                                self.max_overhang, all_minima, reverse=True)))
+        return lambda: self._finish_many_batched(strands, fwd_texts, k,
+                                                 filter_fn)
 
-    def _finish_many_batched(self, fin, rfin, pats, pcodes, comp, ccodes,
-                             rc_texts, fwd_texts, k,
+    def _finish_many_batched(self, strands, texts, k: int,
                              filter_fn) -> list[Match]:
-        cands = fin()
-        rcands = rfin() if rfin is not None else None
-        out: list[Match] = []
-        for pi in range(len(pats)):
-            row = cands[pi]
-            rrow = rcands[pi] if rcands is not None else None
-            for ti in range(len(rc_texts)):
-                # read batches are Q x thousands of mostly-empty cells
-                if not row[ti] and (rrow is None or not rrow[ti]):
-                    continue
-                fwd = fwd_texts[ti]
-                out.extend(self._postprocess(
-                    pats[pi], pcodes[pi], fwd, k, row[ti], filter_fn,
-                    Strand.FWD, pi, ti,
-                ))
-                if rcands is not None:
-                    ms = self._postprocess(
-                        comp[pi], ccodes[pi], rc_texts[ti].rev_text(), k,
-                        rrow[ti], filter_fn, Strand.RC, pi, ti,
-                    )
-                    out.extend(self._to_forward(ms, len(fwd)))
-        return out
+        """Each strand's flat candidate columns, waited for in turn (the
+        forward strand's finish overlaps the reverse strand's device
+        work), finished as arrays, then one Match list in the reference's
+        order. ``strands``: (strand, its patterns, their codes, the
+        engine's ``finish()``)."""
+        lens = np.fromiter(map(len, texts), np.int64, len(texts))
+        self.last_finish_split = {}
+        found = [self._finish_strand(pats, codes, texts, lens, fin(), k,
+                                     filter_fn, strand)
+                 for strand, pats, codes, fin in strands]
+        return self._matches(found, lens)
 
     # ------------------------------------------------------------------
     # single-pattern pipeline
-
-    def _to_forward(self, rc_matches: list[Match], n: int) -> list[Match]:
-        """RC-strand matches in reversed-text coordinates -> forward."""
-        for m in rc_matches:
-            m.strand = Strand.RC
-            rs, re = m.text_start, m.text_end
-            m.text_start = n - re
-            m.text_end = UNKNOWN if self.without_trace_flag else n - rs
-        return rc_matches
 
     def _search_handle_rc(self, pattern, text, k: int, all_minima: bool,
                           filter_fn=None, pattern_idx: int = 0,
@@ -393,84 +382,198 @@ class Searcher:
         """One pattern on one text, both strands with ``rc``: their planes
         come from one upload of the forward bytes
         (``TorchEngine.prepare_strands``, kept while a read-only source
-        lives); the host traceback reads the reversed text."""
+        lives); the host finish reads the forward bytes backwards for the
+        reverse strand."""
         pat = as_bytes_array(pattern)
-        rc_text = _as_rc_searchable(text)
-        fwd = rc_text.text()
+        fwd = _as_rc_searchable(text).text()
+        lens = np.array([len(fwd)], np.int64)
+        self.last_finish_split = {}
         if not self.rc:
-            return self._search_one_strand(pat, fwd, fwd, k, all_minima,
-                                           filter_fn, Strand.FWD,
-                                           pattern_idx, text_idx)
-        comp = as_bytes_array(self.profile.complement(pat))
-        fprep, rprep = self.engine.prepare_strands(self.profile, fwd)
-        out = self._search_one_strand(pat, fwd, fprep, k, all_minima,
-                                      filter_fn, Strand.FWD, pattern_idx,
-                                      text_idx)
-        out.extend(self._to_forward(self._search_one_strand(
-            comp, rc_text.rev_text(), rprep, k, all_minima, filter_fn,
-            Strand.RC, pattern_idx, text_idx,
-        ), len(fwd)))
-        return out
+            found = [self._search_one_strand(pat, fwd, fwd, k, all_minima,
+                                             filter_fn, Strand.FWD)]
+        else:
+            comp = as_bytes_array(self.profile.complement(pat))
+            fprep, rprep = self.engine.prepare_strands(self.profile, fwd)
+            found = [
+                self._search_one_strand(pat, fwd, fprep, k, all_minima,
+                                        filter_fn, Strand.FWD),
+                self._search_one_strand(comp, fwd, rprep, k, all_minima,
+                                        filter_fn, Strand.RC),
+            ]
+        return self._matches(found, lens, pattern_idx, text_idx)
 
     def _search_one_strand(self, pattern: np.ndarray, text: np.ndarray,
                            prepared, k: int, all_minima: bool, filter_fn,
-                           strand: Strand, pattern_idx: int,
-                           text_idx: int) -> list[Match]:
+                           strand: Strand) -> "_Found":
         """The candidates of one strand on ``prepared`` (its
-        ``PreparedText``, or the text itself), traced on the host
-        ``text``."""
+        ``PreparedText``, or the text itself), finished on the host
+        ``text`` (the forward bytes: read backwards for RC) as one cell."""
         p_codes = self.profile.encode(pattern)
         cands = self.engine.candidates(
             self.profile, p_codes, prepared, k, self.alpha,
             self.max_overhang, all_minima,
         )
-        return self._postprocess(pattern, p_codes, text, k, cands, filter_fn,
-                                 strand, pattern_idx, text_idx)
+        pos_cost = np.array(cands, np.int64).reshape(-1, 2).T
+        zeros = np.zeros(pos_cost.shape[1], np.int64)
+        return self._finish_strand(
+            [pattern], [p_codes], [text], np.array([len(text)], np.int64),
+            (zeros, zeros, *pos_cost), k, filter_fn, strand)
 
-    def _postprocess(self, pattern: np.ndarray, p_codes: np.ndarray,
-                     text: np.ndarray, k: int, cands, filter_fn,
-                     strand: Strand, pattern_idx: int,
-                     text_idx: int) -> list[Match]:
+    # ------------------------------------------------------------------
+    # the host finish, shared by both engines
+
+    def _finish_strand(self, pats, pcodes, texts, lens: np.ndarray, cols,
+                       k: int, filter_fn, strand: Strand) -> "_Found":
         """End-position filter, N-fraction pre-filter, only-best selection,
         traceback, traced N-filter (reference search.rs:884-937 +
-        process_matches)."""
-        m = len(pattern)
-        n = len(text)
-        if filter_fn is not None:
-            cands = [(end, cost) for end, cost in cands
-                     if filter_fn(pattern, text[: min(end, n)], strand)]
-        if self.max_n_frac is not None:
-            cands = [(end, cost) for end, cost in cands
-                     if satisfy_n_endpoint_filter(end, text, m, k,
-                                                  self.max_n_frac)]
-        if self.only_best_match_flag and cands:
-            # smallest cost; ties broken by larger end position
-            # (search.rs:1392-1411)
-            cands = [min(cands, key=lambda ec: (ec[1], -ec[0]))]
+        process_matches) over all candidates of one strand at once.
 
-        out: list[Match] = []
+        ``cols``: (pattern, text, end, cost) columns, sorted by them, as
+        the batched engine's flat candidates are; positions are in the
+        strand's text, which for RC is the forward text read backwards.
+        Returns the kept matches, in the strand's coordinates."""
+        split = self.last_finish_split
+        t0 = time.perf_counter()
+        q, t, end, cost = (np.asarray(c, np.int64) for c in cols)
+        reverse = strand is Strand.RC
+        n_cands = len(q)
+        plen = np.fromiter(map(len, pats), np.int64, len(pats))
+        if filter_fn is not None and len(q):
+            keep = self._end_filter(filter_fn, pats, texts, lens, q, t, end,
+                                    strand)
+            q, t, end, cost = q[keep], t[keep], end[keep], cost[keep]
+        e = np.minimum(end, lens[t])
+        m = plen[q]
+        if self.max_n_frac is not None and len(q):
+            # the mandatory window text[e - (m - k) : e], over m + k
+            ln = np.minimum(e, np.maximum(0, m - k))
+            count = TextSpans(texts, lens, t, e - ln, ln,
+                              reverse).n_counts(e - ln, e)
+            keep = n_fraction_ok(count, ln, self.max_n_frac, m + k)
+            q, t, end, cost, e, m = (a[keep] for a in (q, t, end, cost, e, m))
+        seq = np.arange(len(q))
+        if self.only_best_match_flag and len(q):
+            # smallest cost; ties broken by larger end position
+            # (search.rs:1392-1411), one a (pattern, text) cell
+            order = np.lexsort((-end, cost, t, q))
+            cell = q[order] * len(texts) + t[order]
+            seq = order[np.r_[True, cell[1:] != cell[:-1]]]
+        t0 = _tick(split, "filters", t0, candidates=n_cands, kept=len(seq))
+
         if self.without_trace_flag:
-            for end, cost in cands:
-                out.append(Match(
-                    pattern_idx=pattern_idx, text_idx=text_idx,
-                    text_start=UNKNOWN, text_end=min(end, n),
-                    pattern_start=UNKNOWN,
-                    pattern_end=m - max(0, end - n), cost=cost,
-                    strand=Strand.FWD,
-                ))
-        elif cands:
-            traced = trace_candidates_batch(
-                self.profile, pattern, p_codes, text,
-                [end for end, _ in cands], m + k, self.alpha,
-                self.max_overhang,
-            )
-            for (end, cost), mt in zip(cands, traced):
-                assert mt.cost <= cost, f"trace cost {mt.cost} > recorded {cost}"
-                assert mt.cost <= k
-                mt.pattern_idx = pattern_idx
-                mt.text_idx = text_idx
-                out.append(mt)
-        if self.max_n_frac is not None and not self.without_trace_flag:
-            out = [mm for mm in out
-                   if traced_satisfy_n_frac(mm, text, self.max_n_frac)]
+            q, t, end, cost, e, m = (a[seq] for a in (q, t, end, cost, e, m))
+            return _Found(strand, q, t, seq, cost, None, e, None,
+                          m - np.maximum(0, end - lens[t]), None)
+        parts = []
+        for mv in np.unique(m[seq]).tolist():
+            rows = seq[m[seq] == mv]
+            tr = trace_cells_batch(
+                self.profile, pats, pcodes, texts, lens, q[rows], t[rows],
+                end[rows], mv + k, self.alpha, self.max_overhang, reverse,
+                split)
+            assert (tr.cost <= cost[rows]).all(), "trace cost > recorded cost"
+            assert (tr.cost <= k).all()
+            t0 = time.perf_counter()
+            if self.max_n_frac is not None:
+                keep = n_fraction_ok(
+                    tr.spans.n_counts(tr.text_start, tr.text_end),
+                    tr.text_end - tr.text_start, self.max_n_frac)
+            else:
+                keep = np.ones(len(rows), bool)
+            _tick(split, "filters", t0)
+            parts.append((rows[keep], tr, keep))
+        rows = np.concatenate([p[0] for p in parts] or [seq[:0]])
+
+        def cat(f):
+            return np.concatenate([getattr(tr, f)[kp] for _, tr, kp in parts]
+                                  or [seq[:0]])
+
+        cigars = [c for _, tr, kp in parts
+                  for c, kept in zip(tr.cigars, kp.tolist()) if kept]
+        return _Found(strand, q[rows], t[rows], rows, cat("cost"),
+                      cat("text_start"), cat("text_end"),
+                      cat("pattern_start"), cat("pattern_end"), cigars)
+
+    def _end_filter(self, filter_fn, pats, texts, lens, q, t, end,
+                    strand: Strand) -> np.ndarray:
+        """``filter_fn`` over a strand's candidates: a mask. A filter with
+        ``mask_ends(text, ends, strand)`` gets one call a text (all of that
+        text's ends); a plain callable keeps its contract, one call a
+        candidate with ``(pattern, text[:min(end, n)], strand)``. Texts are
+        the strand's: the forward bytes read backwards for RC."""
+        step = -1 if strand is Strand.RC else 1
+        keep = np.zeros(len(q), bool)
+        mask_ends = getattr(filter_fn, "mask_ends", None)
+        if mask_ends is not None:
+            order = np.argsort(t, kind="stable")
+            ts = t[order]
+            cuts = np.flatnonzero(ts[1:] != ts[:-1]) + 1
+            for rows in np.split(order, cuts):
+                keep[rows] = mask_ends(texts[t[rows[0]]][::step], end[rows],
+                                       strand)
+            return keep
+        e = np.minimum(end, lens[t])
+        for b, (qi, ti, eb) in enumerate(zip(q.tolist(), t.tolist(),
+                                             e.tolist())):
+            keep[b] = filter_fn(pats[qi], texts[ti][::step][:eb], strand)
+        return keep
+
+    def _matches(self, found: list["_Found"], lens: np.ndarray,
+                 pattern_idx: int = 0, text_idx: int = 0) -> list[Match]:
+        """The strands' matches as one list in the reference's order:
+        pattern, then text; in a (pattern, text) cell the forward strand's
+        matches in candidate order, then the reverse strand's, in forward
+        coordinates (``text_start = n - rc_end``). Indices are offset by
+        ``pattern_idx`` and ``text_idx``."""
+        t0 = time.perf_counter()
+        traced = not self.without_trace_flag
+        q, t, seq, cost, te, pe = (
+            np.concatenate([getattr(f, a) for f in found])
+            for a in ("q", "t", "seq", "cost", "text_end", "pattern_end"))
+        strand = np.concatenate([np.full(len(f.q), int(f.strand))
+                                 for f in found])
+        rc = strand == int(Strand.RC)
+        n = lens[t]
+        if traced:
+            ts, ps = (np.concatenate([getattr(f, a) for f in found])
+                      for a in ("text_start", "pattern_start"))
+            ts, te = np.where(rc, n - te, ts), np.where(rc, n - ts, te)
+            cigars = [c for f in found for c in f.cigars]
+        else:
+            ts = np.where(rc, n - te, 0)
+        order = np.lexsort((seq, strand, t, q))
+        cols = [a[order].tolist() for a in (q + pattern_idx, t + text_idx,
+                                            cost, ts, te, pe, strand)]
+        if traced:
+            out = [Match(pattern_idx=qi, text_idx=ti, text_start=s,
+                         text_end=e, pattern_start=p0, pattern_end=p,
+                         cost=c, strand=_STRANDS[sd], cigar=cigars[i])
+                   for i, qi, ti, c, s, e, p, sd, p0 in zip(
+                       order.tolist(), *cols, ps[order].tolist())]
+        else:
+            out = [Match(pattern_idx=qi, text_idx=ti,
+                         text_start=s if sd else UNKNOWN,
+                         text_end=UNKNOWN if sd else e,
+                         pattern_start=UNKNOWN, pattern_end=p, cost=c,
+                         strand=_STRANDS[sd])
+                   for qi, ti, c, s, e, p, sd in zip(*cols)]
+        _tick(self.last_finish_split, "build", t0, matches=len(out))
         return out
+
+
+class _Found(NamedTuple):
+    """One strand's finished matches: pattern and text indices, each
+    match's candidate's rank among the strand's candidates (``seq``, which
+    orders them), cost, coordinates in the strand's text (``text_start``,
+    ``pattern_start`` and ``cigars`` None without trace)."""
+
+    strand: Strand
+    q: np.ndarray
+    t: np.ndarray
+    seq: np.ndarray
+    cost: np.ndarray
+    text_start: np.ndarray | None
+    text_end: np.ndarray
+    pattern_start: np.ndarray | None
+    pattern_end: np.ndarray
+    cigars: list | None

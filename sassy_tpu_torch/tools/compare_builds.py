@@ -3,7 +3,8 @@
     python -m sassy_tpu_torch.tools.compare_builds OLD_ROOT NEW_ROOT \
         [--turns 2] [--q2-reads N]
         [--off-target] [--search-many N [--plant]] [--overhang-reads N]
-        [--pack-set] [--strands] [--no-scans] [--out FILE]
+        [--pack-set] [--strands] [--overhang-search] [--no-scans]
+        [--out FILE]
 
 Each run is a fresh process that imports the ``sassy_tpu_torch`` of one
 checkout root, builds that checkout's kernel library from its own sources,
@@ -46,7 +47,9 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   with one substitution at offset 5000 (read i: barcode i % 96, even
   reads forward, odd reads reverse-complemented, as ``chip_smoke.py``
   phase 6 plants them), so that the host traceback of one match per read
-  takes most of the call;
+  takes most of the call; with the host finish's split where the
+  checkout has ``Searcher.last_finish_split``, and a digest of the Match list
+  (every field and the CIGAR, in order) to compare the checkouts;
 - with ``--overhang-reads N``, where the checkout has overhang on the
   batched engine: the forward strand of ``chip_smoke.py`` phase 11b's
   position-level dispatch, 8 random 120 bp patterns at k=10, alpha 0.1
@@ -71,6 +74,19 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   above what it held before the first; then twice on a read-only copy
   (a checkout that keeps both strands prepares nothing the second
   time);
+- with ``--overhang-search``: ``Searcher("iupac", rc=True, alpha).search``
+  over ``--mib`` MiB of random ACGT, both strands, end to end (host
+  clock, ended by a synchronise), ``OH_SEARCH_RUNS`` times (the first
+  pays one-time costs), at ``chip_smoke.py`` phase 8's shape (a 23 bp
+  pattern at k=3, alpha 0.5: the word level) and phase 9's (a 120 bp
+  pattern with two IUPAC codes at k=10, alpha 0.1: the position level),
+  each with copies planted in the middle (one substitution) and hanging
+  off both ends, without and with ``max_n_frac`` 0.3; with the host time
+  of the steps inside each search: the strands' preparation
+  (``prepare_strands``), the candidates (``TorchEngine.candidates``), the
+  host finish (the checkout's ``Searcher`` finish methods) and in it the
+  traceback's fill and walk (``traceback._fill_batch``, ``_walk_batch``);
+  the matches and a digest of the Match list;
 - with ``--no-scans``, none of the scan kernels' timings above (the
   prepared text, q1meta, q1, q2meta, q2), nor ``--overhang-reads``.
 
@@ -83,6 +99,7 @@ Inputs come from ``--seed``, the same in every run.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -103,6 +120,11 @@ DEVICE = "cuda"
 OFF_GUIDES = 312
 OFF_GENOME_BP = 3_120_000_000
 OFF_CHUNK_BP = 28_000_000
+#: --overhang-search: (name, alpha, k, pattern length, hang) of
+#: chip_smoke.py's phases 8 and 9
+OH_SEARCH = (("phase8", 0.5, 3, 23, 4), ("phase9", 0.1, 10, 120, 10))
+#: searches of each: the first pays one-time costs
+OH_SEARCH_RUNS = 6
 #: --overhang-reads: patterns, their length, k and alpha
 OH_Q = 8
 OH_LEN = 120
@@ -129,7 +151,7 @@ def _child(root: str, seed: int, mib: int, reps: int,
            search_reads: int, plant: bool, overhang_reads: int,
            q2_reads: int = 0, off_target: bool = False,
            pack_sets: bool = False, strands: bool = False,
-           scans: bool = True) -> dict:
+           scans: bool = True, overhang_search: bool = False) -> dict:
     """One run: the kernels of the checkout at ``root``."""
     sys.path.insert(0, root)
     import torch
@@ -155,6 +177,8 @@ def _child(root: str, seed: int, mib: int, reps: int,
         out.update(_pack_sets(acgt, dna, reps))
     if strands:
         out.update(_strands(acgt, dna, mib))
+    if overhang_search:
+        out.update(_overhang_search(acgt, mib))
     if not scans:
         if search_reads:
             barcodes = acgt(N_BARCODES * BARCODE_LEN).cpu().numpy()
@@ -345,6 +369,86 @@ def _strands(acgt, dna, mib: int) -> dict:
     return out
 
 
+def _overhang_search(acgt, mib: int) -> dict:
+    """Two-strand single-engine searches with overhang at phases 8's and
+    9's shapes over ``mib`` MiB, with the traceback's fill and walk
+    timed."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import Searcher, profiles, traceback
+    from sassy_tpu_torch.ops.myers_torch import TorchEngine
+
+    iupac = profiles.Iupac()
+    steps = (
+        (traceback, "_fill_batch", "fill"), (traceback, "_walk_batch", "walk"),
+        (TorchEngine, "prepare_strands", "prepare"),
+        (TorchEngine, "candidates", "candidates"),
+        # the host finish: the parent's per-cell steps, or the arrays'
+        (Searcher, "_postprocess", "finish"), (Searcher, "_to_forward",
+                                               "finish"),
+        (Searcher, "_finish_strand", "finish"), (Searcher, "_matches",
+                                                 "finish"))
+    acc = dict.fromkeys([key for _, _, key in steps], 0.0)
+    wrapped = []
+    for owner, name, key in steps:
+        fn = getattr(owner, name, None)
+        if fn is None:
+            continue
+        wrapped.append((owner, name, fn))
+
+        def timed(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            res = _fn(*a, **kw)
+            acc[_key] += time.perf_counter() - t0
+            return res
+        setattr(owner, name, timed)
+    out = {}
+    try:
+        for name, alpha, k, m, hang in OH_SEARCH:
+            text = acgt(mib << 20).cpu().numpy()
+            planted = acgt(m).cpu().numpy()
+            pattern = planted.copy()
+            if m > 90:  # two IUPAC codes, as phase 9's pattern
+                pattern[[30, 90]] = [ord("R"), ord("Y")]
+                planted[30] = ord("A") if planted[30] in b"CT" else planted[30]
+                planted[90] = ord("C") if planted[90] in b"AG" else planted[90]
+            n = len(text)
+            mutated = planted.copy()
+            mutated[MUT_AT] = ord("A") if mutated[MUT_AT] != ord("A") \
+                else ord("C")
+            text[n // 5 : n // 5 + m] = mutated
+            text[: m - hang] = planted[hang:]
+            text[n - (m - hang):] = planted[: m - hang]
+            # the N filter (max_n_frac) reads the text around each match
+            for tag, nfrac in (("", None), ("_nfrac", 0.3)):
+                searcher = Searcher("iupac", rc=True, alpha=alpha,
+                                    max_n_frac=nfrac, device=DEVICE)
+                times = {}
+                for _ in range(OH_SEARCH_RUNS):
+                    acc.update(dict.fromkeys(acc, 0.0))
+                    t0 = time.perf_counter()
+                    matches = searcher.search(pattern, text, k)
+                    torch.cuda.synchronize()
+                    times.setdefault("search", []).append(
+                        time.perf_counter() - t0)
+                    for key, v in acc.items():
+                        times.setdefault(key, []).append(v)
+                for key, v in times.items():
+                    out[f"{name}{tag}_{key}_s"] = v
+                out[f"{name}{tag}_matches"] = len(matches)
+                out[f"{name}{tag}_matches_digest"] = hashlib.sha256(
+                    "".join(f"{mt.sort_key()} {mt.cigar.to_string()}\n"
+                            for mt in matches).encode()).hexdigest()[:16]
+            del text
+    finally:
+        for owner, name, fn in wrapped:
+            setattr(owner, name, fn)
+    return out
+
+
 def _chunk_windows(ts, prof, pp, t0, t1):
     """A dispatch chunk's windows as the checkout's engine hands them to
     the kernel: the descriptor where it has one, else the window
@@ -477,6 +581,11 @@ def _search_many(dna, barcodes, acgt, n_reads: int, plant: bool) -> dict:
     matches = searcher.search_many(list(barcodes), reads, K)
     out["search_many_s"] = time.perf_counter() - t0
     out["matches"] = len(matches)
+    # where the checkout has it
+    out["finish_split"] = getattr(searcher, "last_finish_split", {})
+    out["matches_digest"] = hashlib.sha256("".join(
+        f"{m.sort_key()} {m.cigar.to_string()}\n" for m in matches
+    ).encode()).hexdigest()[:16]
     return out
 
 
@@ -495,6 +604,7 @@ def main(argv=None) -> int:
     ap.add_argument("--off-target", action="store_true")
     ap.add_argument("--pack-set", action="store_true")
     ap.add_argument("--strands", action="store_true")
+    ap.add_argument("--overhang-search", action="store_true")
     ap.add_argument("--no-scans", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--child", help=argparse.SUPPRESS)
@@ -503,7 +613,8 @@ def main(argv=None) -> int:
         print(json.dumps(_child(a.child, a.seed, a.mib, a.reps,
                                 a.search_many, a.plant, a.overhang_reads,
                                 a.q2_reads, a.off_target, a.pack_set,
-                                a.strands, not a.no_scans)),
+                                a.strands, not a.no_scans,
+                                a.overhang_search)),
               flush=True)
         return 0
     card = subprocess.run(
@@ -527,6 +638,7 @@ def main(argv=None) -> int:
             + (["--off-target"] if a.off_target else [])
             + (["--pack-set"] if a.pack_set else [])
             + (["--strands"] if a.strands else [])
+            + (["--overhang-search"] if a.overhang_search else [])
             + (["--no-scans"] if a.no_scans else []),
             capture_output=True, text=True,
         )

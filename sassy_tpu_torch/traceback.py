@@ -21,6 +21,9 @@ of the JAX package); tests/test_torch_copies.py holds the two equal.
 
 from __future__ import annotations
 
+import time
+from typing import NamedTuple
+
 import numpy as np
 
 from .cigar import DEL, INS, MATCH, SUB, Cigar
@@ -29,7 +32,8 @@ from .oracle import dp_matrix
 from .profiles import Profile, as_bytes_array
 from .semantics import overshoot_cost
 
-__all__ = ["trace_candidate", "trace_candidates_batch", "TraceError"]
+__all__ = ["trace_candidate", "trace_candidates_batch", "trace_cells_batch",
+           "TextSpans", "Traced", "TraceError"]
 
 
 class TraceError(RuntimeError):
@@ -37,43 +41,281 @@ class TraceError(RuntimeError):
     with an invalid-alphabet hint (trace.rs:367-387)."""
 
 
+#: the bytes one fill's (m + 1, w + 1, B) int32 cost matrices and (m, w,
+#: B) match masks may take: a larger batch of windows is filled and walked
+#: in chunks under it
+FILL_BYTES = 256 << 20
+#: a text whose windows span more bytes than this is read in place; the
+#: spans of the others (reads, short contigs) are copied into one array
+#: and read by one gather, so the copy never holds a long text
+SPAN_COPY_BYTES = 1 << 16
+#: the rows one gather's index array covers
+GATHER_ROWS = 1 << 16
+#: a fill of fewer candidates than this takes each row's running minimum
+#: with one ``np.minimum.accumulate`` along the columns; a larger one with
+#: one ``np.minimum`` a column (the accumulate's stride over the
+#: candidates costs more than the w + 1 calls from about 400 candidates
+#: on, at any width)
+ACCUMULATE_BELOW = 384
+#: a source of ``TextSpans`` counts its rows' N bytes by gathering them
+#: when its rows x their widest range x this is less than its bytes (a
+#: few windows in a long text), else by binary searches in the positions
+#: of its N bytes (one pass over its bytes)
+N_GATHER_COST = 8
+
+
+def _tick(split: dict | None, key: str, t0: float, **sizes) -> float:
+    """Add the seconds since ``t0`` to ``split[key]`` and each of
+    ``sizes`` to its key (``split`` None: nothing); returns the clock."""
+    now = time.perf_counter()
+    if split is not None:
+        split[key] = split.get(key, 0.0) + now - t0
+        for name, n in sizes.items():
+            split[name] = split.get(name, 0) + n
+    return now
+
+
+class TextSpans:
+    """Where the bytes of many rows lie: row b is the ``lens[b]`` bytes of
+    text ``tids[b]`` from ``starts[b]`` on, of the text read backwards
+    with ``reverse`` (no reversed copy is made). Every row's bytes must lie
+    in its text.
+
+    The span of each text that its rows need is copied into one array; a
+    text whose span is larger than ``SPAN_COPY_BYTES`` is read in place.
+    ``windows`` reads every row with one gather a block of
+    ``GATHER_ROWS`` rows; ``n_counts`` counts N bytes with a gather of
+    the rows' ranges, or with two binary searches a row in the positions
+    of the N bytes of a source with many rows."""
+
+    def __init__(self, texts, text_lens: np.ndarray, tids, starts, lens,
+                 reverse: bool = False):
+        self.text_lens, self.reverse = text_lens, reverse
+        self.n_rows = len(tids)
+        tids = np.asarray(tids, np.int64)
+        lens = np.asarray(lens, np.int64)
+        rows = np.flatnonzero(lens > 0)
+        t = tids[rows]
+        order = np.argsort(t, kind="stable")
+        # the rows with bytes, those of one text in a run, each as a
+        # forward range [lo, hi) of its text
+        self.rows, self.t = rows[order], t[order]
+        self.lo = self._forward(self.t, np.asarray(starts, np.int64)[
+            self.rows], lens[self.rows])
+        self.hi = self.lo + lens[self.rows]
+        # text r's rows are first[r] to ends[r]
+        first = np.flatnonzero(np.r_[True, self.t[1:] != self.t[:-1]])
+        ends = np.r_[first[1:], len(self.t)]
+        run = np.repeat(np.arange(len(first)), ends - first)
+        self.shift = np.zeros(len(self.t), np.int64)
+        # (bytes, the rows they hold): the copied spans, then each text
+        # read in place; a row's position p lies at bytes[p + shift]
+        self.sources = []
+        self._n_at = {}  # a source's N positions, once
+        if not len(first):
+            return
+        span_lo = np.minimum.reduceat(self.lo, first)
+        span_hi = np.maximum.reduceat(self.hi, first)
+        copy = span_hi - span_lo <= SPAN_COPY_BYTES
+        span_t = self.t[first]
+        if copy.any():
+            size = np.where(copy, span_hi - span_lo, 0)
+            self.shift = (np.cumsum(size) - size - span_lo)[run]
+            self.sources.append((np.concatenate([
+                texts[i][a:z] for i, a, z in zip(
+                    span_t[copy].tolist(), span_lo[copy].tolist(),
+                    span_hi[copy].tolist())]),
+                np.flatnonzero(copy[run])))
+        for r in np.flatnonzero(~copy).tolist():
+            sel = np.arange(first[r], ends[r])
+            self.shift[sel] = -span_lo[r]
+            self.sources.append(
+                (texts[span_t[r]][span_lo[r] : span_hi[r]], sel))
+
+    def _forward(self, t, starts, lens):
+        """The forward start of ``lens`` bytes from ``starts`` of texts
+        ``t`` (read backwards with ``reverse``)."""
+        return self.text_lens[t] - starts - lens if self.reverse else starts
+
+    def windows(self, width: int) -> np.ndarray:
+        """(B, width) uint8: each row's bytes, then zeros (``lens`` <=
+        ``width``)."""
+        out = np.zeros((self.n_rows, width), np.uint8)
+        cols = np.arange(width)
+        for src, sel in self.sources:
+            for s in range(0, len(sel), GATHER_ROWS):
+                b = sel[s : s + GATHER_ROWS]
+                at = (self.hi[b, None] - 1 - cols if self.reverse
+                      else self.lo[b, None] + cols) + self.shift[b, None]
+                ok = cols < (self.hi[b] - self.lo[b])[:, None]
+                out[self.rows[b]] = np.where(ok, src[np.where(ok, at, 0)], 0)
+        return out
+
+    def n_counts(self, starts, ends) -> np.ndarray:
+        """The 'N'/'n' bytes at each row's positions ``starts[b]`` to
+        ``ends[b]`` (the rows' own coordinates, inside the row's bytes; an
+        empty range counts 0)."""
+        rows = self.rows
+        ln = np.maximum(np.asarray(ends, np.int64)[rows]
+                        - np.asarray(starts, np.int64)[rows], 0)
+        a = self._forward(self.t, np.asarray(starts, np.int64)[rows], ln)
+        a += self.shift
+        count = np.zeros(self.n_rows, np.int64)
+        for i, (src, sel) in enumerate(self.sources):
+            width = int(ln[sel].max())
+            if len(sel) * width * N_GATHER_COST < len(src):
+                cols = np.arange(width)
+                for s in range(0, len(sel), GATHER_ROWS):
+                    b = sel[s : s + GATHER_ROWS]
+                    ok = cols < ln[b, None]
+                    byte = src[np.where(ok, a[b, None] + cols, 0)]
+                    count[rows[b]] = np.count_nonzero(
+                        ok & ((byte | 0x20) == ord("n")), axis=1)
+                continue
+            if i not in self._n_at:
+                self._n_at[i] = np.flatnonzero((src | 0x20) == ord("n"))
+            n_at = self._n_at[i]
+            count[rows[sel]] = (np.searchsorted(n_at, a[sel] + ln[sel])
+                                - np.searchsorted(n_at, a[sel]))
+        return count
+
+
 def _fill_batch(
     profile: Profile,
-    pattern_codes: np.ndarray,
+    pattern_codes: np.ndarray,  # (B, m): each window's pattern
     wins: np.ndarray,  # (B, w) engine codes, right-padded
     alpha: float | None,
     max_overhang: int | None,
-) -> np.ndarray:
-    """Batched windowed DP fill: one vectorized pass over all B windows.
+) -> tuple[np.ndarray, np.ndarray]:
+    """Batched windowed DP fill: one vectorized pass over all B windows,
+    each against its own pattern (all of one length).
 
     The role of the reference's ``simd_fill`` (trace.rs:107-178): candidate
     windows are re-filled together so the fill cost amortizes over the
     batch instead of paying the per-row dispatch overhead per candidate.
     Right-padding is harmless — each candidate's walk only reads columns
     up to its own window length.
+
+    Returns ``E`` (m + 1, w + 1, B) int32, the cost matrices less their
+    column index (``D[b, j, i] = E[j, i, b] + i``), and the match mask
+    (m, w, B) bool. The candidates are the last axis, so that every step
+    is one operation over the batch: in this form a row is
+    ``E[j, i] = min(E[j-1, i-1] - match, E[j-1, i] + 1, E[j, i-1])``.
     """
     from .semantics import left_boundary_costs
 
     B, w = wins.shape
-    m = len(pattern_codes)
+    m = pattern_codes.shape[1]
     boundary = left_boundary_costs(m, alpha, max_overhang)
-    # (m, B*w) -> (B, m, w)
-    mm = (
-        profile.match_mask(pattern_codes, wins.reshape(-1))
-        .reshape(m, B, w)
-        .transpose(1, 0, 2)
-    )
-    D = np.zeros((B, m + 1, w + 1), dtype=np.int64)
-    D[:, :, 0] = boundary[None, :]
-    idx = np.arange(w + 1, dtype=np.int64)
-    base = np.empty((B, w + 1), dtype=np.int64)
+    wt = np.ascontiguousarray(wins.T)[None]  # (1, w, B)
+    pt = np.ascontiguousarray(pattern_codes.T)
+    E = np.empty((m + 1, w + 1, B), dtype=np.int32)
+    E[:, 0] = boundary[:, None]
+    E[0, 1:] = -np.arange(1, w + 1, dtype=np.int32)[:, None]
+    mm = np.empty((m, w, B), dtype=bool)
+    step = np.empty((w + 1, B), dtype=np.int32)
     for j in range(1, m + 1):
-        prev = D[:, j - 1]
-        base[:, 0] = boundary[j]
-        np.minimum(prev[:, :-1] + (1 - mm[:, j - 1]), prev[:, 1:] + 1,
-                   out=base[:, 1:])
-        D[:, j] = np.minimum.accumulate(base - idx, axis=1) + idx
-    return D, mm
+        prev, row = E[j - 1], E[j]
+        # the profile's test of pattern row j - 1 against every column:
+        # match_mask(p, t) is p[:, None] op t[None, :], here (1, w, B)
+        mm[j - 1] = profile.match_mask(pt[j - 1][None], wt)[0]
+        np.add(prev[1:], 1, out=step[1:])
+        np.minimum(step[1:], prev[:-1] - mm[j - 1], out=step[1:])
+        step[0] = boundary[j]
+        # the running minimum along the row: one strided accumulate for a
+        # few candidates, one operation a column over many
+        if B < ACCUMULATE_BELOW:
+            np.minimum.accumulate(step, axis=0, out=row)
+        else:
+            row[0] = step[0]
+            for i in range(1, w + 1):
+                np.minimum(row[i - 1], step[i], out=row[i])
+    return E, mm
+
+
+class Traced(NamedTuple):
+    """A traced batch, row for row: each match's cost, coordinates (in its
+    text as it was read) and CIGAR, and the ``TextSpans`` of the windows
+    it was traced in (for the N counts of the matched text)."""
+
+    cost: np.ndarray
+    text_start: np.ndarray
+    text_end: np.ndarray
+    pattern_start: np.ndarray
+    pattern_end: np.ndarray
+    cigars: list
+    spans: TextSpans
+
+
+def trace_cells_batch(
+    profile: Profile,
+    patterns,
+    pattern_codes,
+    texts,
+    text_lens: np.ndarray,
+    pids,
+    tids,
+    ends,
+    fill_len: int,
+    alpha: float | None,
+    max_overhang: int | None,
+    reverse: bool = False,
+    split: dict | None = None,
+) -> Traced:
+    """Re-align and trace the candidates of many patterns of one length
+    over many texts: candidate b is pattern ``pids[b]`` (``patterns`` and
+    ``pattern_codes`` are indexed by it) ending at ``ends[b]`` in text
+    ``tids[b]``, read backwards with ``reverse``.
+
+    Every window ``[end - fill_len, min(end, n))`` comes from one
+    ``TextSpans`` gather; the fill and the vectorised walk run over all of
+    them together, in chunks of at most ``FILL_BYTES`` of cost matrices.
+    ``split``, a dict, gets the seconds of the gather, the fill, the walk
+    and the CIGARs' build ("build"), and the windows' count."""
+    pids = np.asarray(pids, np.int64)
+    ends = np.asarray(ends, np.int64)
+    B = len(ends)
+    if not B:
+        none = np.zeros(0, np.int64)
+        return Traced(none, none, none, none, none, [],
+                      TextSpans(texts, text_lens, none, none, none))
+    t0 = time.perf_counter()
+    offsets = np.maximum(0, ends - fill_len)
+    wlens = np.minimum(ends, text_lens[np.asarray(tids, np.int64)]) - offsets
+    spans = TextSpans(texts, text_lens, tids, offsets, wlens, reverse)
+    raw = spans.windows(fill_len)
+    codes = profile.encode(raw)
+    codes[np.arange(fill_len) >= wlens[:, None]] = profile.pad_code
+    used, pidx = np.unique(pids, return_inverse=True)
+    pcodes = np.stack([pattern_codes[q] for q in used.tolist()])[pidx]
+    m = pcodes.shape[1]
+    t0 = _tick(split, "gather", t0, windows=B)
+    parts = []
+    # the fill's matrices and match mask, a candidate
+    step = max(1, FILL_BYTES // ((m + 1) * (fill_len + 1) * 4
+                                 + m * fill_len))
+    cols = np.arange(fill_len + 1)
+    for s in range(0, B, step):
+        c = slice(s, s + step)
+        E, mm = _fill_batch(profile, pcodes[c], codes[c], alpha, max_overhang)
+        t0 = _tick(split, "fill", t0)
+        i, total, pat_start, pat_end, ops, failed = _walk_batch(
+            E, mm, ends[c] - offsets[c], wlens[c], alpha, max_overhang)
+        if failed.any():
+            # exact per-candidate errors via the scalar walk, each on its
+            # own pattern and its own text's window
+            for b in (s + np.flatnonzero(failed)).tolist():
+                _walk(profile, patterns[pids[b]], raw[b, : wlens[b]],
+                      E[:, :, b - s] + cols, int(ends[b]), int(offsets[b]),
+                      int(wlens[b]), alpha, max_overhang)
+            raise TraceError("vectorized walk failed but scalar walk passed")
+        t0 = _tick(split, "walk", t0)
+        parts.append((i, total, pat_start, pat_end, _cigars(ops)))
+        t0 = _tick(split, "build", t0)
+    i, total, pat_start, pat_end = (np.concatenate([p[f] for p in parts])
+                                    for f in range(4))
+    return Traced(total, offsets + i, offsets + wlens, pat_start, pat_end,
+                  [c for p in parts for c in p[4]], spans)
 
 
 def trace_candidates_batch(
@@ -86,7 +328,8 @@ def trace_candidates_batch(
     alpha: float | None,
     max_overhang: int | None,
 ) -> list[Match]:
-    """Re-align and trace a batch of candidate end positions in ONE fill.
+    """Re-align and trace a batch of candidate end positions of one pattern
+    in one text, in ONE fill (``trace_cells_batch`` with one cell).
 
     The reference's ``process_matches`` batches LANES candidates per
     ``simd_fill`` (search.rs:1372-1689, trace.rs:107-178); here the batch is
@@ -96,71 +339,61 @@ def trace_candidates_batch(
     """
     if not ends:
         return []
-    m = len(pattern)
-    n = len(text)
-    w = fill_len
-    B = len(ends)
-    wins = np.full((B, w), profile.pad_code, dtype=np.uint8)
-    offsets = []
-    wlens = []
-    for b, end_pos in enumerate(ends):
-        offset = max(0, end_pos - fill_len)
-        win_end = min(end_pos, n)
-        wl = win_end - offset
-        # encode per-window: encoding the whole text here would cost
-        # O(n) per (pattern, text) pair at genome scale
-        wins[b, :wl] = profile.encode(text[offset:win_end])
-        offsets.append(offset)
-        wlens.append(wl)
-    D, mm = _fill_batch(profile, pattern_codes, wins, alpha, max_overhang)
-    return _walk_batch(
-        profile, pattern, text, D, mm, ends, offsets, wlens, alpha,
-        max_overhang,
-    )
+    text = as_bytes_array(text)
+    zeros = np.zeros(len(ends), np.int64)
+    tr = trace_cells_batch(profile, [pattern], [pattern_codes], [text],
+                           np.array([len(text)], np.int64), zeros, zeros,
+                           ends, fill_len, alpha, max_overhang)
+    return [
+        Match(pattern_idx=0, text_idx=0, cost=c, text_start=ts, text_end=te,
+              pattern_start=ps, pattern_end=pe, strand=Strand.FWD, cigar=cg)
+        for c, ts, te, ps, pe, cg in zip(
+            tr.cost.tolist(), tr.text_start.tolist(), tr.text_end.tolist(),
+            tr.pattern_start.tolist(), tr.pattern_end.tolist(), tr.cigars)
+    ]
 
 
 def _walk_batch(
-    profile: Profile,
-    pattern: np.ndarray,
-    text: np.ndarray,
-    D: np.ndarray,  # (B, m+1, w+1) windowed cost matrices
-    mm: np.ndarray,  # (B, m, w) match mask (pattern row x window col)
-    ends: list[int],
-    offsets: list[int],
-    wlens: list[int],
+    E: np.ndarray,  # (m+1, w+1, B) cost matrices less their column index
+    mm: np.ndarray,  # (m, w, B) match mask (pattern row x window col)
+    rel_ends: np.ndarray,  # each end position less its window's offset
+    wlens: np.ndarray,
     alpha: float | None,
     max_overhang: int | None,
-) -> list[Match]:
+):
     """Vectorized greedy walks: ALL candidates step together.
 
     Each iteration advances every still-active candidate by one op,
     chosen with the reference's fixed preference (=, X, D, I —
     trace.rs:338-365) from four vectorized matrix gathers; op codes are
-    recorded per step and run-length-encoded into Cigars at the end.
-    Replaces the per-candidate Python walk that cost ~44 us/candidate
-    (is_match + push dominating) — the walk itself is now O(path length)
-    numpy passes over the whole batch.
+    recorded per step, in walk order. Replaces the per-candidate Python
+    walk that cost ~44 us/candidate (is_match + push dominating) — the
+    walk itself is now O(path length) numpy passes over the whole batch.
+    ``E`` and ``mm`` are ``_fill_batch``'s.
+
+    Returns each candidate's text start in its window, total cost, pattern
+    start and end, the (B, steps) int8 ops (0-3: =, X, D, I; -1 past the
+    walk's end) and where the walk failed (no consistent step, or cost
+    left at its end).
     """
     from .semantics import overshoot_costs_vec
 
-    B = len(ends)
-    m = len(pattern)
-    w = D.shape[2] - 1
-    stride = w + 1
+    m = E.shape[0] - 1
+    w = E.shape[1] - 1
+    B = E.shape[2]
     ar = np.arange(B)
-    Dv = D.reshape(B, -1)
-    mmv = mm.reshape(B, -1) if m else np.zeros((B, 0), np.uint8)
-    ends_a = np.asarray(ends, dtype=np.int64)
-    off_a = np.asarray(offsets, dtype=np.int64)
+    Ev = E.reshape(-1)
+    mmv = mm.reshape(-1)
     wl_a = np.asarray(wlens, dtype=np.int64)
 
+
     # end overshoot: walk straight back along the virtual 'N' diagonal
-    i = ends_a - off_a
+    i = np.asarray(rel_ends, dtype=np.int64)
     over = np.maximum(i - wl_a, 0)
     pat_end = m - over
     i = i - over
     j = np.full(B, m, dtype=np.int64) - over
-    g = Dv[ar, j * stride + i]
+    g = Ev[(j * (w + 1) + i) * B + ar] + i  # D[b, j[b], i[b]]
     total = g + overshoot_costs_vec(alpha, over)
     pat_start = np.zeros(B, dtype=np.int64)
 
@@ -193,87 +426,64 @@ def _walk_batch(
                 act = act & ~stop0
                 if not act.any():
                     break
-        jm1 = np.maximum(j - 1, 0)
-        im1 = np.maximum(i - 1, 0)
-        d_diag = Dv[ar, jm1 * stride + im1]
-        d_left = Dv[ar, j * stride + im1]
-        d_up = Dv[ar, jm1 * stride + i]
-        mat = mmv[ar, jm1 * w + im1] != 0 if m and w else np.zeros(B, bool)
+        # E at (j, i) and its three neighbours, compared with g - i: D is
+        # E plus the column, so D[j-1, i-1] == g is E == g - i + 1. A
+        # candidate at i = 0 or j = 0 reads a wrapped index, which its
+        # masks ignore
+        at = (j * (w + 1) + i) * B + ar
+        gi = g - i
+        e_diag = Ev.take(at - (w + 2) * B, mode="wrap")
+        mat = (mmv.take(at - (j + w + 1) * B, mode="wrap") if m and w
+               else np.zeros(B, bool))
         can_i = i > 0
-        is_m = act & can_i & (d_diag == g) & mat
-        g1 = g - 1
+        is_m = act & can_i & (e_diag == gi + 1) & mat
         rest = act & ~is_m
-        is_s = rest & can_i & (d_diag == g1)
+        is_s = rest & can_i & (e_diag == gi)
         rest = rest & ~is_s
-        is_d = rest & can_i & (d_left == g1)
+        is_d = rest & can_i & (Ev.take(at - B, mode="wrap") == gi)
         rest = rest & ~is_d
-        is_i = rest & (d_up == g1)
+        is_i = rest & (Ev.take(at - (w + 1) * B, mode="wrap") == gi - 1)
         newbad = rest & ~is_i
         if newbad.any():
             # defer: re-run those through the scalar walk for the exact
             # reference-style diagnostics
             bad |= newbad
             act = act & ~newbad
-        ops[:, step] = np.select(
-            [is_m, is_s, is_d, is_i], [0, 1, 2, 3], default=-1
-        ).astype(np.int8)
-        g = np.where(is_m | ~act, g, g1)
+        ops[:, step] = np.where(is_m | is_s | is_d | is_i,
+                                is_s + 2 * is_d + 3 * is_i, -1)
+        g = np.where(is_m | ~act, g, g - 1)
         j = j - (is_m | is_s | is_i)
         i = i - (is_m | is_s | is_d)
         act = act & (j > 0)
         step += 1
+    return i, total, pat_start, pat_end, ops[:, :step], bad | (g != 0)
 
-    if bad.any() or (g[~bad] != 0).any():
-        # exact per-candidate errors via the scalar walk
-        for b in np.nonzero(bad | (g != 0))[0]:
-            wtext = text[offsets[b] : offsets[b] + wlens[b]]
-            _walk(
-                profile, pattern, wtext, D[b], ends[b], offsets[b],
-                wlens[b], alpha, max_overhang,
-            )
-        raise TraceError("vectorized walk failed but scalar walk passed")
 
-    # run-length encode each candidate's (reversed) op sequence into a
-    # Cigar. Valid ops form a contiguous prefix of each row; tag values
-    # with the row id so runs cannot span rows, then one np.nonzero pass
-    # yields every (row, op, length) run.
-    opsl = ops[:, :step] if step else ops[:, :0]
-    out: list[Match] = []
-    if step:
-        tagged = opsl.astype(np.int64) + (ar[:, None] << 8)
-        flat = tagged.reshape(-1)
-        chg = np.ones(flat.shape[0], dtype=bool)
-        chg[1:] = flat[1:] != flat[:-1]
-        starts = np.nonzero(chg)[0]
-        lens = np.diff(np.append(starts, flat.shape[0]))
-        rvals = opsl.reshape(-1)[starts]
-        keep = rvals >= 0
-        starts, lens, rvals = starts[keep], lens[keep], rvals[keep]
-        rows = starts // max(step, 1)
-        # runs are emitted in walk order (backwards); Cigar reads forward
-        op_chars = (MATCH, SUB, DEL, INS)
-        per_row: list[list[tuple[str, int]]] = [[] for _ in range(B)]
-        for r, v, ln in zip(rows.tolist(), rvals.tolist(), lens.tolist()):
-            per_row[r].append((op_chars[v], ln))
-        for b in range(B):
-            per_row[b].reverse()
-    else:
-        per_row = [[] for _ in range(B)]
-    for b in range(B):
-        out.append(
-            Match(
-                pattern_idx=0,
-                text_idx=0,
-                cost=int(total[b]),
-                text_start=int(off_a[b] + i[b]),
-                text_end=int(off_a[b] + wl_a[b]),
-                pattern_start=int(pat_start[b]),
-                pattern_end=int(pat_end[b]),
-                strand=Strand.FWD,
-                cigar=Cigar(ops=per_row[b]),
-            )
-        )
-    return out
+def _cigars(ops: np.ndarray) -> list[Cigar]:
+    """Each row's ops (walk order, as ``_walk_batch`` gives them) as a
+    Cigar read forward."""
+    B, step = ops.shape
+    # each row's valid ops are a prefix; read it backwards (forward along
+    # the pattern), -1 past it
+    n_ops = np.count_nonzero(ops >= 0, axis=1)
+    back = n_ops[:, None] - 1 - np.arange(step)
+    fwd = np.where(back >= 0,
+                   np.take_along_axis(ops, np.maximum(back, 0), axis=1), -1)
+    # run-length encode every row at once: values tagged with the row id
+    # so runs cannot span rows, then one np.nonzero pass yields every
+    # (row, op, length) run, rows in order
+    flat = (fwd.astype(np.int64) + (np.arange(B)[:, None] << 8)).reshape(-1)
+    chg = np.ones(flat.shape[0], dtype=bool)
+    chg[1:] = flat[1:] != flat[:-1]
+    starts = np.flatnonzero(chg)
+    lens = np.diff(np.append(starts, flat.shape[0]))
+    vals = fwd.reshape(-1)[starts]
+    keep = vals >= 0
+    starts, lens, vals = starts[keep], lens[keep], vals[keep]
+    runs = list(zip(np.array([MATCH, SUB, DEL, INS])[vals].tolist(),
+                    lens.tolist()))
+    cut = np.searchsorted(starts // max(step, 1), np.arange(B + 1)).tolist()
+    return [Cigar(ops=runs[a:z]) for a, z in zip(cut[:-1], cut[1:])]
 
 
 def trace_candidate(

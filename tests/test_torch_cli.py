@@ -105,6 +105,29 @@ def files(tmp_path_factory):
     _write_fasta(d / "genome.fa",
                  [("chr1", genome), ("chr2", dna(250) + other)])
     (d / "guides.txt").write_text(f"{guide.decode()}\n{other.decode()}\n")
+    # N runs at the contigs' ends and inside them, some over a guide's
+    # copy, with PAM sites on both strands
+    rc = iupac.reverse_complement
+    n_run = lambda n: b"N" * n  # noqa: E731
+    _write_fasta(d / "genome_n.fa", [
+        ("chrN1", n_run(12) + guide + dna(60) + n_run(40) + dna(30)
+         + guide20[:14] + n_run(6) + b"TGG" + dna(50)
+         + bytes(rc(_mutate(rng, guide, 1))) + n_run(25)),
+        ("chrN2", bytes(rc(guide)) + dna(40) + n_run(30) + other[:20]
+         + b"CGG" + n_run(18) + bytes(rc(other))[:17] + n_run(6)),
+        ("chrN3", n_run(5) + bytes(rc(guide20 + b"TCA")) + dna(30)
+         + _mutate(rng, other, 1) + n_run(9)),
+    ])
+    # a guide shorter than --pam-length 26 (so its whole self is the PAM,
+    # checked at the start of the last 26 bytes), periodic so that runs of
+    # its period pass, with a copy at a contig's start that cannot
+    short = (b"ACG" * 8)[:23]
+    (d / "guide_short.txt").write_text(short.decode() + "\n")
+    _write_fasta(d / "genome_short.fa", [
+        ("chrS1", short + dna(40) + b"ACG" * 14 + dna(30)
+         + bytes(rc(b"ACG" * 14)) + dna(20)),
+        ("chrS2", dna(20) + b"ACG" * 10 + dna(15)),
+    ])
 
     lines = [b"hello world", b"nothing here", b"healo world again",
              b"HELLO WORLD", b"hello  world, twice hello world"]
@@ -176,6 +199,16 @@ CASES = {
                               "--no-rc", "--max-n-frac", "0.2",
                               "--batch-bytes", "300", "{d}/genome.fa"],
                              None),
+    "crispr_n_runs": (["crispr", "-g", "{d}/guides.txt", "-k", "2",
+                       "--max-n-frac", "0.2", "{d}/genome_n.fa"], None),
+    "crispr_n_runs_pam_edits": (["crispr", "-g", "{d}/guides.txt", "-k",
+                                 "1", "--allow-pam-edits", "--max-n-frac",
+                                 "0.3", "{d}/genome_n.fa"], None),
+    "crispr_guide_shorter_than_pam": (["crispr", "-g",
+                                       "{d}/guide_short.txt", "-k", "1",
+                                       "--pam-length", "26", "--max-n-frac",
+                                       "0.2",
+                                       "{d}/genome_short.fa"], None),
     "agrep": (["agrep", "hello world", "1", "{d}/lines.txt"], None),
     "agrep_context": (["agrep", "hello world", "2", "-C", "3",
                        "{d}/lines.txt", "{d}/more.txt"], None),

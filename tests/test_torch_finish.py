@@ -1,0 +1,370 @@
+"""The Searcher's host finish as arrays: the filters, the best-match
+choice and the traceback over all candidates of a strand at once, against
+``sassy_tpu.Searcher(engine="xla")``, Match for Match in the same order
+with CIGARs; the window gather, the fill's chunking and a failed walk's
+diagnostics."""
+
+import numpy as np
+import pytest
+
+from sassy_tpu import Searcher as RefSearcher
+from sassy_tpu_torch import Searcher, cli, nfilter, profiles, traceback
+from sassy_tpu_torch.matchrec import Strand
+
+BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _key(m):
+    return m.sort_key(), m.cigar.to_string()
+
+
+def _same(got, want):
+    assert len(got) == len(want), (len(got), len(want), got[:3], want[:3])
+    assert [_key(m) for m in got] == [_key(m) for m in want]
+
+
+def _inputs(profile: str, kind: str = ""):
+    """Seeded patterns of two lengths (24 and 16 bp; with IUPAC codes for
+    the iupac profile) and reads of 60-260 bp holding copies of them with
+    up to two edits, forward or reverse-complemented, some hanging off a
+    read's end, and runs of N inside reads, at their ends and over copies.
+    ``kind`` "sparse": 240 reads of which 6 hold a copy; "n_runs": three
+    runs of 1-20 N next to or over each copy, so that the N filters
+    decide many candidates."""
+    rng = np.random.default_rng(16)
+    prof = profiles.get_profile(profile)
+    pats = [rng.choice(BASES, 24) for _ in range(3)]
+    pats += [rng.choice(BASES, 16) for _ in range(2)]
+    if profile == "iupac":
+        pats[1][[5, 17]] = (ord("R"), ord("Y"))
+        pats[3][8] = ord("N")
+    n_reads = 240 if kind == "sparse" else 36
+    reads = []
+    for i in range(n_reads):
+        body = rng.choice(BASES, int(rng.integers(60, 261)))
+        n = len(body)
+        if kind == "sparse" and i % 40 != 7:
+            reads.append(body)
+            continue
+        p = pats[i % len(pats)].copy()
+        for _ in range(i % 3):
+            p[int(rng.integers(0, len(p)))] = BASES[int(rng.integers(0, 4))]
+        if i % 2:
+            p = np.frombuffer(prof.reverse_complement(p), np.uint8)
+        where = i % 6
+        if where == 4:  # hangs off the read's start
+            at = 5 - len(p)
+            body[: len(p) - 5] = p[5:]
+        elif where == 5:  # hangs off the read's end
+            at = n - (len(p) - 4)
+            body[at:] = p[: len(p) - 4]
+        else:
+            at = int(rng.integers(0, n - len(p)))
+            body[at : at + len(p)] = p
+        if kind == "n_runs":
+            for _ in range(3):
+                ln = int(rng.integers(1, 21))
+                s = min(max(0, at + int(rng.integers(-ln, len(p)))), n - ln)
+                body[s : s + ln] = ord("N") if ln % 2 else ord("n")
+        if i % 4 == 1:  # an N run inside, over part of a copy
+            s = int(rng.integers(0, n - 12))
+            body[s : s + 12] = ord("N")
+        if i % 9 == 2:  # N runs at both ends
+            body[:7] = ord("N")
+            body[-9:] = ord("n")
+        reads.append(body)
+    return pats, reads
+
+
+def _keep_some(pattern, text_up_to_end, strand):
+    return (len(text_up_to_end) + len(pattern) + int(strand)) % 3 != 0
+
+
+#: name -> (profile, k, Searcher options, entry point, read set). The
+#: overhang cases search the 24 bp patterns only: the reference's batched
+#: engine takes overhang on equal lengths (others loop over pairs)
+CASES = {
+    "dna": ("dna", 2, {}, "search_many", ""),
+    "dna_fwd": ("dna", 2, {"rc": False}, "search_many", ""),
+    "iupac": ("iupac", 3, {}, "search_many", ""),
+    "iupac_fwd_texts": ("iupac", 3, {"rc": False}, "search_texts", ""),
+    "dna_texts": ("dna", 2, {}, "search_texts", ""),
+    "all_minima": ("iupac", 3, {}, "all_minima", ""),
+    "all_minima_filter_fn": ("dna", 2, {}, "all_minima_filter", ""),
+    "filter_fn": ("iupac", 3, {}, "filter", ""),
+    "only_best": ("iupac", 3, {"only_best": True}, "search_many", ""),
+    "only_best_all_minima": ("dna", 2, {"only_best": True}, "all_minima",
+                             ""),
+    "without_trace": ("iupac", 3, {"without_trace": True}, "search_many",
+                      ""),
+    "without_trace_fwd": ("dna", 2, {"without_trace": True, "rc": False},
+                          "all_minima", ""),
+    "max_n_frac": ("iupac", 3, {"max_n_frac": 0.1}, "search_many", ""),
+    "max_n_frac_all_minima": ("iupac", 3, {"max_n_frac": 0.25},
+                              "all_minima", ""),
+    "max_n_frac_without_trace": ("iupac", 3, {"max_n_frac": 0.1,
+                                              "without_trace": True},
+                                 "all_minima", ""),
+    "alpha": ("iupac", 3, {"alpha": 0.5}, "search_many", ""),
+    "alpha_max_overhang": ("iupac", 3, {"alpha": 0.5, "max_overhang": 3},
+                           "all_minima", ""),
+    "alpha_only_best_n_frac": ("iupac", 3, {"alpha": 0.5, "only_best": True,
+                                            "max_n_frac": 0.2},
+                               "search_texts", ""),
+    "n_runs_all_minima": ("iupac", 3, {"max_n_frac": 0.4}, "all_minima",
+                          "n_runs"),
+    "n_runs_only_best": ("iupac", 3, {"max_n_frac": 0.5, "only_best": True},
+                         "search_many", "n_runs"),
+    "sparse": ("dna", 2, {}, "search_many", "sparse"),
+    "sparse_only_best": ("iupac", 3, {"only_best": True}, "filter", "sparse"),
+}
+
+
+def _searcher(cls, profile: str, opts: dict, **kw):
+    s = cls(profile, rc=opts.get("rc", True), alpha=opts.get("alpha"), **kw)
+    if "max_overhang" in opts:
+        s.with_max_overhang(opts["max_overhang"])
+    if opts.get("only_best"):
+        s.only_best_match()
+    if opts.get("without_trace"):
+        s.without_trace()
+    if "max_n_frac" in opts:
+        s.with_max_n_frac(opts["max_n_frac"])
+    return s
+
+
+def _call(s, entry: str, pats, reads, k: int):
+    if entry == "search_many":
+        return s.search_many(pats, reads, k)
+    if entry == "search_texts":
+        return s.search_texts(pats[0], reads, k)
+    if entry == "all_minima":
+        return s.search_many_with_fn(pats, reads, k, True, None)
+    return s.search_many_with_fn(pats, reads, k, entry == "all_minima_filter",
+                                 _keep_some)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_finish_equals_reference(case):
+    profile, k, opts, entry, kind = CASES[case]
+    pats, reads = _inputs(profile, kind)
+    if "alpha" in opts:
+        pats = pats[:3]
+    got = _call(_searcher(Searcher, profile, opts, device="cpu"), entry,
+                pats, reads, k)
+    assert got, "the case should give matches"
+    want = _call(_searcher(RefSearcher, profile, opts, engine="xla"), entry,
+                 pats, reads, k)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("opts", [{}, {"max_n_frac": 0.2},
+                                  {"only_best": True, "alpha": 0.5}])
+def test_single_path_is_the_same_finish(opts):
+    """``search`` (the single engine) over each read equals the batched
+    finish's matches of that read, text index aside."""
+    pats, reads = _inputs("iupac")
+    s = _searcher(Searcher, "iupac", opts, device="cpu")
+    many = s.search_many(pats[:1], reads[:12], 3)
+    single = []
+    for ti, read in enumerate(reads[:12]):
+        for m in s.search(pats[0], read, 3):
+            m.text_idx = ti
+            single.append(m)
+    assert many and [_key(m) for m in single] == [_key(m) for m in many]
+
+
+def _naive_windows(texts, tids, starts, lens, width, reverse):
+    out = np.zeros((len(tids), width), np.uint8)
+    for b, (t, s, n) in enumerate(zip(tids, starts, lens)):
+        src = texts[t][::-1] if reverse else texts[t]
+        out[b, :n] = src[s : s + n]
+    return out
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("copy_cap", [1 << 16, 40])
+@pytest.mark.parametrize("n_gather_cost", [0, 1 << 30])
+def test_text_spans_equal_slicing(reverse, copy_cap, n_gather_cost,
+                                  monkeypatch):
+    """Each row is its text's slice (of the text read backwards with
+    ``reverse``), and the N count of any range inside it that slice's:
+    through the copied spans, and in place where a text's span passes the
+    cap; counted by a gather (cost 0) or in the N positions (a cost no
+    source passes); rows of length 0 and blocks of rows."""
+    monkeypatch.setattr(traceback, "SPAN_COPY_BYTES", copy_cap)
+    monkeypatch.setattr(traceback, "N_GATHER_COST", n_gather_cost)
+    monkeypatch.setattr(traceback, "GATHER_ROWS", 7)
+    rng = np.random.default_rng(5)
+    texts = [rng.choice(np.frombuffer(b"ACGNn", np.uint8), int(n))
+             for n in (0, 5, 90, 300, 31)]
+    lens_t = np.array([len(t) for t in texts])
+    tids = rng.choice(np.flatnonzero(lens_t), 60)
+    width = 12
+    lens = rng.integers(0, width + 1, 60) % (lens_t[tids] + 1)
+    starts = rng.integers(0, lens_t[tids] - lens + 1)
+    spans = traceback.TextSpans(texts, lens_t, tids, starts, lens, reverse)
+    want = _naive_windows(texts, tids, starts, lens, width, reverse)
+    np.testing.assert_array_equal(spans.windows(width), want)
+    a = starts + rng.integers(0, lens + 1) // 2
+    z = np.maximum(a, starts + lens - rng.integers(0, lens + 1) // 2)
+    cols = np.arange(width)
+    is_n = (want == ord("N")) | (want == ord("n"))
+    inside = ((cols >= (a - starts)[:, None])
+              & (cols < (z - starts)[:, None]))
+    np.testing.assert_array_equal(spans.n_counts(a, z),
+                                  np.count_nonzero(is_n & inside, axis=1))
+
+
+def test_fill_chunks_give_the_same_matches(monkeypatch):
+    """A fill capped at a few candidates' matrices traces in chunks and
+    gives the same matches as one fill."""
+    pats, reads = _inputs("iupac")
+    s = Searcher("iupac", rc=True, device="cpu")
+    want = s.search_many_with_fn(pats, reads, 3, True, None)
+    calls = []
+    fill = traceback._fill_batch
+
+    def counted(profile, pcodes, wins, *a):
+        calls.append(len(wins))
+        return fill(profile, pcodes, wins, *a)
+
+    def per_window(m, w):  # its int32 cost matrix and its match mask
+        return (m + 1) * (w + 1) * 4 + m * w
+
+    monkeypatch.setattr(traceback, "_fill_batch", counted)
+    monkeypatch.setattr(traceback, "FILL_BYTES", 3 * per_window(24, 27))
+    got = s.search_many_with_fn(pats, reads, 3, True, None)
+    # 3 windows of the 24 bp patterns, 6 of the 16 bp ones
+    assert 3 * per_window(24, 27) // per_window(16, 19) == 6
+    assert max(calls) == 6 and len(calls) > 10
+    _same(got, want)
+
+
+@pytest.mark.parametrize("alpha", [None, 0.5])
+def test_fill_routes_agree(alpha, monkeypatch):
+    """The fill's running minimum, one accumulate (few candidates) or one
+    operation a column (many), gives the same matrices and masks."""
+    prof = profiles.Iupac()
+    rng = np.random.default_rng(11)
+    codes = prof.encode(rng.choice(np.frombuffer(b"ACGTNRY", np.uint8),
+                                   (50, 31)))
+    pcodes = prof.encode(rng.choice(np.frombuffer(b"ACGTR", np.uint8),
+                                    (50, 24)))
+    got = []
+    for below in (0, 1 << 30):
+        monkeypatch.setattr(traceback, "ACCUMULATE_BELOW", below)
+        got.append(traceback._fill_batch(prof, pcodes, codes, alpha, None))
+    for a, b in zip(*got):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_finish_split_counts_the_steps():
+    pats, reads = _inputs("dna")
+    s = Searcher("dna", rc=True, device="cpu").with_max_n_frac(0.2)
+    ms = s.search_many(pats, reads, 2)
+    sp = s.last_finish_split
+    assert sp["matches"] == len(ms) > 0
+    assert sp["candidates"] >= sp["kept"] >= sp["windows"] >= len(ms)
+    assert all(sp[key] >= 0 for key in ("filters", "gather", "fill", "walk",
+                                        "build"))
+
+
+def test_failed_walk_names_the_candidates_own_text(monkeypatch):
+    """A walk that finds no consistent step is walked again on its own
+    text's window: the error names that window's byte. Both texts have a
+    candidate; only the second's window (the one that starts with G) gets
+    a cost no step reaches."""
+    pat = b"ACGTACGTTGCA"
+    texts = [b"TTTT" + pat + b"TTTT", b"GGGG" + pat[:-1] + b"Z" + b"GG"]
+    fill = traceback._fill_batch
+
+    def corrupt(profile, pcodes, wins, *a):
+        E, mm = fill(profile, pcodes, wins, *a)  # E: (m + 1, w + 1, B)
+        last = E[-1]
+        last[:, wins[:, 0] == profile.encode(b"G")[0]] += 50
+        return E, mm
+
+    monkeypatch.setattr(traceback, "_fill_batch", corrupt)
+    s = Searcher("dna", rc=False, device="cpu")
+    with pytest.raises(traceback.TraceError,
+                       match="text contains non-dna character 'Z'"):
+        s.search_many([pat], texts, 1)
+
+
+def _pam_check(prof, pam, pam_compl, pam_length, text_up_to_end,
+               strand) -> bool:
+    """The crispr PAM check one candidate at a time, byte by byte (the
+    JAX CLI's filter)."""
+    if len(text_up_to_end) < pam_length:
+        return False
+    tail = text_up_to_end[-pam_length:]
+    ref = pam if strand is Strand.FWD else pam_compl
+    return all(prof.is_match(int(a), int(b)) for a, b in zip(tail, ref))
+
+
+@pytest.mark.parametrize("head,pam,pam_length", [
+    (b"TGG", b"NGG", 3), (b"TCC", b"NGG", 3), (b"GGA", b"NGG", 3),
+    # a guide shorter than --pam-length: its whole self is the PAM, at
+    # the start of the last pam_length bytes
+    (b"GGA", b"GG", 3), (b"TGG", b"NGG", 5), (b"TGG", b"NGG", 0),
+])
+def test_pam_filter_equals_the_byte_check(head, pam, pam_length):
+    """The CLI's PAM filter, through ``mask_ends`` over a text's ends and
+    through its call, equals the byte-by-byte check on each
+    ``text[:end]``, on both strands: ends before the PAM fits, at its
+    first fit and past the text included."""
+    prof = profiles.Iupac()
+    pam = np.frombuffer(pam, np.uint8)
+    compl = np.frombuffer(prof.complement(pam), np.uint8)
+    f = cli._PamFilter(prof, pam, compl, pam_length)
+    rng = np.random.default_rng(3)
+    text = rng.choice(np.frombuffer(b"ACGTNRY", np.uint8), 400)
+    text[:3] = np.frombuffer(head, np.uint8)
+    ends = np.arange(0, 405)
+    for strand in (Strand.FWD, Strand.RC):
+        want = [_pam_check(prof, pam, compl, pam_length,
+                           text[: min(e, len(text))], strand) for e in ends]
+        np.testing.assert_array_equal(f.mask_ends(text, ends, strand), want)
+        assert [f(None, text[:e], strand) for e in ends] == want
+        # with --pam-length 0 the tail is the text's start
+        assert sum(want) > (10 if pam_length else 1)
+    empty = _pam_check(prof, pam, compl, pam_length, text[:0], Strand.FWD)
+    assert list(f.mask_ends(text[:0], np.array([0, 3]), Strand.FWD)) == [
+        empty, empty]
+
+
+def test_n_fraction_ok_equals_check_n_fraction():
+    """The array N filter equals ``nfilter.check_n_fraction`` region by
+    region, bit for bit: regions at and around the float32 threshold,
+    empty ones, past the text's end, with and without a denominator."""
+    rng = np.random.default_rng(7)
+    text = rng.choice(np.frombuffer(b"ACGTNn", np.uint8), 3000)
+    text[1000:1400] = ord("N")
+    lo = rng.integers(0, 3050, 4000)
+    hi = lo + rng.integers(-3, 40, 4000)
+    # each region clipped to the text, as the finish gives it
+    a = np.minimum(lo, len(text))
+    z = np.maximum(a, np.minimum(hi, len(text)))
+    count = traceback.TextSpans([text], np.array([len(text)]),
+                                np.zeros(4000, np.int64), a,
+                                z - a).n_counts(a, z)
+    for frac in (0.0, 0.1, 0.25, 1 / 3, 0.5):
+        for denom in (None, 23):
+            got = nfilter.n_fraction_ok(count, np.minimum(hi, len(text)) - lo,
+                                        frac, denom)
+            want = [nfilter.check_n_fraction(text, int(s), int(e), frac,
+                                             denom)
+                    for s, e in zip(lo, hi)]
+            np.testing.assert_array_equal(got, want)
+
+
+def test_is_match_bytes_equals_is_match():
+    """The IUPAC profile's byte test over arrays, which the PAM filter
+    uses, equals ``is_match`` on every pair of bytes."""
+    prof = profiles.Iupac()
+    every = np.arange(256, dtype=np.uint8)
+    want = np.array([[prof.is_match(a, b) for b in range(256)]
+                     for a in range(256)])
+    np.testing.assert_array_equal(
+        prof.is_match_bytes(every[:, None], every[None, :]), want)
