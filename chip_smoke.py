@@ -180,14 +180,16 @@ against their plain versions, timed beside their bounds. Phases:
    broken one, then with --allow-pam-edits the broken ones too; (b)
    search at evals/configs/nanopore.toml's shape, 96 barcodes of 24 bp at
    k=3 over 6,400 reads of 10 kbp with one copy planted per read, every
-   copy in the TSV; the runs of (a) and (b) with their wall split into
-   dispatch, waits for the device, the host finish (filters, window
-   gather, fill, walk, Match build), and the device's busy share; (c) search, search --sam, search --overhang 0.5,
+   copy in the TSV, in one batched call a group of units (32 MiB of
+   records) and pattern batch, no more; the runs of (a) and (b) with
+   their batched calls and wall split into dispatch, waits for the
+   device, the host finish (filters, window gather, fill, walk, Match
+   build), and the device's busy share; (c) search, search --sam, search --overhang 0.5,
    grep, filter -v and agrep on a 32-read subset (and 1 MB of printable
    text), --device cuda and --device cpu equal byte for byte on stdout
-   and stderr; (d) (b) with --resume, killed after
-   its fourth unit (exit 130) and rerun: the TSV equals an uninterrupted
-   run's; (e) test;
+   and stderr; (d) (b) with --resume at 4 MiB units, killed after
+   its fourth unit, inside the first group (exit 130), and rerun: the TSV
+   equals an uninterrupted run's; (e) test;
 18. GenomeScan over (a)'s genome with one guide, 2^24-char segments with
    an m + k halo, checkpointed: its rows equal Searcher.search over each
    whole contig, and with the Searcher kept alive the device memory after
@@ -2750,7 +2752,9 @@ def write_fasta(path: Path, names, seqs, width: int = 0) -> None:
 
 @contextlib.contextmanager
 def split_times(acc: dict):
-    """Time one CLI run's parts into ``acc``: the TextSet and dispatch
+    """Time one CLI run's parts into ``acc``: the batched calls
+    (``Searcher._search_many_batched_async``) and the groups of units
+    search / grep / filter made (``cli._groups``), the TextSet and dispatch
     calls, the host's waits for the dispatch thread (the engines'
     finish()), the Searchers' host finish (each finish's
     ``last_finish_split``, summed: the filters, window gather, fill, walk
@@ -2760,10 +2764,11 @@ def split_times(acc: dict):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sassy_tpu_torch import search
+    from sassy_tpu_torch import cli, search
     from sassy_tpu_torch.ops import batch
 
-    acc.update(dict.fromkeys(("dispatch", "wait"), 0.0), finish={})
+    acc.update(dict.fromkeys(("dispatch", "wait"), 0.0), finish={},
+               calls=0, groups=0)
     restore = []
 
     def timed(owner, name, key, on_result=None):
@@ -2803,6 +2808,23 @@ def split_times(acc: dict):
 
     add_split("_finish_many_batched")
     add_split("_search_handle_rc")
+
+    def counted(owner, name, key, gen=False):
+        fn = getattr(owner, name)
+        restore.append((owner, name, fn))
+
+        def call(*a, **kw):
+            acc[key] += 1
+            return fn(*a, **kw)
+
+        def groups(*a, **kw):  # the reader thread's grouping
+            for g in fn(*a, **kw):
+                acc[key] += 1
+                yield g
+        setattr(owner, name, groups if gen else call)
+
+    counted(search.Searcher, "_search_many_batched_async", "calls")
+    counted(cli, "_groups", "groups", gen=True)
     prof = profile(activities=[ProfilerActivity.CUDA])
     try:
         with prof:
@@ -2939,9 +2961,11 @@ def log_split(what: str, s: dict, parsed: tuple[int, float]) -> None:
     share = (f"device busy {busy:.3f} s = {busy / wall:.2%} of the wall, "
              f"idle {1 - busy / wall:.2%}" if busy else
              "device busy time not measured (the profiler saw no kernel)")
+    groups = f" over {s['groups']} groups" if s["groups"] else ""
     log(f"{what}: split (profiled): wall {wall:.3f} s from the CLI's start; "
-        f"the parse of the {parsed[0]} records alone {parsed[1]:.3f} s (on "
-        f"the reader thread in the run); TextSet and dispatch calls "
+        f"{s['calls']} batched calls{groups}; the parse of the {parsed[0]} "
+        f"records alone {parsed[1]:.3f} s (on the reader thread in the "
+        f"run); TextSet and dispatch calls "
         f"{s['dispatch']:.3f} s, host waits for the dispatch thread "
         f"{s['wait']:.3f} s, host finish {finish:.3f} s "
         f"({finish_split_text(fin)}), the rest (waits for the reader, "
@@ -3078,6 +3102,8 @@ def agrep_text(path: Path) -> bytes:
 
 def cli_search(gen):
     """Phase 17b-e."""
+    from sassy_tpu_torch.io import fastx
+
     reads, barcodes = nanopore_reads(gen, CLI_READS)
     names = [f"read{i}" for i in range(CLI_READS)]
     fa = CLI_DIR / "reads.fa"
@@ -3095,8 +3121,14 @@ def cli_search(gen):
     log(f"phase 17b: search, {N_BARCODES} x {BARCODE_LEN} bp over "
         f"{CLI_READS} x {READ_LEN} bp, k={K}: {len(rows)} rows, process "
         f"wall {wall:.3f} s, launches {launched}")
-    log_split("phase 17b: search", got["runs"][0]["split"], parse_time(fa))
+    split = got["runs"][0]["split"]
+    log_split("phase 17b: search", split, parse_time(fa))
     require_cli("phase 17b", launched, ("q2meta",))
+    # one batched call a group and pattern batch
+    n_batches = -(-N_BARCODES // fastx.DEFAULT_BATCH_PATTERNS)
+    if not split["groups"] or split["calls"] > split["groups"] * n_batches:
+        fail(f"phase 17b: {split['calls']} batched calls over "
+             f"{split['groups']} groups of {n_batches} pattern batches")
     want_cigar = f"{MUT_AT}=1X{BARCODE_LEN - MUT_AT - 1}="
     for i in range(CLI_READS):
         mutated = bytearray(barcodes[i % N_BARCODES].tobytes())

@@ -8,9 +8,12 @@ reference CLI (sassy bin/{main,grep,crispr}.rs): same subcommands, flags,
 TSV schema (README.md:211-253), pretty-printed grep output on stderr,
 per-distance match histogram, PAM-filtered CRISPR search, and `--sam`
 text-direction output, byte for byte as the JAX package's CLI prints them
-(tests/test_torch_cli.py). Records are batched into one device dispatch
-per (pattern batch x record batch) work item (grep.rs:476-582's work items
-map to device batches; output order is the deterministic batch order).
+(tests/test_torch_cli.py). search / grep / filter cut the records into
+units, text batches of ``--batch-bytes`` (grep.rs:476-582's work items),
+and search whole units up to ``GROUP_BYTES`` of records at a time: one
+batched call a pattern batch over the group, the next group dispatched
+before this one's output is written. Output order, and the ``--resume``
+checkpoint after each unit, are those of a unit at a time.
 
 ``--device`` (or ``SASSY_DEVICE``) takes the place of the JAX CLI's
 ``--platform``; with "cuda" and no CUDA device the CLI exits non-zero and
@@ -38,6 +41,10 @@ from .pretty_print import (
 )
 from .profiles import Ascii, Iupac, get_profile
 from .search import Searcher
+
+#: record bytes of one grouped call of search / grep / filter: whole units
+#: (text batches of --batch-bytes) up to this size, as crispr's batches
+GROUP_BYTES = 32 << 20
 
 TSV_HEADER = "pat_id\ttext_id\tcost\tstrand\tstart\tend\tmatch_region\tcigar\n"
 
@@ -223,72 +230,94 @@ def run_grep_family(args, grep: bool, search_out, filter_out) -> int:
 
     hist = (list(prog.hist) if prog is not None and prog.hist
             else [0] * (args.k + 1))
-    n_pattern_batches = -(-len(pseqs) // args.pattern_batch_size)
+    pb = args.pattern_batch_size
+    pattern_batches = [(off, pseqs[off : off + pb])
+                       for off in range(0, len(pseqs), pb)]
     # fault injection for the resume tests: die (before checkpointing)
     # once this many text-batch units have written their output
     crash_after = int(os.environ.get("SASSY_CRASH_AFTER_UNIT", "-1"))
-    unit = 0  # one unit = one text batch (all its pattern batches)
-    group_items = 0
-    for path in paths:
-        pending: dict[int, tuple[fastx.Record, list[tuple[int, Match]]]] = {}
-        nbatches: dict[int, int] = {}
-        # the reader thread parses/packs batch N+1 while batch N scans
-        items = fastx.prefetch(fastx.iter_batches(
-            [path], pids, pseqs, batch_bytes=args.batch_bytes,
-            batch_patterns=args.pattern_batch_size, rc=rc,
-        ))
-        for item in items:
-            skip = prog is not None and unit < prog.unit
-            if not skip:
-                texts = [r.cached for r in item.records]
-                if args.v2 and len({len(p) for p in item.patterns}) == 1:
-                    enc = searcher.encode_patterns(item.patterns)
-                    matches: list[Match] = []
-                    for ti, t in enumerate(texts):
-                        for m in searcher.search_encoded_patterns(
-                            enc, t, args.k
-                        ):
-                            m.text_idx = ti
-                            matches.append(m)
-                else:
-                    matches = searcher.search_many(
-                        item.patterns, texts, args.k
-                    )
-                for m in matches:
-                    ridx = item.record_offset + m.text_idx
-                    rec = item.records[m.text_idx]
-                    pending.setdefault(ridx, (rec, []))[1].append(
-                        (item.pattern_offset + m.pattern_idx, m)
-                    )
+
+    def dispatch(group):
+        """One batched call a pattern batch over the group's records, all
+        in flight on the dispatch thread; their ``finish()``es."""
+        texts = [r.cached for _, _, recs in group for r in recs]
+        fins = []
+        for _, pats in pattern_batches:
+            if args.v2 and len({len(p) for p in pats}) == 1:
+                fins.append(searcher._search_encoded_v2_async(
+                    searcher.encode_patterns(pats), texts, args.k))
+            else:
+                fins.append(searcher.search_many_with_fn_async(
+                    pats, texts, args.k, False, None))
+        return fins
+
+    def settle(group, fins):
+        """The group's output, record by record in unit order, each
+        record's matches pattern batch by pattern batch (in a batch, the
+        Searcher's order); a checkpoint after each unit."""
+        per_text = [[] for _, _, recs in group for _ in recs]
+        for (off, _), fin in zip(pattern_batches, fins):
+            for m in fin():
+                per_text[m.text_idx].append((off + m.pattern_idx, m))
+        ti = 0
+        for unit, path, recs in group:
+            for rec in recs:
+                matches = per_text[ti]
+                ti += 1
+                for _, m in matches:
                     hist[m.cost] += 1
-                for ti, rec in enumerate(item.records):
-                    ridx = item.record_offset + ti
-                    nbatches[ridx] = nbatches.get(ridx, 0) + 1
-                    pending.setdefault(ridx, (rec, []))
-                    if nbatches[ridx] >= n_pattern_batches:
-                        rec2, ms = pending.pop(ridx)
-                        _emit_record(
-                            args, profile, path, rec2, ms, pids, pseqs,
-                            grep, search_fh, filter_fh,
-                        )
-            group_items += 1
-            if group_items == n_pattern_batches:
-                group_items = 0
-                if prog is not None and not skip:
-                    search_fh.flush()
-                    if 0 <= crash_after <= unit:
-                        raise SystemExit(130)
-                    prog.unit = unit + 1
-                    prog.matches = sum(hist)
-                    prog.hist = hist
-                    prog.out_pos = search_fh.tell()
-                    prog.save()
-                unit += 1
+                _emit_record(args, profile, path, rec, matches, pids, pseqs,
+                             grep, search_fh, filter_fh)
+            if prog is not None:
+                search_fh.flush()
+                if 0 <= crash_after <= unit:
+                    raise SystemExit(130)
+                prog.unit = unit + 1
+                prog.matches = sum(hist)
+                prog.hist = hist
+                prog.out_pos = search_fh.tell()
+                prog.save()
+
+    # the reader thread parses group N+1 while group N scans, and group
+    # N+1 is dispatched before group N's matches are finished and written
+    groups = _groups(fastx.iter_batches(paths, pids, pseqs,
+                                        batch_bytes=args.batch_bytes,
+                                        batch_patterns=pb, rc=rc),
+                     prog.unit if prog is not None else 0)
+    inflight = None
+    for group in fastx.prefetch(groups):
+        fins = dispatch(group)
+        if inflight is not None:
+            settle(*inflight)
+        inflight = (group, fins)
+    if inflight is not None:
+        settle(*inflight)
     print_statistics(hist)
     for fh in (search_fh, filter_fh):
         if fh is not None and fh is not sys.stdout:
             fh.close()
     return 0
+
+
+def _groups(items, start: int = 0):
+    """The units of ``fastx.iter_batches``' work items (a text batch, as
+    the items of its first pattern batch give it), from unit ``start`` on
+    (the earlier ones are done), as groups of (unit, path, records): as
+    many whole units as hold at most ``GROUP_BYTES`` of records, and at
+    least one."""
+    group, size = [], 0
+    units = (w for w in items if w.pattern_offset == 0)
+    for unit, w in enumerate(units):
+        if unit < start:
+            continue
+        n = sum(len(r.seq) for r in w.records)
+        if group and size + n > GROUP_BYTES:
+            yield group
+            group, size = [], 0
+        group.append((unit, w.path, w.records))
+        size += n
+    if group:
+        yield group
 
 
 def _emit_record(
@@ -307,8 +336,8 @@ def _emit_record(
             )
             print(s, file=sys.stderr)
     if search_fh is not None:
+        seq = np.frombuffer(rec.seq, dtype=np.uint8)
         for pi, m in matches:
-            seq = np.frombuffer(rec.seq, dtype=np.uint8)
             region = _format_match_region(
                 profile, seq[m.text_start : m.text_end], m.strand, args.sam
             )

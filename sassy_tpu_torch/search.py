@@ -283,42 +283,52 @@ class Searcher:
 
     def search_encoded_patterns(self, encoded, text, k: int) -> list[Match]:
         if encoded.rc_anchor == "start":
-            return self._search_encoded_v2_anchor(encoded, text, k, False)
+            return self._search_encoded_v2_async(encoded, [text], k,
+                                                 False)()
         return self._search_many_impl(encoded.patterns, [text], k, False,
                                       rc=encoded.include_rc)
 
     def search_all_encoded_patterns(self, encoded, text,
                                     k: int) -> list[Match]:
         if encoded.rc_anchor == "start":
-            return self._search_encoded_v2_anchor(encoded, text, k, True)
+            return self._search_encoded_v2_async(encoded, [text], k,
+                                                 True)()
         return self._search_many_impl(encoded.patterns, [text], k, True,
                                       rc=encoded.include_rc)
 
-    def _search_encoded_v2_anchor(self, encoded, text, k: int,
-                                  all_minima: bool) -> list[Match]:
-        """v2 RC anchor semantics (reference lib.rs:33-40): RC(pattern) is
-        one more forward pattern of the same batch, and its matches are
-        relabelled as RC ones."""
+    def _search_encoded_v2_async(self, encoded, texts, k: int,
+                                 all_minima: bool = False):
+        """v2 RC anchor semantics (reference lib.rs:33-40) over ``texts``
+        in one batched call: RC(pattern) is one more forward pattern of the
+        same batch, and its matches are relabelled as RC ones. Returns
+        ``finish()``; the matches are in ``search_many``'s order over the
+        2Q patterns (each text's forward patterns' matches before its RC
+        patterns')."""
         pats = encoded.patterns
+        rc_texts = [_as_rc_searchable(t) for t in texts]
         if not encoded.include_rc:
-            return self._search_many_impl(pats, [text], k, all_minima,
-                                          rc=False)
+            return self._search_many_batched_async(pats, rc_texts, k,
+                                                   all_minima, False)
         prof = self.profile
         Q = len(pats)
         rc_pats = [as_bytes_array(prof.reverse_complement(p)) for p in pats]
-        ms_all = self._search_many_impl(pats + rc_pats, [text], k,
-                                        all_minima, rc=False)
+        fin = self._search_many_batched_async(pats + rc_pats, rc_texts, k,
+                                              all_minima, False)
         m_len = encoded.pattern_len
-        for m in ms_all:
-            if m.pattern_idx >= Q:
-                m.pattern_idx -= Q
-                m.strand = Strand.RC
-                if m.cigar is not None:
-                    m.cigar = m.cigar.reversed()
-                if m.pattern_start is not UNKNOWN:
-                    ps, pe = m.pattern_start, m.pattern_end
-                    m.pattern_start, m.pattern_end = m_len - pe, m_len - ps
-        return ms_all
+
+        def finish() -> list[Match]:
+            ms_all = fin()
+            for m in ms_all:
+                if m.pattern_idx >= Q:
+                    m.pattern_idx -= Q
+                    m.strand = Strand.RC
+                    if m.cigar is not None:
+                        m.cigar = m.cigar.reversed()
+                    if m.pattern_start is not UNKNOWN:
+                        ps, pe = m.pattern_start, m.pattern_end
+                        m.pattern_start, m.pattern_end = m_len - pe, m_len - ps
+            return ms_all
+        return finish
 
     def search_all_alignments(self, pattern, text,
                               k: int) -> list[list[Match]]:

@@ -4,7 +4,7 @@
         [--turns 2] [--q2-reads N]
         [--off-target] [--search-many N [--plant]] [--overhang-reads N]
         [--pack-set] [--strands] [--overhang-search] [--no-scans]
-        [--out FILE]
+        [--cli-search N [--cli-v2] [--cli-profile]] [--out FILE]
 
 Each run is a fresh process that imports the ``sassy_tpu_torch`` of one
 checkout root, builds that checkout's kernel library from its own sources,
@@ -87,6 +87,25 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   host finish (the checkout's ``Searcher`` finish methods) and in it the
   traceback's fill and walk (``traceback._fill_batch``, ``_walk_batch``);
   the matches and a digest of the Match list;
+- with ``--cli-search N``: the checkout's command line in this process,
+  ``search -f barcodes.fa -k 3 -o out.tsv reads.fa`` on the card (its
+  files under ``build/compare_cli/``) at ``chip_smoke.py`` phase 17b's
+  shape: the 96 barcodes over N 10 kbp reads, each read with one planted
+  copy as ``--plant`` makes them. After one run over the first 200 reads
+  (warm-up, not reported), ``CLI_RUNS`` in turns: with the CLI's reader
+  thread (``fastx.prefetch``) and with the parse in series (that call
+  replaced by the iterator itself). Each run's wall (host clock from the
+  CLI's start, ended by a synchronise), its batched calls
+  (``Searcher._search_many_batched_async``), q2meta launches, the
+  TextSet and dispatch calls' host time, the host's waits for the
+  dispatch thread, the host finish (the Searcher's ``last_finish_split``
+  summed), the output of its records (``cli._emit_record``), the
+  dispatch thread's busy time (the functions it ran) and digests of the
+  TSV and of stderr, so that the checkouts can be compared; with
+  ``--cli-v2`` as well, where the checkout groups the CLI's calls
+  (``cli._groups``), one run with ``--v2``; with ``--cli-profile``, one
+  more run with the reader thread under ``cProfile`` (every thread, on
+  Python 3.12): its ``CLI_PROFILE_TOP`` functions by own time;
 - with ``--no-scans``, none of the scan kernels' timings above (the
   prepared text, q1meta, q1, q2meta, q2), nor ``--overhang-reads``.
 
@@ -130,6 +149,12 @@ OH_Q = 8
 OH_LEN = 120
 OH_K = 10
 OH_ALPHA = 0.1
+#: --cli-search: the runs after the warm-up, in turns
+CLI_RUNS = ("prefetch", "serial", "serial", "prefetch")
+#: reads of the warm-up run
+CLI_WARM_READS = 200
+#: functions of the --cli-profile run listed
+CLI_PROFILE_TOP = 30
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -151,7 +176,9 @@ def _child(root: str, seed: int, mib: int, reps: int,
            search_reads: int, plant: bool, overhang_reads: int,
            q2_reads: int = 0, off_target: bool = False,
            pack_sets: bool = False, strands: bool = False,
-           scans: bool = True, overhang_search: bool = False) -> dict:
+           scans: bool = True, overhang_search: bool = False,
+           cli_reads: int = 0, cli_v2: bool = False,
+           cli_profile: bool = False) -> dict:
     """One run: the kernels of the checkout at ``root``."""
     sys.path.insert(0, root)
     import torch
@@ -179,6 +206,10 @@ def _child(root: str, seed: int, mib: int, reps: int,
         out.update(_strands(acgt, dna, mib))
     if overhang_search:
         out.update(_overhang_search(acgt, mib))
+    if cli_reads:
+        barcodes = acgt(N_BARCODES * BARCODE_LEN).cpu().numpy()
+        out.update(_cli_search(dna, barcodes.reshape(N_BARCODES, -1), acgt,
+                               cli_reads, cli_v2, cli_profile))
     if not scans:
         if search_reads:
             barcodes = acgt(N_BARCODES * BARCODE_LEN).cpu().numpy()
@@ -512,15 +543,10 @@ def _overhang_dispatch(acgt, n_reads: int) -> dict:
     return out
 
 
-def _search_many(dna, barcodes, acgt, n_reads: int, plant: bool) -> dict:
-    import time
-    import tracemalloc
-
+def _reads(dna, barcodes, acgt, n_reads: int, plant: bool):
+    """N random reads of READ_LEN (n_reads, READ_LEN) uint8, with
+    ``plant`` each with one copy of a barcode (see ``--plant``)."""
     import numpy as np
-    import torch
-
-    from sassy_tpu_torch import Searcher
-    from sassy_tpu_torch.ops.batch import BatchEngine, TextSet
 
     reads = acgt(n_reads * READ_LEN).cpu().numpy().reshape(n_reads, -1)
     if plant:
@@ -534,7 +560,134 @@ def _search_many(dna, barcodes, acgt, n_reads: int, plant: bool) -> dict:
         site = slice(PLANT_AT, PLANT_AT + barcodes.shape[1])
         reads[0::2, site] = mutated[i[0::2] % len(barcodes)]
         reads[1::2, site] = rc[i[1::2] % len(barcodes)]
-    reads = list(reads)
+    return reads
+
+
+def _cli_search(dna, barcodes, acgt, n_reads: int, v2: bool,
+                profile: bool) -> dict:
+    """``--cli-search``: the checkout's CLI search, timed and split."""
+    import contextlib
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    from sassy_tpu_torch import cli, search
+    from sassy_tpu_torch.io import fastx
+    from sassy_tpu_torch.ops import batch, myers_cuda
+
+    d = Path(__file__).resolve().parents[2] / "build" / "compare_cli"
+    d.mkdir(parents=True, exist_ok=True)
+    reads = _reads(dna, barcodes, acgt, n_reads, True)
+    fa, warm, bc, tsv = (d / n for n in ("reads.fa", "warm.fa",
+                                         "barcodes.fa", "out.tsv"))
+    for path, rows in ((fa, reads), (warm, reads[:CLI_WARM_READS])):
+        path.write_bytes(b"".join(b">read%d\n" % i + r.tobytes() + b"\n"
+                                  for i, r in enumerate(rows)))
+    bc.write_bytes(b"".join(b">bc%d\n" % q + b.tobytes() + b"\n"
+                            for q, b in enumerate(barcodes)))
+    acc: dict = {}
+
+    def wrap(owner, name, make):
+        setattr(owner, name, make(getattr(owner, name)))
+
+    def timed(key, on_result=None):
+        def make(fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                got = fn(*a, **kw)
+                acc[key] += time.perf_counter() - t0
+                return on_result(got) if on_result else got
+            return wrapper
+        return make
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            acc["calls"] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    def finished(fn):
+        def wrapper(self, *a, **kw):
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                for key, v in self.last_finish_split.items():
+                    if key in ("filters", "gather", "fill", "walk", "build"):
+                        acc["finish"] += v
+        return wrapper
+
+    wrap(batch.TextSet, "__init__", timed("dispatch"))
+    wrap(batch.BatchEngine, "candidates_many_async",
+         timed("dispatch", timed("wait")))
+    wrap(search.Searcher, "_search_many_batched_async", counted)
+    wrap(search.Searcher, "_finish_many_batched", finished)
+    wrap(cli, "_emit_record", timed("emit"))
+
+    def on_thread(fn):  # the dispatch thread's busy time
+        def wrapper(device, job):
+            return fn(device, timed("thread")(job))
+        return wrapper
+
+    wrap(batch, "dispatch_async", on_thread)
+    prefetch = fastx.prefetch
+
+    def run(name, reads_fa, extra=(), prof=None):
+        fastx.prefetch = (prefetch if name != "serial"
+                          else lambda it, depth=2: iter(it))
+        acc.update(dict.fromkeys(("dispatch", "wait", "finish", "emit",
+                                   "thread"), 0.0), calls=0)
+        myers_cuda.scan_q_meta.launches = 0
+        err = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (contextlib.redirect_stderr(err), prof
+              or contextlib.nullcontext()):
+            code = cli.main(["--device", DEVICE, "search", "-f", str(bc),
+                             "-k", str(K), *extra, "-o", str(tsv),
+                             str(reads_fa)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        body = tsv.read_bytes()
+        return {"run": name, "rc": code, "wall_s": wall,
+                "calls": acc["calls"],
+                "q2meta": myers_cuda.scan_q_meta.launches,
+                "dispatch_s": acc["dispatch"], "wait_s": acc["wait"],
+                "finish_s": acc["finish"], "emit_s": acc["emit"],
+                "dispatch_thread_s": acc["thread"],
+                "rows": body.count(b"\n") - 1,
+                "tsv_digest": hashlib.sha256(body).hexdigest()[:16],
+                "stderr_digest": hashlib.sha256(
+                    err.getvalue().encode()).hexdigest()[:16]}
+
+    run("warm-up", warm)
+    runs = [run(name, fa) for name in CLI_RUNS]
+    if v2 and hasattr(cli, "_groups"):
+        runs.append(run("v2", fa, ["--v2"]))
+    out = {"cli_reads": n_reads, "cli_runs": runs}
+    if profile:
+        prof = cProfile.Profile()
+        runs.append(run("profiled", fa, prof=prof))
+        text = io.StringIO()
+        pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(
+            CLI_PROFILE_TOP)
+        out["cli_profile"] = text.getvalue().splitlines()
+    fastx.prefetch = prefetch
+    return out
+
+
+def _search_many(dna, barcodes, acgt, n_reads: int, plant: bool) -> dict:
+    import time
+    import tracemalloc
+
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import Searcher
+    from sassy_tpu_torch.ops.batch import BatchEngine, TextSet
+
+    reads = list(_reads(dna, barcodes, acgt, n_reads, plant))
     pcodes = [dna.encode(b) for b in barcodes]
     ccodes = [dna.encode(np.frombuffer(dna.complement(b), np.uint8))
               for b in barcodes]
@@ -606,6 +759,9 @@ def main(argv=None) -> int:
     ap.add_argument("--strands", action="store_true")
     ap.add_argument("--overhang-search", action="store_true")
     ap.add_argument("--no-scans", action="store_true")
+    ap.add_argument("--cli-search", type=int, default=0, metavar="N_READS")
+    ap.add_argument("--cli-v2", action="store_true")
+    ap.add_argument("--cli-profile", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
@@ -614,7 +770,8 @@ def main(argv=None) -> int:
                                 a.search_many, a.plant, a.overhang_reads,
                                 a.q2_reads, a.off_target, a.pack_set,
                                 a.strands, not a.no_scans,
-                                a.overhang_search)),
+                                a.overhang_search, a.cli_search,
+                                a.cli_v2, a.cli_profile)),
               flush=True)
         return 0
     card = subprocess.run(
@@ -639,7 +796,10 @@ def main(argv=None) -> int:
             + (["--pack-set"] if a.pack_set else [])
             + (["--strands"] if a.strands else [])
             + (["--overhang-search"] if a.overhang_search else [])
-            + (["--no-scans"] if a.no_scans else []),
+            + (["--no-scans"] if a.no_scans else [])
+            + ["--cli-search", str(a.cli_search)]
+            + (["--cli-v2"] if a.cli_v2 else [])
+            + (["--cli-profile"] if a.cli_profile else []),
             capture_output=True, text=True,
         )
         if proc.returncode != 0:

@@ -4,6 +4,10 @@ Every case runs ``sassy_tpu.cli.main([..., "--engine", "xla"])`` and
 ``sassy_tpu_torch.cli.main(["--device", "cpu", ...])`` on the same seeded
 files (reads of 60-300 bp with planted copies) and compares stdout and
 stderr. The only text allowed to differ is crispr's ``Time taken`` line.
+search / grep / filter group their units into one batched call a pattern
+batch: the same bytes over several groups (``cli.GROUP_BYTES`` made
+small), and exactly groups x pattern batches calls of
+``Searcher._search_many_batched_async``.
 Also: ``--device cuda`` without a card exits non-zero, ``SASSY_DEVICE``
 sets the device, ``test`` prints the port's features, and a closed stdout
 ends the run quietly with 141."""
@@ -138,6 +142,10 @@ def files(tmp_path_factory):
 
 P0 = "{p0}"
 
+#: units of 700 bytes (2-6 reads) and batches of two of the three
+#: patterns, all in one group at the CLI's GROUP_BYTES
+GROUPED = ["--batch-bytes", "700", "--pattern-batch-size", "2"]
+
 #: name -> (argv after the subcommand's place; {d} the files' directory,
 #: {p0} the first pattern), stdin file or None. The JAX CLI gets
 #: "--engine xla" appended.
@@ -209,6 +217,22 @@ CASES = {
                                        "--pam-length", "26", "--max-n-frac",
                                        "0.2",
                                        "{d}/genome_short.fa"], None),
+    # several units and pattern batches in one grouped call
+    "search_grouped_filter": (["search", "-f", "{d}/pats.fa", "-k", "3",
+                               "--filter", "-", *GROUPED, "{d}/reads.fa"],
+                              None),
+    "search_grouped_v2": (["search", "-l", "{d}/pats.txt", "-k", "2", "--v2",
+                           *GROUPED, "{d}/reads.fa"], None),
+    "search_grouped_overhang": (["search", "-f", "{d}/pats.fa", "-k", "3",
+                                 "--overhang", "0.5", *GROUPED,
+                                 "{d}/reads.fa"], None),
+    "search_grouped_max_n_frac": (["search", "-f", "{d}/pats.fa", "-k", "3",
+                                   "--max-n-frac", "0.0", *GROUPED,
+                                   "{d}/reads.fq"], None),
+    "grep_grouped": (["grep", "-f", "{d}/pats.fa", "-k", "2", "--search", "-",
+                      *GROUPED, "{d}/reads.fa"], None),
+    "filter_grouped_invert": (["filter", "-v", "-f", "{d}/pats.fa", "-k", "2",
+                               *GROUPED, "{d}/reads.fa"], None),
     "agrep": (["agrep", "hello world", "1", "{d}/lines.txt"], None),
     "agrep_context": (["agrep", "hello world", "2", "-C", "3",
                        "{d}/lines.txt", "{d}/more.txt"], None),
@@ -246,6 +270,79 @@ def test_cli_equals_the_jax_cli(case, files, capsys, monkeypatch):
     assert got[0] == 0
     if case.startswith(("search", "crispr")):
         assert got[1].count("\n") > 3, "the case should report matches"
+
+
+def _unit_bytes(path, batch_bytes: int) -> list[int]:
+    """The record bytes of each unit of ``path`` (records until they hold
+    ``batch_bytes``), from the file's own lines."""
+    units, size = [], 0
+    for line in path.read_text().splitlines():
+        if not line.startswith(">"):
+            size += len(line)
+            if size >= batch_bytes:
+                units.append(size)
+                size = 0
+    return units + [size] * bool(size)
+
+
+def _n_groups(units: list[int], group_bytes: int) -> int:
+    n, size = 0, None
+    for u in units:
+        if size is None or size + u > group_bytes:
+            n, size = n + 1, 0
+        size += u
+    return n
+
+
+#: group bytes that put each unit of 700 bytes in a group of its own, one
+#: or two in one, and all in one
+GROUP_SIZES = (1, 1_500, 32 << 20)
+
+
+@pytest.mark.parametrize("group_bytes", GROUP_SIZES[:2])
+@pytest.mark.parametrize("case", ["search_grouped_filter",
+                                  "search_grouped_v2", "grep_grouped"])
+def test_several_groups_equal_the_jax_cli(case, group_bytes, files, capsys,
+                                          monkeypatch):
+    d, pats = files
+    argv = _argv(CASES[case][0], d, pats)
+    want = _run(ref_cli.main, argv + ["--engine", "xla"], capsys,
+                monkeypatch, None)
+    monkeypatch.setattr(cli, "GROUP_BYTES", group_bytes)
+    got = _run(cli.main, ["--device", "cpu"] + argv, capsys, monkeypatch,
+               None)
+    assert got == want and got[0] == 0
+
+
+@pytest.mark.parametrize("v2", [False, True])
+@pytest.mark.parametrize("group_bytes", GROUP_SIZES)
+def test_one_batched_call_a_group_and_pattern_batch(group_bytes, v2, files,
+                                                    capsys, monkeypatch):
+    """A run makes exactly groups x pattern batches batched calls, each
+    over all of its group's records."""
+    from sassy_tpu_torch.search import Searcher
+
+    d, pats = files
+    calls = []
+    real = Searcher._search_many_batched_async
+
+    def counted(self, pats_, rc_texts, *a, **kw):
+        calls.append(len(rc_texts))
+        return real(self, pats_, rc_texts, *a, **kw)
+
+    monkeypatch.setattr(Searcher, "_search_many_batched_async", counted)
+    monkeypatch.setattr(cli, "GROUP_BYTES", group_bytes)
+    assert cli.main(["--device", "cpu", "search", "-f", f"{d}/pats.fa",
+                     "-k", "2", *GROUPED, *(["--v2"] * v2),
+                     f"{d}/reads.fa"]) == 0
+    capsys.readouterr()
+    units = _unit_bytes(d / "reads.fa", 700)
+    groups = _n_groups(units, group_bytes)
+    assert len(units) > 3
+    assert groups == {1: len(units), 32 << 20: 1}.get(group_bytes, groups)
+    assert 1 < groups < len(units) or group_bytes in (1, 32 << 20)
+    assert len(calls) == groups * 2  # three patterns in batches of two
+    assert sum(calls) == 2 * 24  # every read once a pattern batch
 
 
 def test_device_cuda_without_a_card_exits_non_zero(files, monkeypatch,

@@ -103,6 +103,64 @@ def test_resumed_run_equals_the_jax_cli(genome, tmp_path, monkeypatch,
     assert out.read_text().count("\n") > 4
 
 
+@pytest.mark.parametrize("crash_after", [0, 2])
+def test_resume_killed_inside_a_group(genome, tmp_path, monkeypatch, capsys,
+                                      crash_after):
+    """Units of two 300 bp records, two a group: killed after the first
+    unit of the first or the second group, while the next group is in
+    flight. The resumed run dispatches only the units left, and its output
+    equals the uninterrupted run's and the JAX CLI's."""
+    from sassy_tpu_torch import cli
+    from sassy_tpu_torch.search import Searcher
+
+    fa, pat = genome
+    pats = tmp_path / "pats.txt"
+    rng = np.random.default_rng(17)
+    more = [bytes(rng.choice(BASES, size=n)).decode() for n in (12, 14)]
+    pats.write_text("\n".join([pat.decode(), *more]) + "\n")
+    flags = ["search", "-l", str(pats), "-k", "2", "--batch-bytes", "400",
+             "--pattern-batch-size", "2"]
+    want = tmp_path / "jax.tsv"
+    assert ref_cli.main(flags + ["-o", str(want), fa, "--engine", "xla"]) == 0
+    want_err = capsys.readouterr().err
+    monkeypatch.setattr(cli, "GROUP_BYTES", 1300)
+    whole = tmp_path / "whole.tsv"
+    assert main(["--device", "cpu"] + flags + ["-o", str(whole), fa]) == 0
+    capsys.readouterr()
+
+    calls = []
+    real = Searcher._search_many_batched_async
+
+    def counted(self, pats_, rc_texts, *a, **kw):
+        calls.append(len(rc_texts))
+        return real(self, pats_, rc_texts, *a, **kw)
+
+    monkeypatch.setattr(Searcher, "_search_many_batched_async", counted)
+    out, ck = tmp_path / "o.tsv", tmp_path / "ck.json"
+    run = ["--device", "cpu"] + flags + ["-o", str(out), "--resume", str(ck),
+                                         fa]
+    monkeypatch.setenv("SASSY_CRASH_AFTER_UNIT", str(crash_after))
+    with pytest.raises(SystemExit) as e:
+        main(run)
+    assert e.value.code == 130
+    capsys.readouterr()
+    if crash_after:
+        assert json.loads(ck.read_text())["unit"] == crash_after
+    else:
+        assert not ck.exists()
+    # 4 units in 2 groups of two units, 2 pattern batches: the first
+    # group's calls and, in flight, the second's
+    assert calls == [4] * 4
+    calls.clear()
+    monkeypatch.delenv("SASSY_CRASH_AFTER_UNIT")
+    assert main(run) == 0
+    assert capsys.readouterr().err == want_err
+    assert out.read_bytes() == whole.read_bytes() == want.read_bytes()
+    assert json.loads(ck.read_text())["unit"] == 4
+    # left: all four units (no checkpoint), or units 2-3, one group
+    assert calls == [4] * (4 if crash_after == 0 else 2)
+
+
 def test_resume_rejects_changed_parameters(genome, tmp_path, monkeypatch,
                                            capsys):
     fa, pat = genome
