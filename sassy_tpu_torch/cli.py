@@ -39,7 +39,7 @@ from .pretty_print import (
     PrettyPrintStyle,
     pretty_print,
 )
-from .profiles import Ascii, Iupac, get_profile
+from .profiles import Ascii, Iupac, as_bytes_array, get_profile
 from .search import Searcher
 
 #: record bytes of one grouped call of search / grep / filter: whole units
@@ -239,16 +239,21 @@ def run_grep_family(args, grep: bool, search_out, filter_out) -> int:
 
     def dispatch(group):
         """One batched call a pattern batch over the group's records, all
-        in flight on the dispatch thread; their ``finish()``es."""
+        in flight on the dispatch thread, over one text set (one upload
+        and one pack a strand for all of them, dropped with the calls once
+        the group is settled); their ``finish()``es."""
         texts = [r.cached for _, _, recs in group for r in recs]
+        ts = searcher._text_set(texts)
         fins = []
         for _, pats in pattern_batches:
             if args.v2 and len({len(p) for p in pats}) == 1:
                 fins.append(searcher._search_encoded_v2_async(
-                    searcher.encode_patterns(pats), texts, args.k))
+                    searcher.encode_patterns(pats), texts, args.k,
+                    textset=ts))
             else:
-                fins.append(searcher.search_many_with_fn_async(
-                    pats, texts, args.k, False, None))
+                fins.append(searcher._search_many_batched_async(
+                    [as_bytes_array(p) for p in pats], texts, args.k, False,
+                    rc, textset=ts))
         return fins
 
     def settle(group, fins):

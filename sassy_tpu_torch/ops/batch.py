@@ -157,86 +157,77 @@ PIECE_FIELDS = tuple(f.name for f in fields(_Piece))
 def _plan_columns(lens: list[int], steps: int, w_chars: int,
                   halo: int) -> dict[str, np.ndarray]:
     """``_plan_pieces``' pieces as int64 columns, one per ``_Piece``
-    field, cut without an object per piece: every text that fits one piece
-    at once, and in a longer text each run of regular continuation pieces
-    (a word-aligned start ``hw`` chars before the piece's first owned
-    position, ``hw`` the halo rounded up to words, and ``w_chars - hw``
-    owned positions) as one ``arange``; the pieces around the overshoot
-    split and the text end as the loop cuts them. At 3.12 Gbp in pieces of
-    448 words that is ~218k pieces in a few loop steps. Equal to
-    ``_plan_pieces`` (the tests hold both to the JAX planner)."""
-    n = np.asarray(lens, np.int64).reshape(-1)
-    total = n + steps
-    blocks: list[dict] = []
-    prev = 0
-
-    def singles(t0: int, t1: int) -> None:
-        own = total[t0:t1]
-        blocks.append({
-            "text_idx": np.arange(t0, t1, dtype=np.int64),
-            "start_char": np.zeros(t1 - t0, np.int64),
-            "valid_from": np.full(t1 - t0, -1, np.int64), "valid_to": own,
-            "text_end": n[t0:t1], "islast_at": own,
-            "true_start": np.ones(t1 - t0, np.int64)})
-
-    for t in np.nonzero(total > w_chars)[0].tolist():
-        if t > prev:
-            singles(prev, t)
-        blocks.append(_cut_text(t, int(n[t]), steps, w_chars, halo))
-        prev = t + 1
-    if prev < len(n):
-        singles(prev, len(n))
-    if not blocks:
-        return {f: np.zeros(0, np.int64) for f in PIECE_FIELDS}
-    return {f: np.concatenate([b[f] for b in blocks]) for f in PIECE_FIELDS}
-
-
-def _cut_text(t: int, n: int, steps: int, w_chars: int,
-              halo: int) -> dict[str, np.ndarray]:
-    """The columns of text t's pieces (``_plan_pieces``' loop for one
-    text, its regular runs taken whole)."""
-    total = n + steps
+    field, cut without an object per piece or a loop per text: every text
+    that fits one piece at once, and all longer texts in lockstep, their
+    loop state (the first not-yet-owned position ``o``) a vector. Each
+    step takes, for every text whose ``o`` is word-aligned, its whole run
+    of regular continuation pieces (a start ``hw`` chars before the
+    piece's first owned position, ``hw`` the halo rounded up to words,
+    ``w_chars - hw`` owned positions) until one would reach the overshoot
+    split (positions up to n) or the text end, then cuts one piece of
+    every text as the loop does (the first, the one ending at the split,
+    one from an unaligned ``o``, the last). A text takes a few steps
+    whatever the number of texts. The pieces are then put in the loop's
+    order: text-major, by first owned position. Equal to ``_plan_pieces``
+    (the tests hold both to the JAX planner)."""
+    n_all = np.asarray(lens, np.int64).reshape(-1)
+    total_all = n_all + steps
     hw = cdiv(halo, WORD_BITS) * WORD_BITS
     stride = w_chars - hw
     cols: dict[str, list] = {f: [] for f in PIECE_FIELDS}
 
-    def put(start, vfrom, vto, islast, first) -> None:
-        start = np.atleast_1d(np.asarray(start, np.int64))
+    def put(t, start, vfrom, vto, islast, first) -> None:
+        start = np.broadcast_to(start, t.shape)
         for f, v in (("text_idx", t), ("start_char", start),
                      ("valid_from", vfrom), ("valid_to", vto),
-                     ("text_end", n - start), ("islast_at", islast),
-                     ("true_start", int(first))):
+                     ("text_end", n_all[t] - start), ("islast_at", islast),
+                     ("true_start", first)):
             cols[f].append(np.broadcast_to(np.asarray(v, np.int64),
-                                           start.shape))
+                                           t.shape))
 
-    o, first = 0, True
-    while True:
-        if first:
-            own, start_char, vfrom = min(total, w_chars), 0, -1
-        else:
-            if o % WORD_BITS == 0:
-                # from a word-aligned o, each piece starts hw chars back and
-                # owns ``stride`` positions until one would reach the
-                # overshoot split (positions up to n) or the text end
-                lim = n if steps and o < n else total - 1
-                runs = max(0, (lim - o - stride) // stride + 1)
-                if runs:
-                    at = o + stride * np.arange(runs, dtype=np.int64)
-                    put(at - hw, hw, w_chars, -1, False)
-                    o += runs * stride
-            start_char = (o - halo) // WORD_BITS * WORD_BITS
-            vfrom = o - start_char
-            own = min(total - o, w_chars - vfrom)
-        if steps and o < n and n < o + own < total:
-            own = n - o  # never split the overshoot span (see _plan_pieces)
+    one = np.nonzero(total_all <= w_chars)[0]
+    own = total_all[one]
+    put(one, 0, -1, own, own, 1)
+    t = np.nonzero(total_all > w_chars)[0]
+    n, total = n_all[t], total_all[t]
+    # the first piece of every long text
+    own = np.full(t.shape, w_chars, np.int64)
+    if steps:
+        split = (0 < n) & (n < own)  # own < total: the text is long
+        own[split] = n[split]
+    put(t, 0, -1, own, -1, 1)
+    o = own
+    while t.size:
+        if stride > 0 and stride % WORD_BITS == 0:
+            # from a word-aligned o, each piece owns ``stride`` positions
+            lim = np.where(o < n, n, total - 1) if steps else total - 1
+            runs = np.where(o % WORD_BITS == 0,
+                            np.maximum(0, (lim - o - stride) // stride + 1),
+                            0)
+            if runs.any():
+                first_of = np.cumsum(runs) - runs
+                i = np.arange(int(first_of[-1] + runs[-1]), dtype=np.int64)
+                at = (np.repeat(o, runs)
+                      + stride * (i - np.repeat(first_of, runs)))
+                put(np.repeat(t, runs), at - hw, hw, w_chars, -1, 0)
+                o = o + runs * stride
+        start = (o - halo) // WORD_BITS * WORD_BITS
+        vfrom = o - start
+        own = np.minimum(total - o, w_chars - vfrom)
+        if steps:
+            # never split the overshoot span (see _plan_pieces)
+            split = (o < n) & (n < o + own) & (o + own < total)
+            own = np.where(split, n - o, own)
         last = o + own >= total
-        put(start_char, vfrom, vfrom + own if not first else own,
-            (vfrom if not first else 0) + own if last else -1, first)
-        o += own
-        first = False
-        if last:
-            break
-    return {f: np.concatenate(v) for f, v in cols.items()}
+        put(t, start, vfrom, vfrom + own, np.where(last, vfrom + own, -1), 0)
+        o = o + own
+        more = ~last
+        t, n, total, o = t[more], n[more], total[more], o[more]
+    got = {f: np.concatenate(v) for f, v in cols.items()}
+    if len(one) < len(n_all):
+        order = np.argsort(got["text_idx"], kind="stable")
+        got = {f: v[order] for f, v in got.items()}
+    return got
 
 
 def _w_lattice(cap: int) -> list[int]:

@@ -49,11 +49,12 @@ import warnings
 import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, replace
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from .. import semantics
+from .. import gxx, semantics
 from ..profiles import Profile, as_bytes_array
 from . import minima, myers_cuda, plan
 from .bitpack import WORD_BITS
@@ -490,6 +491,52 @@ def _chunk_pieces(texts, offs: np.ndarray, c0: int, c1: int) -> list:
     return pieces
 
 
+#: the staged upload's host fill, built with g++ at its first use
+FILL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "stage_fill.cc"
+_FILL = None
+_FILL_LOCK = threading.Lock()
+
+
+def _fill_entry():
+    """``sassy_stage_fill`` of ``FILL_SOURCE``'s library (``gxx.build``
+    against the running Python's headers, loaded with ``ctypes.PyDLL``:
+    called with the interpreter lock held, it raises what it sets)."""
+    global _FILL
+    with _FILL_LOCK:
+        if _FILL is None:
+            import ctypes
+            import sysconfig
+
+            paths = sysconfig.get_paths()
+            inc = sorted({paths["include"], paths["platinclude"]})
+            lib = ctypes.PyDLL(str(gxx.build(
+                "libstage_fill", [FILL_SOURCE],
+                ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
+                 *(f"-I{d}" for d in inc)])))
+            fn = lib.sassy_stage_fill
+            fn.argtypes = [ctypes.py_object, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
+            fn.restype = ctypes.c_int
+            _FILL = fn
+        return _FILL
+
+
+def _fill(texts: list, offs: np.ndarray, c0: int, c1: int,
+          out: np.ndarray) -> int:
+    """Bytes c0 .. c1 - 1 of the concatenation of the host arrays
+    ``texts`` (text t from byte ``offs[t]``, int64) into ``out`` ((c1 -
+    c0,) uint8, contiguous), on up to one host thread per intra-op thread
+    of PyTorch, no more than the texts the range holds, each an equal
+    contiguous share of the bytes (``csrc/stage_fill.cc``: the
+    interpreter lock is let go while they copy). Returns the threads
+    used, once all are done."""
+    if not out.flags.c_contiguous or out.shape != (c1 - c0,):
+        raise ValueError(f"out must be {c1 - c0} contiguous bytes")
+    offs = np.ascontiguousarray(offs, np.int64)
+    return _fill_entry()(texts, offs.ctypes.data, c0, c1, out.ctypes.data,
+                         torch.get_num_threads())
+
+
 def _stage_chunks(texts, offs: np.ndarray, out: torch.Tensor, st) -> None:
     """Copy the concatenation of the host arrays ``texts`` (text t at byte
     ``offs[t]``, ``offs[-1]`` bytes in all) into ``out`` through the two
@@ -497,7 +544,8 @@ def _stage_chunks(texts, offs: np.ndarray, out: torch.Tensor, st) -> None:
     order, with no host array of the whole: wait until the buffer's last
     chunk has left it, fill it from the texts' own arrays (a one-piece
     chunk by PyTorch's copy, which uses every intra-op thread; a run of
-    texts by one ``np.concatenate`` into the buffer), send it."""
+    texts by ``_fill``, whose threads are all done before the send), send
+    it."""
     n = int(offs[-1])
     views = [buf.numpy() for buf in st.bufs]
     st.begin(out)
@@ -512,7 +560,7 @@ def _stage_chunks(texts, offs: np.ndarray, out: torch.Tensor, st) -> None:
                 warnings.simplefilter("ignore", UserWarning)
                 st.bufs[slot][: c1 - c0].copy_(torch.from_numpy(pieces[0]))
         else:
-            np.concatenate(pieces, out=views[slot][: c1 - c0])
+            _fill(texts, offs, c0, c1, views[slot][: c1 - c0])
         st.send(slot, out[c0:c1], c1 - c0)
     st.end(out)
 

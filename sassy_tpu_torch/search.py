@@ -297,23 +297,26 @@ class Searcher:
                                       rc=encoded.include_rc)
 
     def _search_encoded_v2_async(self, encoded, texts, k: int,
-                                 all_minima: bool = False):
+                                 all_minima: bool = False,
+                                 textset=None):
         """v2 RC anchor semantics (reference lib.rs:33-40) over ``texts``
         in one batched call: RC(pattern) is one more forward pattern of the
         same batch, and its matches are relabelled as RC ones. Returns
         ``finish()``; the matches are in ``search_many``'s order over the
         2Q patterns (each text's forward patterns' matches before its RC
-        patterns')."""
+        patterns'). ``textset``: as ``_search_many_batched_async``'s."""
         pats = encoded.patterns
         rc_texts = [_as_rc_searchable(t) for t in texts]
         if not encoded.include_rc:
             return self._search_many_batched_async(pats, rc_texts, k,
-                                                   all_minima, False)
+                                                   all_minima, False,
+                                                   textset=textset)
         prof = self.profile
         Q = len(pats)
         rc_pats = [as_bytes_array(prof.reverse_complement(p)) for p in pats]
         fin = self._search_many_batched_async(pats + rc_pats, rc_texts, k,
-                                              all_minima, False)
+                                              all_minima, False,
+                                              textset=textset)
         m_len = encoded.pattern_len
 
         def finish() -> list[Match]:
@@ -345,17 +348,25 @@ class Searcher:
             k, all_minima, self.rc if rc is None else rc, filter_fn,
         )()
 
+    def _text_set(self, texts) -> TextSet:
+        """The batched engine's text set of ``texts`` (their forward
+        bytes), for several calls over the same texts (``textset=``)."""
+        return TextSet([_as_rc_searchable(t).text() for t in texts],
+                       self.device)
+
     def _search_many_batched_async(self, pats, rc_texts, k: int,
                                    all_minima: bool, rc: bool,
-                                   filter_fn=None):
+                                   filter_fn=None, textset=None):
         """Dispatch both strands on the batched engine, one upload of the
         texts for both, and return ``finish()``. Patterns of any lengths
         share the call: the engine groups them by row bucket and overhang
-        steps."""
+        steps. ``textset``: a ``_text_set`` of the same texts, shared with
+        other calls (one upload and one pack a strand for all of them);
+        without it the call builds its own."""
         prof = self.profile
         pcodes = [prof.encode(p) for p in pats]
-        fwd_texts = [t.text() for t in rc_texts]
-        ts = TextSet(fwd_texts, self.device)
+        ts = textset if textset is not None else self._text_set(rc_texts)
+        fwd_texts = ts.texts
         fin = self.batch.candidates_many_flat_async(
             prof, pcodes, ts, k, self.alpha, self.max_overhang, all_minima)
         strands = [(Strand.FWD, pats, pcodes, fin)]

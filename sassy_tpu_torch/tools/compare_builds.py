@@ -37,12 +37,16 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   in pieces of the width the batched engine gives 3.12 Gbp;
 - with ``--search-many N``, where the checkout has the batched engine:
   ``Searcher("dna", rc=True).search_many`` of the 96 barcodes over N
-  random 10 kbp reads, both strands, end to end (host clock), and, for
+  random 10 kbp reads, both strands, end to end (host clock,
+  ``SEARCH_MANY_RUNS`` calls), and, for
   the first and the second call in the process, the time
   ``candidates_many_async`` of both strands takes to return and to
   finish, the preparation of a fresh set's planes of both strands
   (twice, host clock) and the host memory a third one allocates
-  (``tracemalloc``: numpy's arrays and Python's objects); with
+  (``tracemalloc``: numpy's arrays and Python's objects), and of that
+  preparation the set's upload (``TextSet.data``: ms and GB/s) apart
+  from the set's constructor and both strands' packs, where the
+  checkout has ``TextSet.data`` ("absent" where not); with
   ``--plant`` as well, each read holds one copy of a barcode
   with one substitution at offset 5000 (read i: barcode i % 96, even
   reads forward, odd reads reverse-complemented, as ``chip_smoke.py``
@@ -100,8 +104,11 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   TextSet and dispatch calls' host time, the host's waits for the
   dispatch thread, the host finish (the Searcher's ``last_finish_split``
   summed), the output of its records (``cli._emit_record``), the
-  dispatch thread's busy time (the functions it ran) and digests of the
-  TSV and of stderr, so that the checkouts can be compared; with
+  dispatch thread's busy time (the functions it ran), the text sets'
+  uploads (``batch._upload_set`` calls) and the seconds in the piece plan
+  (``batch._plan_columns``; each "absent" where the checkout lacks the
+  function) and digests of the TSV and of stderr, so that the checkouts
+  can be compared; with
   ``--cli-v2`` as well, where the checkout groups the CLI's calls
   (``cli._groups``), one run with ``--v2``; with ``--cli-profile``, one
   more run with the reader thread under ``cProfile`` (every thread, on
@@ -149,6 +156,8 @@ OH_Q = 8
 OH_LEN = 120
 OH_K = 10
 OH_ALPHA = 0.1
+#: --search-many: the timed ``search_many`` calls of a run
+SEARCH_MANY_RUNS = 3
 #: --cli-search: the runs after the warm-up, in turns
 CLI_RUNS = ("prefetch", "serial", "serial", "prefetch")
 #: reads of the warm-up run
@@ -602,11 +611,15 @@ def _cli_search(dna, barcodes, acgt, n_reads: int, v2: bool,
             return wrapper
         return make
 
-    def counted(fn):
-        def wrapper(*a, **kw):
-            acc["calls"] += 1
-            return fn(*a, **kw)
-        return wrapper
+    def counted_as(key):
+        def make(fn):
+            def wrapper(*a, **kw):
+                acc[key] += 1
+                return fn(*a, **kw)
+            return wrapper
+        return make
+
+    counted = counted_as("calls")
 
     def finished(fn):
         def wrapper(self, *a, **kw):
@@ -618,6 +631,13 @@ def _cli_search(dna, barcodes, acgt, n_reads: int, v2: bool,
                         acc["finish"] += v
         return wrapper
 
+    # the text sets' uploads and the piece plan, where the checkout has them
+    has = {name: hasattr(batch, name)
+           for name in ("_upload_set", "_plan_columns")}
+    if has["_upload_set"]:
+        wrap(batch, "_upload_set", counted_as("uploads"))
+    if has["_plan_columns"]:
+        wrap(batch, "_plan_columns", timed("plan"))
     wrap(batch.TextSet, "__init__", timed("dispatch"))
     wrap(batch.BatchEngine, "candidates_many_async",
          timed("dispatch", timed("wait")))
@@ -637,7 +657,8 @@ def _cli_search(dna, barcodes, acgt, n_reads: int, v2: bool,
         fastx.prefetch = (prefetch if name != "serial"
                           else lambda it, depth=2: iter(it))
         acc.update(dict.fromkeys(("dispatch", "wait", "finish", "emit",
-                                   "thread"), 0.0), calls=0)
+                                   "thread", "plan"), 0.0), calls=0,
+                   uploads=0)
         myers_cuda.scan_q_meta.launches = 0
         err = io.StringIO()
         torch.cuda.synchronize()
@@ -656,6 +677,9 @@ def _cli_search(dna, barcodes, acgt, n_reads: int, v2: bool,
                 "dispatch_s": acc["dispatch"], "wait_s": acc["wait"],
                 "finish_s": acc["finish"], "emit_s": acc["emit"],
                 "dispatch_thread_s": acc["thread"],
+                "set_uploads": (acc["uploads"] if has["_upload_set"]
+                                else "absent"),
+                "plan_s": acc["plan"] if has["_plan_columns"] else "absent",
                 "rows": body.count(b"\n") - 1,
                 "tsv_digest": hashlib.sha256(body).hexdigest()[:16],
                 "stderr_digest": hashlib.sha256(
@@ -708,16 +732,32 @@ def _search_many(dna, barcodes, acgt, n_reads: int, plant: bool) -> dict:
         out["both_finish_ms"].append((t2 - t0) * 1e3)
         del eng, ts, fin, rfin
     # the text set's preparation alone: both strands' planes of a fresh
-    # set (host clock), then the host memory a second one allocates
+    # set (host clock), its upload apart where the checkout has
+    # ``TextSet.data``, then the host memory a second one allocates
     out["prep_ms"] = []
+    split = hasattr(TextSet, "data")
+    out["upload_ms"] = [] if split else "absent"
+    out["upload_gbs"] = [] if split else "absent"
+    out["pack_ms"] = [] if split else "absent"
+    n_bytes = sum(len(r) for r in reads)
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ts = TextSet(reads, "cuda")
+        if split:
+            tc = time.perf_counter()
+            ts.data()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
         ts.planes(dna, False)
         ts.planes(dna, True)
         torch.cuda.synchronize()
-        out["prep_ms"].append((time.perf_counter() - t0) * 1e3)
+        t2 = time.perf_counter()
+        out["prep_ms"].append((t2 - t0) * 1e3)
+        if split:
+            out["upload_ms"].append((t1 - tc) * 1e3)
+            out["upload_gbs"].append(n_bytes / (t1 - tc) / 1e9)
+            out["pack_ms"].append((t2 - t1) * 1e3)
         del ts
     tracemalloc.start()
     try:
@@ -730,9 +770,11 @@ def _search_many(dna, barcodes, acgt, n_reads: int, plant: bool) -> dict:
         tracemalloc.stop()
     del ts
     searcher = Searcher("dna", rc=True, device="cuda")
-    t0 = time.perf_counter()
-    matches = searcher.search_many(list(barcodes), reads, K)
-    out["search_many_s"] = time.perf_counter() - t0
+    out["search_many_s"] = []
+    for _ in range(SEARCH_MANY_RUNS):
+        t0 = time.perf_counter()
+        matches = searcher.search_many(list(barcodes), reads, K)
+        out["search_many_s"].append(time.perf_counter() - t0)
     out["matches"] = len(matches)
     # where the checkout has it
     out["finish_split"] = getattr(searcher, "last_finish_split", {})

@@ -6,8 +6,9 @@ files (reads of 60-300 bp with planted copies) and compares stdout and
 stderr. The only text allowed to differ is crispr's ``Time taken`` line.
 search / grep / filter group their units into one batched call a pattern
 batch: the same bytes over several groups (``cli.GROUP_BYTES`` made
-small), and exactly groups x pattern batches calls of
-``Searcher._search_many_batched_async``.
+small), exactly groups x pattern batches calls of
+``Searcher._search_many_batched_async``, and one upload of a group's
+records for all its pattern batches (one text set a group).
 Also: ``--device cuda`` without a card exits non-zero, ``SASSY_DEVICE``
 sets the device, ``test`` prints the port's features, and a closed stdout
 ends the run quietly with 141."""
@@ -343,6 +344,46 @@ def test_one_batched_call_a_group_and_pattern_batch(group_bytes, v2, files,
     assert 1 < groups < len(units) or group_bytes in (1, 32 << 20)
     assert len(calls) == groups * 2  # three patterns in batches of two
     assert sum(calls) == 2 * 24  # every read once a pattern batch
+
+
+@pytest.mark.parametrize("v2", [False, True])
+@pytest.mark.parametrize("group_bytes", GROUP_SIZES)
+def test_a_group_uploads_its_records_once(group_bytes, v2, files, capsys,
+                                          monkeypatch):
+    """The pattern batches of a group share one text set: one upload of
+    its records (``_upload_set``) a group, while the calls stay groups x
+    pattern batches and stdout and stderr stay the JAX CLI's."""
+    from sassy_tpu_torch.ops import batch
+    from sassy_tpu_torch.search import Searcher
+
+    d, pats = files
+    argv = ["search", "-f", f"{d}/pats.fa", "-k", "2", *GROUPED,
+            *(["--v2"] * v2), f"{d}/reads.fa"]
+    want = _run(ref_cli.main, argv + ["--engine", "xla"], capsys,
+                monkeypatch, None)
+    uploads, calls = [], []
+    real_upload = batch._upload_set
+    real_call = Searcher._search_many_batched_async
+
+    def upload(texts, device):
+        uploads.append(len(texts))
+        return real_upload(texts, device)
+
+    def call(self, *a, **kw):
+        calls.append(kw.get("textset"))
+        return real_call(self, *a, **kw)
+
+    monkeypatch.setattr(batch, "_upload_set", upload)
+    monkeypatch.setattr(Searcher, "_search_many_batched_async", call)
+    monkeypatch.setattr(cli, "GROUP_BYTES", group_bytes)
+    got = _run(cli.main, ["--device", "cpu"] + argv, capsys, monkeypatch,
+               None)
+    assert got == want and got[0] == 0
+    groups = _n_groups(_unit_bytes(d / "reads.fa", 700), group_bytes)
+    assert len(uploads) == groups and sum(uploads) == 24
+    assert len(calls) == groups * 2
+    assert len({id(ts) for ts in calls}) == groups
+    assert all(a is b for a, b in zip(calls[::2], calls[1::2]))
 
 
 def test_device_cuda_without_a_card_exits_non_zero(files, monkeypatch,

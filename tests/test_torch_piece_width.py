@@ -114,6 +114,58 @@ def test_plan_columns_equal_the_reference_planner_at_scale():
             got[f], [int(getattr(p, f)) for p in want], err_msg=f)
 
 
+def _equal_the_reference(lens, steps, w_chars, halo):
+    got = batch._plan_columns(lens, steps, w_chars, halo)
+    want = ref_batch._plan_pieces(lens, steps, w_chars, halo)
+    assert len(got["text_idx"]) == len(want)
+    for f in batch.PIECE_FIELDS:
+        np.testing.assert_array_equal(
+            got[f], [int(getattr(p, f)) for p in want], err_msg=f)
+    return got
+
+
+@pytest.mark.parametrize("steps", [0, 7, 33])
+@pytest.mark.parametrize("m", [24, 120])
+def test_plan_columns_equal_the_reference_planner_at_many_texts(m, steps):
+    """3,200 texts of 8-12 kbp, as the CLI's groups hold them, at the
+    halo of an m bp pattern at k = 3 and the widths a 64- and a
+    32-pattern batch get (pieces narrower than a text): the JAX planner's
+    pieces, every field, the overshoot split included."""
+    rng = np.random.default_rng(m + steps)
+    lens = rng.integers(8_000, 12_001, 3_200).tolist()
+    codes = profiles.Dna().encode(rng.choice(BASES, m))
+    halo = plan.pattern_inputs_np(profiles.Dna(), codes, None, None)[0] \
+        .shape[0] + 3
+    for Q in (64, 32):
+        w_chars = batch._piece_width(lens, steps, halo, Q, 16)
+        assert w_chars < 8_000
+        got = _equal_the_reference(lens, steps, w_chars, halo)
+        assert np.all(np.bincount(got["text_idx"]) > 1)
+
+
+@pytest.mark.parametrize("steps", [0, 5, 33])
+@pytest.mark.parametrize("halo", [27, 64, 75])
+def test_plan_columns_where_runs_end_at_the_split_or_the_text_end(halo,
+                                                                  steps):
+    """Many texts whose run of regular pieces ends exactly at the
+    overshoot split n or at the last position (total - 1), and one
+    position either side, beside empty texts and texts just over one
+    piece: the JAX planner's pieces."""
+    w_chars = 12 * 32
+    stride = w_chars - -(-halo // 32) * 32
+    lens = [0, 1, w_chars - steps, w_chars - steps + 1, w_chars + 1]
+    for runs in range(1, 12):
+        end = w_chars + runs * stride
+        for d in (-1, 0, 1):
+            lens.append(end + d)  # a run to n
+            lens.append(end + 1 - steps + d)  # a run to total - 1
+    lens = [max(0, n) for n in lens] * 3
+    got = _equal_the_reference(lens, steps, w_chars, halo)
+    want = _loop_columns(lens, steps, w_chars, halo)
+    for f in batch.PIECE_FIELDS:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+
+
 def _narrowed(monkeypatch, pair_words: int):
     """Wide pieces (few tiles fill the card), then a dispatch budget that
     caps them at about ``pair_words`` window words."""
