@@ -18,10 +18,10 @@ launches captured from their main-path runs (captured_scans, hold_scan)
 against their plain versions, timed beside their bounds. Phases:
 
 1. the card (nvidia-smi), the toolchain (features()), and the build of
-   the nine kernel sources (q1meta, q2meta, q1, q2, the qN family, the
+   the ten kernel sources (q1meta, q2meta, q1, q2, the qN family, the
    row-step ablations, the word-level and the position-level candidate
-   selections, the text pack) from sassy_tpu_torch/csrc/ with one nvcc
-   call;
+   selections, the text pack, the host finish's traceback) from
+   sassy_tpu_torch/csrc/ with one nvcc call;
 2. kernel vs plain: the q1meta scan kernel against its plain PyTorch
    version on the windows of a 1 GiB text (the H100 tile plan, a 23 bp
    pattern at k=3), bit for bit on all five outputs, for the pure, iupac
@@ -83,9 +83,11 @@ against their plain versions, timed beside their bounds. Phases:
    other match, and
    a sample of the others, is searched again on the port's CPU path (the
    plain versions), Match for Match with CIGAR; the phases of one strand
-   are timed, with its host finish's split (filters, window gather, fill,
-   walk, Match build), as is the main run's finish, and the async
-   dispatch is shown to return before its work;
+   are timed, with its host finish's split (filters, the trace: the
+   traceback kernel's uploads, launch and one copy, Match build), as is
+   the main run's finish, and the async dispatch is shown to return
+   before its work; the main run's traceback launch of the forward strand
+   is held bit for bit against trace_plain and timed beside its bound;
 7. batched vs single on the card: 4 barcodes over 200 reads, search_many
    against the per-pair Searcher.search results (q1meta), and
    search_encoded_patterns(rc_anchor="end") against per-pattern search,
@@ -183,8 +185,8 @@ against their plain versions, timed beside their bounds. Phases:
    copy in the TSV, in one batched call a group of units (32 MiB of
    records) and pattern batch, no more; the runs of (a) and (b) with
    their batched calls and wall split into dispatch, waits for the
-   device, the host finish (filters, window gather, fill, walk, Match
-   build), and the device's busy share; (c) search, search --sam, search --overhang 0.5,
+   device, the host finish (filters, the trace, Match build), and the
+   device's busy share; (c) search, search --sam, search --overhang 0.5,
    grep, filter -v and agrep on a 32-read subset (and 1 MB of printable
    text), --device cuda and --device cpu equal byte for byte on stdout
    and stderr; (d) (b) with --resume at 4 MiB units, killed after
@@ -261,7 +263,12 @@ and over phase 20's runs, the text set's pack kernel in phases 3, 6 and
 (times from phase 2: DNA on 1 GiB of ACGT, the other cases under the
 row's "profiles" key), the text set's pack kernel's row 13 (times from
 phase 2: nanopore_full's reads, forward, DNA; the other cases under
-"cases"), the selections' rows 10-11 (select_words, the
+"cases"), the traceback kernel's row 14 (its launches there, the host
+finish of both engines; times from phase 6's forward strand, the main
+path's own launch captured and held bit for bit against trace_plain, as
+are phase 9's, 11a's, 11b's and phase 14's ascii search_many's, under
+the row's "holds" key; no plain traceback ran, and it launched in phases
+3, 6, 8, 9 and 11), the selections' rows 10-11 (select_words, the
 chained call; select_positions, with the pieces' kernel select_positions_tiles
 as a record of its own under the row's "pieces" key), whose times are
 phase 2's (without all_minima), phase 9's and phase 10's (the whole
@@ -269,8 +276,8 @@ chunk; the first sub-range's under the record's "sub_range" key). Row
 2's record of q2meta is phase 5's nanopore chunk, with the
 off_targets_full chunk under its "off_targets_full" key. The sharded runs
 that hold a selection to its plain version capture its arguments in a
-second, untimed run. The plain selections and the plain packs refuse to
-run wherever the plain scans do (phases 20 and 21).
+second, untimed run. The plain selections, the plain packs and the plain
+traceback refuse to run wherever the plain scans do (phases 20 and 21).
 
 The script imports neither JAX nor anything of the reference package.
 
@@ -475,15 +482,17 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def counts_zero():
-    """Set every kernel's launch count, and the plain selections' and the
-    plain packs' call counts, to 0."""
+    """Set every kernel's launch count, and the plain selections', the
+    plain packs' and the plain traceback's call counts, to 0."""
+    from sassy_tpu_torch import traceback
     from sassy_tpu_torch.ops import batch, myers_cuda, myers_torch
 
     for fn in (myers_cuda.scan_meta, myers_cuda.scan_q_meta, myers_cuda.scan,
                myers_cuda.scan_q, myers_cuda.scan_qn,
                myers_cuda.scan_variant, myers_cuda.pack,
-               myers_cuda.pack_set):
+               myers_cuda.pack_set, myers_cuda.trace_windows):
         fn.launches = 0
+    traceback.trace_plain.calls = 0
     myers_cuda.scan_qn.members = {}
     myers_cuda.scan_variant.members = {}
     myers_torch.pack_plain.calls = 0
@@ -510,6 +519,13 @@ PACKED = {"launches": 0}
 #: 6, 11 and 21a: every batched search's planes; phases 3, 8 and 9: the
 #: single engine's reverse strand), row 13
 PACKED_SET = {"launches": 0}
+#: launches of the traceback kernel in the main path's runs (phases 3, 6,
+#: 8, 9 and 11: both engines' host finish), row 14
+TRACED = {"launches": 0}
+#: the traceback kernel held against its plain version on a launch
+#: captured from a main-path run (hold_trace), by label: phase 6's forward
+#: strand is row 14's record, the others go under its "holds" key
+TRACE_HOLDS = {}
 
 
 #: the selection entry points of ops/minima.py that the engines call, and
@@ -575,7 +591,92 @@ def selected(what: str, used: tuple) -> dict:
     PACKED["launches"] += got["pack"]
     got["pack_set"] = myers_cuda.pack_set.launches
     PACKED_SET["launches"] += got["pack_set"]
+    from sassy_tpu_torch import traceback
+
+    if DEVICE != "cpu" and traceback.trace_plain.calls:
+        fail(f"{what} ran the plain traceback {traceback.trace_plain.calls} "
+             "times")
+    got["trace"] = myers_cuda.trace_windows.launches
+    TRACED["launches"] += got["trace"]
     return got
+
+
+def traced(what: str, got: dict, least: int = 1) -> None:
+    """A main-path run's ``selected`` counts: the traceback kernel launched
+    ``least`` times or more (the host finish traced on the card)."""
+    if got["trace"] < least:
+        fail(f"{what} launched the traceback kernel {got['trace']} times")
+
+
+@contextlib.contextmanager
+def captured_traces():
+    """Record the arguments of every ``myers_cuda.trace_windows`` call in
+    the block, in order; every call goes through and counts its launches
+    as it would."""
+    from sassy_tpu_torch.ops import myers_cuda
+
+    calls = []
+    fn = myers_cuda.trace_windows
+
+    def rec(*a, **kw):
+        calls.append(a)
+        return fn(*a, **kw)
+
+    # the wrapper counts where it launches through the module's name
+    rec.launches = fn.launches
+    myers_cuda.trace_windows = rec
+    try:
+        yield calls
+    finally:
+        fn.launches = rec.launches
+        myers_cuda.trace_windows = fn
+
+
+def hold_trace(label: str, args) -> dict:
+    """A captured traceback call held on its inputs: the kernel again
+    (one launch a chunk) and its plain version (``trace_plain``, on the same
+    tensors on the card) bit for bit on every output (start, total cost,
+    pattern start and end, failed, every op); the kernel timed under CUDA
+    events, the plain version on the host clock, beside
+    ``diagnostics.trace_bound``. The hold's own launches are not counted.
+    The record goes into ``TRACE_HOLDS[label]``."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import traceback
+    from sassy_tpu_torch.diagnostics import trace_bound
+    from sassy_tpu_torch.ops import myers_cuda
+
+    _, pcodes, cand, _, prof, fill, _, chunk = args
+    m, B = pcodes.shape[1], cand.shape[1]
+    before = myers_cuda.trace_windows.launches
+    plain_before = traceback.trace_plain.calls
+    got = myers_cuda.trace_windows(*args).cpu().numpy()
+    t0 = time.perf_counter()
+    want = traceback.trace_plain(*args).numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ms = cuda_ms(lambda: myers_cuda.trace_windows(*args), REPS)
+    myers_cuda.trace_windows.launches = before
+    traceback.trace_plain.calls = plain_before
+    a, b = (traceback.unpack_trace(x, m, fill) for x in (got, want))
+    err = max((int(np.abs(x.astype(np.int64) - y.astype(np.int64)).max())
+               for x, y in zip(a, b) if x.size), default=0)
+    same = np.array_equal(got, want)
+    rec = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           **trace_bound(cand.cpu().numpy(), want, m, fill, prof.planes,
+                         pcodes.shape[0]),
+           "candidates": B, "m": m, "fill": fill,
+           "launches_a_call": -(-B // chunk), "failed": int(b[5].sum())}
+    log(f"{label}: the traceback kernel vs plain: {B} candidates of "
+        f"{prof.name}, m={m}, fill {fill}, {rec['launches_a_call']} "
+        f"launch(es) a call: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+        f"{rec['ops']} ops, {rec['bytes']} bytes), bit-equal={same} "
+        f"max_abs_err={err}")
+    if not same:
+        fail(f"{label}: the traceback kernel != its plain version")
+    TRACE_HOLDS[label] = rec
+    return rec
 
 
 @contextlib.contextmanager
@@ -1190,7 +1291,7 @@ def end_to_end(gen):
         mark()
         cands = eng.select(inp, outs).cpu()
         mark()
-        host_finish(searcher, pattern, pcodes, text, K, cands)
+        host_finish(searcher, pattern, pcodes, text, K, cands, prep)
         mark()
         log(f"phase 3: forward strand, {N_TEXT >> 20} MiB, {run}: "
             + ", ".join(f"{nm} {(b - a) * 1e3:.1f} ms"
@@ -1217,6 +1318,7 @@ def end_to_end(gen):
         e2e = time.perf_counter() - t0
         launches = myers_cuda.scan_meta.launches
         got = selected("phase 3", ("select_words_chained",))
+        traced("phase 3", got)
     log(f"phase 3: Searcher.search, both strands, {N_TEXT >> 20} MiB: "
         f"{e2e:.3f} s, "
         f"{len(matches)} matches, scan kernel launches {launches}, uploads "
@@ -1500,12 +1602,17 @@ def off_targets_chunk() -> dict:
 def finish_split_text(sp: dict) -> str:
     """A ``Searcher.last_finish_split`` as one clause: its steps' host
     times and sizes."""
+    if "trace" in sp:  # the kernel: uploads, launches, the one copy
+        trace = (f"trace {sp['trace'] * 1e3:.1f} ms ({sp.get('windows', 0)} "
+                 "windows)")
+    else:
+        trace = (f"window gather {sp.get('gather', 0) * 1e3:.1f} ms "
+                 f"({sp.get('windows', 0)} windows), fill "
+                 f"{sp.get('fill', 0) * 1e3:.1f} ms, walk "
+                 f"{sp.get('walk', 0) * 1e3:.1f} ms")
     return (f"filters {sp.get('filters', 0) * 1e3:.1f} ms "
             f"({sp.get('candidates', 0)} candidates, {sp.get('kept', 0)} "
-            f"kept), window gather {sp.get('gather', 0) * 1e3:.1f} ms "
-            f"({sp.get('windows', 0)} windows), fill "
-            f"{sp.get('fill', 0) * 1e3:.1f} ms, walk "
-            f"{sp.get('walk', 0) * 1e3:.1f} ms, Match build "
+            f"kept), {trace}, Match build "
             f"{sp.get('build', 0) * 1e3:.1f} ms ({sp.get('matches', 0)} "
             "matches)")
 
@@ -1559,7 +1666,7 @@ def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha):
         if run == "warm":
             t0 = time.perf_counter()
             ms = searcher._finish_many_batched(
-                [(Strand.FWD, pats, pcodes, lambda: flat)], texts, k, None)
+                [(Strand.FWD, pats, pcodes, lambda: flat)], ts, k, None)
             post = (f"{(time.perf_counter() - t0) * 1e3:.1f} ms "
                     f"({len(ms)} matches: "
                     f"{finish_split_text(searcher.last_finish_split)})")
@@ -1615,12 +1722,14 @@ def batched_end_to_end(reads, barcodes):
 
     counts_zero()
     t0 = time.perf_counter()
-    matches = searcher.search_many(pats, texts, K)
-    torch.cuda.synchronize()
+    with captured_traces() as traces:
+        matches = searcher.search_many(pats, texts, K)
+        torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     launches = myers_cuda.scan_q_meta.launches
     single = myers_cuda.scan_meta.launches
     got = selected("phase 6", ("select_words_chained",))
+    traced("phase 6", got, least=2)
     n_set = got["pack_set"]
     log(f"phase 6: Searcher.search_many, both strands: {e2e:.3f} s, "
         f"{len(matches)} matches, q2meta launches {launches}, q1meta "
@@ -1631,6 +1740,9 @@ def batched_end_to_end(reads, barcodes):
     if launches < 2 or single or n_set < 2:
         fail(f"search_many launched q2meta {launches}, q1meta {single} and "
              f"the text set's pack kernel {n_set} times")
+    # the forward strand's traceback, as the main path launched it
+    hold_trace("phase 6: the forward strand", traces[0])
+    del traces
 
     want_cigar = f"{MUT_AT}=1X{BARCODE_LEN - MUT_AT - 1}="
     planted = {}
@@ -1747,14 +1859,15 @@ def planted_end(pattern, strand: str, where: str, hang: int, n: int):
                                              else (0, m - hang))
 
 
-def host_finish(searcher, pattern, pcodes, text, k: int, cands):
+def host_finish(searcher, pattern, pcodes, text, k: int, cands, prep):
     """One strand's candidates ((2, N) end positions and costs, on the
     host) through the Searcher's host finish as one (pattern, text) cell,
-    as ``Searcher.search`` runs it: the filters, the traceback and the
-    Match build."""
+    as ``Searcher.search`` runs it: the filters, the traceback (on the
+    planes of ``prep``, its ``PreparedText``) and the Match build."""
     import numpy as np
 
     from sassy_tpu_torch import Strand
+    from sassy_tpu_torch.traceback import StrandPlanes
 
     pos, cost = cands.numpy().astype(np.int64)
     order = np.lexsort((cost, pos))
@@ -1763,7 +1876,8 @@ def host_finish(searcher, pattern, pcodes, text, k: int, cands):
     searcher.last_finish_split = {}
     found = searcher._finish_strand(
         [pattern], [pcodes], [text], lens,
-        (zeros, zeros, pos[order], cost[order]), k, None, Strand.FWD)
+        (zeros, zeros, pos[order], cost[order]), k, None, Strand.FWD,
+        lambda: StrandPlanes(prep.planes, np.zeros(1, np.int64)))
     return searcher._matches([found], lens)
 
 
@@ -1792,7 +1906,7 @@ def single_strand_phases(label, searcher, prof, pattern, text, k):
         mark()
         cands = eng.select(inp, outs).cpu()
         mark()
-        host_finish(searcher, pattern, pcodes, text, k, cands)
+        host_finish(searcher, pattern, pcodes, text, k, cands, prep)
         mark()
         log(f"{label}: forward strand, {len(text) >> 20} MiB, {run}, "
             f"{'word' if inp.fast else 'position'} level (T="
@@ -1888,7 +2002,7 @@ def overhang_single(gen, text):
             f"the end: {e2e:.3f} s, {len(matches)} matches, launches "
             f"{launched}")
         require(launched, ("q1meta",), ("q1", "q2", "q2meta"), "phase 8")
-        selected("phase 8", ("select_words_chained",))
+        traced("phase 8", selected("phase 8", ("select_words_chained",)))
         check_sites("phase 8", matches, sites, pattern, text, k, alpha)
 
 
@@ -1967,8 +2081,9 @@ def overhang_position_level(gen, text):
     torch.cuda.reset_peak_memory_stats()
     counts_zero()
     t0 = time.perf_counter()
-    matches = searcher.search(pattern, text, k)
-    torch.cuda.synchronize()
+    with captured_traces() as traces:
+        matches = searcher.search(pattern, text, k)
+        torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     launched = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1976,7 +2091,9 @@ def overhang_position_level(gen, text):
         f"{n >> 20} MiB, position level: {e2e:.3f} s, {len(matches)} "
         f"matches, launches {launched}, device memory peak {peak:.2f} GiB")
     require(launched, ("q1",), ("q1meta", "q2", "q2meta"), "phase 9")
-    selected("phase 9", ("select_positions",))
+    traced("phase 9", selected("phase 9", ("select_positions",)))
+    hold_trace("phase 9: the forward strand, position level", traces[0])
+    del traces
     check_sites("phase 9", matches, sites, pattern, text, k, alpha)
     record["launches"] = launched["q1"]
     return record
@@ -2147,7 +2264,7 @@ def batched_overhang(label, reads, pats, case, want, used, unused,
                           alpha)
     counts_zero()
     t0 = time.perf_counter()
-    with captured_scans() as scans:
+    with captured_scans() as scans, captured_traces() as traces:
         matches = searcher.search_many(pats, texts, k)
         torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
@@ -2155,12 +2272,16 @@ def batched_overhang(label, reads, pats, case, want, used, unused,
     log(f"{label}: Searcher.search_many with alpha {alpha}, both strands: "
         f"{e2e:.3f} s, {len(matches)} matches, launches {launched}")
     require(launched, used, unused, label)
-    n_set = selected(label, (selection,))["pack_set"]
+    got = selected(label, (selection,))
+    traced(label, got, least=2)
+    n_set = got["pack_set"]
     log(f"{label}: text set pack kernel launches {n_set}, plain set packs 0")
     if n_set < 2:
         fail(f"{label}: the text set's pack kernel launched {n_set} times")
     # the last dispatch chunk's launch (the reverse strand's planes)
     hold_scan(f"{label}: the last of {len(scans)} scan launches", *scans[-1])
+    hold_trace(f"{label}: the forward strand", traces[0])
+    del traces
 
     cost = int(np.floor(np.float32(alpha) * np.float32(hang)))
     cigar = f"{m - hang}="
@@ -2472,10 +2593,13 @@ def ascii_end_to_end(gen):
             bytes(p).upper() if j % 3 == 0 else bytes(p), np.uint8)
     counts_zero()
     t0 = time.perf_counter()
-    matches = searcher.search_many(pats, texts, K)
-    torch.cuda.synchronize()
+    with captured_traces() as traces:
+        matches = searcher.search_many(pats, texts, K)
+        torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     launched = counts()
+    hold_trace("phase 14: ascii search_many, the forward strand", traces[0])
+    del traces
     log(f"phase 14: search_many of {len(pats)} ascii patterns over "
         f"{ASCII_TEXTS} x {READ_LEN} bytes: {e2e:.3f} s, {len(matches)} "
         f"matches, launches {launched}")
@@ -2757,8 +2881,9 @@ def split_times(acc: dict):
     search / grep / filter made (``cli._groups``), the TextSet and dispatch
     calls, the host's waits for the dispatch thread (the engines'
     finish()), the Searchers' host finish (each finish's
-    ``last_finish_split``, summed: the filters, window gather, fill, walk
-    and Match build, with their sizes), the wall, and the device's busy
+    ``last_finish_split``, summed: the filters, the trace (on the CPU path
+    its window gather, fill and walk) and the Match build, with their
+    sizes), the wall, and the device's busy
     time (the CUDA kernels torch.profiler sees)."""
     import torch
     from torch.autograd import DeviceType
@@ -2956,8 +3081,8 @@ def log_split(what: str, s: dict, parsed: tuple[int, float]) -> None:
     """Log a run's ``split_times``, beside the parse of its input alone."""
     wall, busy = s["wall"], s["busy"]
     fin = s["finish"]
-    finish = sum(fin.get(key, 0.0)
-                 for key in ("filters", "gather", "fill", "walk", "build"))
+    finish = sum(fin.get(key, 0.0) for key in (
+        "filters", "trace", "gather", "fill", "walk", "build"))
     share = (f"device busy {busy:.3f} s = {busy / wall:.2%} of the wall, "
              f"idle {1 - busy / wall:.2%}" if busy else
              "device busy time not measured (the profiler saw no kernel)")
@@ -3595,15 +3720,18 @@ def plant_edges(text, pats, span: int, halo: int, Dt: int,
 
 @contextlib.contextmanager
 def no_plain(what: str = "phase 20"):
-    """The plain scans, selections and packs refuse to run: phase 20's
-    sharded runs and phase 21's tools go through the kernels only."""
+    """The plain scans, selections, packs and traceback refuse to run:
+    phase 20's sharded runs and phase 21's tools go through the kernels
+    only."""
+    from sassy_tpu_torch import traceback
     from sassy_tpu_torch.ops import batch, minima, myers_cuda, myers_torch
 
     names = [(myers_cuda, name) for name in (
         "scan_meta_plain", "scan_q_meta_plain", "scan_plain",
         "scan_q_plain")]
     names += [(minima, name + "_plain") for name in SELECT_ENTRIES]
-    names += [(myers_torch, "pack_plain"), (batch, "pack_set_plain")]
+    names += [(myers_torch, "pack_plain"), (batch, "pack_set_plain"),
+              (traceback, "trace_plain")]
     saved = {(mod, name): getattr(mod, name) for mod, name in names}
 
     def refuse(name):
@@ -4354,6 +4482,20 @@ def main() -> int:
                  "sassy_tpu/ops/myers_xla.py:228", PACKED_SET["launches"],
                  head_set),
          "cases": head_set["cases"]},
+        # row 14: the JAX package's host traceback (the window gather,
+        # _fill_batch and _walk_batch); launches of phases 3, 6, 8, 9 and
+        # 11, times from phase 6's forward strand (16,752 candidates of 24
+        # bp), the other holds under "holds"
+        {**entry("trace", "sassy_tpu_torch/csrc/trace.cu",
+                 "sassy_tpu/traceback.py:37, :119", TRACED["launches"],
+                 TRACE_HOLDS["phase 6: the forward strand"]),
+         "candidates": TRACE_HOLDS["phase 6: the forward strand"][
+             "candidates"],
+         "holds": {label: {key: rec[key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+             "candidates", "m")}
+             for label, rec in TRACE_HOLDS.items()
+             if label != "phase 6: the forward strand"}},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,8 @@ from .ops.bitpack import WORD_BITS
 from .ops.plan import _bucket_rows, cdiv, halo_words, plan_tiles
 
 __all__ = ["self_test", "trace", "cost_model", "scan_bound", "select_bound",
-           "pack_bound", "MEM_BYTES_PER_S", "INT32_OPS_PER_S", "ROW_OPS",
-           "WORD_OPS"]
+           "pack_bound", "trace_bound", "MEM_BYTES_PER_S", "INT32_OPS_PER_S",
+           "ROW_OPS", "WORD_OPS"]
 
 #: The least time of a scan kernel: the larger of its bytes over the
 #: H100's 3.35 TB/s and its integer ALU-pipe instructions over that pipe's
@@ -200,6 +200,40 @@ def pack_bound(n_bytes: int, planes: int, with_valid: bool,
     nbytes = (n_bytes + 4 * (planes + int(bool(with_valid))) * gw
               + (8 * (3 * texts + 1) if texts else 0))
     ops = n_bytes
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops}
+
+
+def trace_bound(cand: np.ndarray, out: np.ndarray, m: int, fill_len: int,
+                planes: int, patterns: int) -> dict:
+    """bound_ms and bound_by (and the bytes and ops they come from) of one
+    traceback call (``myers_cuda.trace_windows``) over (5, B) int64
+    candidate columns ``cand`` (pattern, first plane word, window offset,
+    window length, end) that returned the (B, stride) int32 rows ``out``.
+    Only what this call's data needs: a candidate's walk starts at column
+    i0 = min(end - offset, window length) and row m - over (its end
+    overshoot), and reads no column past i0.
+
+    Bytes: the ``planes`` plane words that hold each window's first i0
+    positions, read once; the candidate columns, the ``patterns`` x m
+    pattern codes and the (3, m + 1) int32 tables, read once; the output
+    rows, written once. Operations: one a DP cell of rows 1..m - over and
+    columns 1..i0, and one a walk step (an op in ``out``)."""
+    from .ops.myers_cuda import TRACE_FIELDS
+
+    off, wlen, end = (np.asarray(cand[r], np.int64) for r in (2, 3, 4))
+    base = 32 * np.asarray(cand[1], np.int64) + off
+    over = np.maximum(end - off - wlen, 0)
+    i0 = end - off - over
+    words = np.where(i0 > 0, (base % 32 + i0 + 31) // 32, 0)
+    steps = int(np.count_nonzero(
+        np.ascontiguousarray(out[:, TRACE_FIELDS:]).view(np.int8) >= 0))
+    nbytes = (4 * planes * int(words.sum()) + cand.size * 8
+              + patterns * m + 12 * (m + 1) + out.size * 4)
+    ops = int(((m - over) * i0).sum()) + steps
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),

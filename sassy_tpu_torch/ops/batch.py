@@ -510,6 +510,19 @@ class TextSet:
             self._planes[key] = got
         return got
 
+    def strand_planes(self, profile: Profile,
+                      reverse: bool) -> tuple[torch.Tensor, np.ndarray]:
+        """The planes of a strand as the host finish's traceback reads
+        them, and each text's first word in them: those already packed
+        with the fewest overhang steps (a text's positions read the same
+        whatever the steps past it), else ``planes(profile, reverse)``."""
+        key = (profile.name, getattr(profile, "case_sensitive", None),
+               reverse)
+        steps = sorted(k[3] for k in self._planes if k[:3] == key)
+        steps = steps[0] if steps else 0
+        return (self.planes(profile, reverse, steps),
+                self.layout(steps)[1][:-1])
+
     def descriptor(self, profile: Profile, pp: PiecePlan, reverse: bool,
                    t0: int, t1: int) -> Windows:
         """The windows of pieces t0..t1 as the scan kernels read them: each

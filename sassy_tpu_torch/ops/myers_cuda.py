@@ -62,6 +62,15 @@ reversed host copies (``sassy_tpu/ops/batch.py:119``), ``reverse_planes``
 ``batch.pack_set_plain`` for a set on the CPU and this for one on a CUDA
 device.
 
+The host finish's traceback has a kernel of its own: ``trace_windows``
+(``csrc/trace.cu``, its per-candidate work in ``csrc/trace.cuh``) reads
+each candidate's window from the strand's planes, fills its windowed DP
+and walks it back, one thread a candidate: what the JAX package's host
+traceback computes (``sassy_tpu/traceback.py:37`` ``_fill_batch``,
+``:119`` ``_walk_batch``); ``traceback.trace_cells_batch`` runs
+``traceback.trace_plain`` for planes on the CPU and this for planes on a
+CUDA device.
+
 The four scan kernels of the search paths read their text straight from
 the packed planes: their first argument is a ``myers_torch.Windows``
 descriptor (each tile's ``wstart`` and ``wend`` in the planes; the read in
@@ -100,18 +109,18 @@ __all__ = ["scan_meta", "scan_meta_plain", "scan_q_meta",
            "scan_q_plain", "scan_qn", "scan_qn_plain", "scan_variant",
            "scan_variant_plain", "select_words", "select_words_chained",
            "select_positions",
-           "select_positions_tiles", "pack", "pack_set", "build",
-           "nvcc_path"]
+           "select_positions_tiles", "pack", "pack_set", "trace_windows",
+           "build", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu", CSRC / "scan.cu",
            CSRC / "scan_q.cu", CSRC / "scan_qn.cu", CSRC / "scan_variants.cu",
            CSRC / "select_words.cu", CSRC / "select_positions.cu",
-           CSRC / "pack.cu")
+           CSRC / "pack.cu", CSRC / "trace.cu")
 HEADERS = (CSRC / "myers_step.cuh", CSRC / "window_read.cuh",
            CSRC / "select_common.cuh",
            CSRC / "select_walk.cuh", CSRC / "select_words.cuh",
-           CSRC / "pack.cuh")
+           CSRC / "pack.cuh", CSRC / "trace.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sassy_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -137,6 +146,14 @@ NO_END = 1 << 62
 #: the pack kernel's modes (csrc/pack.cuh) and most code planes
 PACK_MODES = {"table5": 0, "byte": 1}
 PACK_MAX_PLANES = 8
+#: the traceback kernel's match tests (csrc/trace.cuh): a code AND
+#: (iupac, dna), byte equality (ascii)
+TRACE_EQ = {"iupac": 0, "ascii": 1}
+#: int32 fields that start a traced candidate's output row (kTraceFields):
+#: its start in the window, total cost, pattern start, pattern end,
+#: failed; its ops follow as int8 (0-3: =, X, D, I) in walk order, -1 past
+#: the walk's end
+TRACE_FIELDS = 5
 
 _LIBS: dict = {}
 
@@ -223,12 +240,16 @@ def load_library(path) -> ctypes.CDLL:
                                        + [big, ptr, big, big] + [num] * 6
                                        + [ctypes.POINTER(ctypes.c_uint), num,
                                           ptr])
+        lib.sassy_trace.argtypes = ([ptr, big] + [num] * 2 + [ptr] * 2
+                                    + [big, ptr] + [num] * 3
+                                    + [ptr, big, ptr, ptr] + [big] * 3
+                                    + [ptr])
         for fn in (lib.sassy_scan_meta, lib.sassy_scan_q_meta, lib.sassy_scan,
                    lib.sassy_scan_q, lib.sassy_scan_qn,
                    lib.sassy_scan_variant, lib.sassy_select_words,
                    lib.sassy_select_positions,
                    lib.sassy_select_positions_tiles, lib.sassy_pack,
-                   lib.sassy_pack_set):
+                   lib.sassy_pack_set, lib.sassy_trace):
             fn.restype = num
         _LIBS[path] = lib
     return lib
@@ -1267,3 +1288,90 @@ def pack_set(data, starts, lens, wofs, width: int, profile,
 
 
 pack_set.launches = 0
+
+
+# -- the host finish's traceback ---------------------------------------------
+
+
+def _check_trace(planes, pcodes, cand, tables, profile, fill_len: int,
+                 chunk: int) -> None:
+    """What the traceback kernel takes: (rows, L) int32 planes on a CUDA
+    device with a row a code plane at least, (Q, m) uint8 pattern codes,
+    (5, B) int64 candidate columns and (3, m + 1) int32 tables, all
+    contiguous on that device; fill_len >= 0, chunk >= 1."""
+    if (not isinstance(planes, torch.Tensor) or planes.dtype != torch.int32
+            or planes.dim() != 2):
+        raise ValueError(f"planes: expected a 2-D torch.int32 tensor, got "
+                         f"{getattr(planes, 'dtype', type(planes))} "
+                         f"{tuple(getattr(planes, 'shape', ()))}")
+    if planes.device.type != "cuda":
+        raise ValueError(f"the traceback kernel runs on cuda, not "
+                         f"{planes.device}")
+    if not planes.is_contiguous():
+        raise ValueError("planes must be contiguous")
+    if profile.eq_mode not in TRACE_EQ or not 1 <= profile.planes <= min(
+            PACK_MAX_PLANES, planes.shape[0]):
+        raise ValueError(f"the {profile.name} profile's {profile.planes} "
+                         f"planes ({profile.eq_mode} eq) in "
+                         f"{planes.shape[0]} rows")
+    for name, x, dtype in (("pcodes", pcodes, torch.uint8),
+                           ("cand", cand, torch.int64),
+                           ("tables", tables, torch.int32)):
+        if (not isinstance(x, torch.Tensor) or x.dtype != dtype
+                or x.dim() != 2 or not x.is_contiguous()
+                or x.device != planes.device):
+            raise ValueError(f"{name}: expected a contiguous 2-D {dtype} "
+                             f"tensor on {planes.device}, got "
+                             f"{getattr(x, 'dtype', type(x))} "
+                             f"{tuple(getattr(x, 'shape', ()))} on "
+                             f"{getattr(x, 'device', None)}")
+    m = pcodes.shape[1]
+    if cand.shape[0] != 5 or tuple(tables.shape) != (3, m + 1):
+        raise ValueError(f"cand {tuple(cand.shape)}, tables "
+                         f"{tuple(tables.shape)}: expected (5, B) and "
+                         f"(3, {m + 1})")
+    if fill_len < 0 or chunk < 1:
+        raise ValueError(f"fill_len = {fill_len}, chunk = {chunk}")
+
+
+def trace_windows(planes, pcodes, cand, tables, profile, fill_len: int,
+                  alpha_on: bool, chunk: int):
+    """The traceback kernel (``csrc/trace.cu``) on CUDA tensors: what
+    ``traceback.trace_plain`` computes on the same inputs, bit for bit.
+    planes (rows, L) int32, the strand's; pcodes (Q, m) uint8; cand (5, B)
+    int64: each candidate's pattern, its text's first plane word, its
+    window's offset and length, its end; tables (3, m + 1) int32
+    (``traceback.trace_tables``). Every window must lie in the planes and
+    end no more than m before its candidate (the caller checks; a word at
+    or past L reads as zero). Returns the (B, stride) int32 output rows
+    on the device (``traceback.unpack_trace``). One launch a ``chunk`` of
+    candidates, in one scratch of their cost matrices and codes; raises
+    ValueError before any build or launch on other inputs."""
+    fill_len, chunk = int(fill_len), int(chunk)
+    _check_trace(planes, pcodes, cand, tables, profile, fill_len, chunk)
+    dev = planes.device
+    m, B = pcodes.shape[1], cand.shape[1]
+    stride = TRACE_FIELDS + -(-(m + fill_len + 1) // 4)
+    out = torch.empty((B, stride), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    chunk = min(chunk, B)
+    E = torch.empty(chunk * (m + 1) * (fill_len + 1), dtype=torch.int32,
+                    device=dev)
+    codes = torch.empty(chunk * max(fill_len, 1), dtype=torch.uint8,
+                        device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for b0 in range(0, B, chunk):
+            _raise_on(lib.sassy_trace(
+                _ptr(planes), planes.shape[1], profile.planes,
+                TRACE_EQ[profile.eq_mode], _ptr(pcodes) if m else None,
+                _ptr(cand), B, _ptr(tables), m, fill_len, int(bool(alpha_on)),
+                _ptr(out), stride, _ptr(E), _ptr(codes), chunk, b0,
+                min(chunk, B - b0), stream), "trace")
+            trace_windows.launches += 1
+    return out
+
+
+trace_windows.launches = 0

@@ -8,11 +8,14 @@ complement, overhang (``alpha``, ``max_overhang``), ``only_best_match``,
 ``without_trace`` and ``max_n_frac``. Two engines find the candidates on
 ``device``: ``TorchEngine`` (one pattern, one text) and ``BatchEngine``
 (patterns x texts). The end-position filter, the N-fraction filter,
-only-best selection and the CIGAR traceback run on the host, as in the
+only-best selection and the CIGAR build run on the host, as in the
 reference, from the port's own copies of its host modules: one finish
 for both engines, over the arrays of all candidates of a strand at once
 (``_finish_strand``, ``traceback.trace_cells_batch``), never a loop over
-(pattern, text) cells.
+(pattern, text) cells. The traceback reads its windows from the strand's
+planes, which the search packed (the batched call's ``TextSet``, the
+single engine's ``PreparedText``): on the card its kernel
+(``csrc/trace.cu``), on the CPU its plain version.
 
 Reverse-complement handling follows the reference exactly (search.rs:
 787-881): search the *complemented* pattern against the *reversed* text,
@@ -32,7 +35,7 @@ from .nfilter import n_fraction_ok
 from .ops.batch import BatchEngine, TextSet
 from .ops.myers_torch import TorchEngine, engine_device
 from .profiles import Profile, as_bytes_array, get_profile
-from .traceback import TextSpans, _tick, trace_cells_batch
+from .traceback import StrandPlanes, TextSpans, _tick, trace_cells_batch
 
 __all__ = ["Searcher", "CachedRev", "EncodedPatterns", "SearchMode"]
 
@@ -366,7 +369,6 @@ class Searcher:
         prof = self.profile
         pcodes = [prof.encode(p) for p in pats]
         ts = textset if textset is not None else self._text_set(rc_texts)
-        fwd_texts = ts.texts
         fin = self.batch.candidates_many_flat_async(
             prof, pcodes, ts, k, self.alpha, self.max_overhang, all_minima)
         strands = [(Strand.FWD, pats, pcodes, fin)]
@@ -377,21 +379,24 @@ class Searcher:
                             self.batch.candidates_many_flat_async(
                                 prof, ccodes, ts, k, self.alpha,
                                 self.max_overhang, all_minima, reverse=True)))
-        return lambda: self._finish_many_batched(strands, fwd_texts, k,
-                                                 filter_fn)
+        return lambda: self._finish_many_batched(strands, ts, k, filter_fn)
 
-    def _finish_many_batched(self, strands, texts, k: int,
+    def _finish_many_batched(self, strands, ts: TextSet, k: int,
                              filter_fn) -> list[Match]:
         """Each strand's flat candidate columns, waited for in turn (the
         forward strand's finish overlaps the reverse strand's device
         work), finished as arrays, then one Match list in the reference's
         order. ``strands``: (strand, its patterns, their codes, the
-        engine's ``finish()``)."""
+        engine's ``finish()``); ``ts``: the call's text set, whose planes
+        the traceback reads."""
+        texts = ts.texts
         lens = np.fromiter(map(len, texts), np.int64, len(texts))
         self.last_finish_split = {}
-        found = [self._finish_strand(pats, codes, texts, lens, fin(), k,
-                                     filter_fn, strand)
-                 for strand, pats, codes, fin in strands]
+        found = [self._finish_strand(
+            pats, codes, texts, lens, fin(), k, filter_fn, strand,
+            lambda rc=strand is Strand.RC: StrandPlanes(
+                *ts.strand_planes(self.profile, rc)))
+            for strand, pats, codes, fin in strands]
         return self._matches(found, lens)
 
     # ------------------------------------------------------------------
@@ -403,15 +408,17 @@ class Searcher:
         """One pattern on one text, both strands with ``rc``: their planes
         come from one upload of the forward bytes
         (``TorchEngine.prepare_strands``, kept while a read-only source
-        lives); the host finish reads the forward bytes backwards for the
-        reverse strand."""
+        lives); the traceback reads each strand's own planes, and the
+        host finish's filters the forward bytes backwards for the reverse
+        strand."""
         pat = as_bytes_array(pattern)
         fwd = _as_rc_searchable(text).text()
         lens = np.array([len(fwd)], np.int64)
         self.last_finish_split = {}
         if not self.rc:
-            found = [self._search_one_strand(pat, fwd, fwd, k, all_minima,
-                                             filter_fn, Strand.FWD)]
+            found = [self._search_one_strand(
+                pat, fwd, self.engine.prepare(self.profile, fwd), k,
+                all_minima, filter_fn, Strand.FWD)]
         else:
             comp = as_bytes_array(self.profile.complement(pat))
             fprep, rprep = self.engine.prepare_strands(self.profile, fwd)
@@ -427,8 +434,9 @@ class Searcher:
                            prepared, k: int, all_minima: bool, filter_fn,
                            strand: Strand) -> "_Found":
         """The candidates of one strand on ``prepared`` (its
-        ``PreparedText``, or the text itself), finished on the host
-        ``text`` (the forward bytes: read backwards for RC) as one cell."""
+        ``PreparedText``), finished as one cell: the traceback on its
+        planes, the filters on the host ``text`` (the forward bytes: read
+        backwards for RC)."""
         p_codes = self.profile.encode(pattern)
         cands = self.engine.candidates(
             self.profile, p_codes, prepared, k, self.alpha,
@@ -438,13 +446,15 @@ class Searcher:
         zeros = np.zeros(pos_cost.shape[1], np.int64)
         return self._finish_strand(
             [pattern], [p_codes], [text], np.array([len(text)], np.int64),
-            (zeros, zeros, *pos_cost), k, filter_fn, strand)
+            (zeros, zeros, *pos_cost), k, filter_fn, strand,
+            lambda: StrandPlanes(prepared.planes, np.zeros(1, np.int64)))
 
     # ------------------------------------------------------------------
     # the host finish, shared by both engines
 
     def _finish_strand(self, pats, pcodes, texts, lens: np.ndarray, cols,
-                       k: int, filter_fn, strand: Strand) -> "_Found":
+                       k: int, filter_fn, strand: Strand,
+                       planes) -> "_Found":
         """End-position filter, N-fraction pre-filter, only-best selection,
         traceback, traced N-filter (reference search.rs:884-937 +
         process_matches) over all candidates of one strand at once.
@@ -452,7 +462,9 @@ class Searcher:
         ``cols``: (pattern, text, end, cost) columns, sorted by them, as
         the batched engine's flat candidates are; positions are in the
         strand's text, which for RC is the forward text read backwards.
-        Returns the kept matches, in the strand's coordinates."""
+        ``planes()``: the strand's ``StrandPlanes``, which the traceback
+        reads (called only where a candidate is traced). Returns the kept
+        matches, in the strand's coordinates."""
         split = self.last_finish_split
         t0 = time.perf_counter()
         q, t, end, cost = (np.asarray(c, np.int64) for c in cols)
@@ -486,19 +498,22 @@ class Searcher:
             return _Found(strand, q, t, seq, cost, None, e, None,
                           m - np.maximum(0, end - lens[t]), None)
         parts = []
+        strand_planes = planes() if len(seq) else None
         for mv in np.unique(m[seq]).tolist():
             rows = seq[m[seq] == mv]
             tr = trace_cells_batch(
                 self.profile, pats, pcodes, texts, lens, q[rows], t[rows],
-                end[rows], mv + k, self.alpha, self.max_overhang, reverse,
-                split)
+                end[rows], mv + k, self.alpha, self.max_overhang,
+                strand_planes, reverse, split)
             assert (tr.cost <= cost[rows]).all(), "trace cost > recorded cost"
             assert (tr.cost <= k).all()
             t0 = time.perf_counter()
             if self.max_n_frac is not None:
+                span = tr.text_end - tr.text_start
                 keep = n_fraction_ok(
-                    tr.spans.n_counts(tr.text_start, tr.text_end),
-                    tr.text_end - tr.text_start, self.max_n_frac)
+                    TextSpans(texts, lens, t[rows], tr.text_start, span,
+                              reverse).n_counts(tr.text_start, tr.text_end),
+                    span, self.max_n_frac)
             else:
                 keep = np.ones(len(rows), bool)
             _tick(split, "filters", t0)

@@ -89,8 +89,11 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   of the steps inside each search: the strands' preparation
   (``prepare_strands``), the candidates (``TorchEngine.candidates``), the
   host finish (the checkout's ``Searcher`` finish methods) and in it the
-  traceback's fill and walk (``traceback._fill_batch``, ``_walk_batch``);
-  the matches and a digest of the Match list;
+  traceback's fill and walk (``traceback._fill_batch``, ``_walk_batch``)
+  and the whole traceback as the finish calls it
+  (``trace_cells_batch``: the window gather or the kernel's uploads,
+  launches and one copy, the fill and walk, the CIGARs' build); the
+  matches and a digest of the Match list;
 - with ``--cli-search N``: the checkout's command line in this process,
   ``search -f barcodes.fa -k 3 -o out.tsv reads.fa`` on the card (its
   files under ``build/compare_cli/``) at ``chip_smoke.py`` phase 17b's
@@ -418,12 +421,15 @@ def _overhang_search(acgt, mib: int) -> dict:
     import numpy as np
     import torch
 
-    from sassy_tpu_torch import Searcher, profiles, traceback
+    from sassy_tpu_torch import Searcher, profiles, search, traceback
     from sassy_tpu_torch.ops.myers_torch import TorchEngine
 
     iupac = profiles.Iupac()
     steps = (
         (traceback, "_fill_batch", "fill"), (traceback, "_walk_batch", "walk"),
+        # the whole traceback as the finish calls it (a kernel's checkout
+        # has no fill and walk on the host)
+        (search, "trace_cells_batch", "trace"),
         (TorchEngine, "prepare_strands", "prepare"),
         (TorchEngine, "candidates", "candidates"),
         # the host finish: the parent's per-cell steps, or the arrays'
@@ -627,7 +633,8 @@ def _cli_search(dna, barcodes, acgt, n_reads: int, v2: bool,
                 return fn(self, *a, **kw)
             finally:
                 for key, v in self.last_finish_split.items():
-                    if key in ("filters", "gather", "fill", "walk", "build"):
+                    if key in ("filters", "trace", "gather", "fill", "walk",
+                               "build"):
                         acc["finish"] += v
         return wrapper
 

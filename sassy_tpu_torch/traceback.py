@@ -17,6 +17,15 @@ because for such windows the left column is only reachable at j=0
 
 The port's own copy of ``sassy_tpu/traceback.py`` (the port imports nothing
 of the JAX package); tests/test_torch_copies.py holds the two equal.
+
+The batched finish (``trace_cells_batch``) reads each candidate's window
+from the strand's bit-planes (``StrandPlanes``), the planes the search
+packed, never from the host bytes: on the card the traceback kernel of
+``myers_cuda.trace_windows`` (``csrc/trace.cu``: decode, fill and walk, one
+thread a candidate), on the CPU its plain version ``trace_plain``
+(``window_codes``, ``_fill_batch``, ``_walk_batch``). The host keeps the
+CIGARs' build (``_cigars``), and the bytes of a window only where they are
+read: the N counts (``TextSpans``) and a failed walk's diagnostics.
 """
 
 from __future__ import annotations
@@ -25,15 +34,21 @@ import time
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from .cigar import DEL, INS, MATCH, SUB, Cigar
 from .matchrec import Match, Strand
 from .oracle import dp_matrix
+from .ops import myers_cuda
+from .ops.bitpack import WORD_BITS
+from .ops.myers_cuda import TRACE_FIELDS
 from .profiles import Profile, as_bytes_array
 from .semantics import overshoot_cost
 
 __all__ = ["trace_candidate", "trace_candidates_batch", "trace_cells_batch",
-           "TextSpans", "Traced", "TraceError"]
+           "trace_plain", "trace_tables", "window_codes", "unpack_trace",
+           "host_planes", "StrandPlanes", "TextSpans", "Traced",
+           "TraceError"]
 
 
 class TraceError(RuntimeError):
@@ -186,6 +201,7 @@ def _fill_batch(
     wins: np.ndarray,  # (B, w) engine codes, right-padded
     alpha: float | None,
     max_overhang: int | None,
+    boundary: np.ndarray | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Batched windowed DP fill: one vectorized pass over all B windows,
     each against its own pattern (all of one length).
@@ -201,12 +217,16 @@ def _fill_batch(
     (m, w, B) bool. The candidates are the last axis, so that every step
     is one operation over the batch: in this form a row is
     ``E[j, i] = min(E[j-1, i-1] - match, E[j-1, i] + 1, E[j, i-1])``.
+    ``boundary``: the left column's costs over rows 0..m (row 0 of
+    ``trace_tables``), instead of those of ``alpha`` and
+    ``max_overhang``.
     """
     from .semantics import left_boundary_costs
 
     B, w = wins.shape
     m = pattern_codes.shape[1]
-    boundary = left_boundary_costs(m, alpha, max_overhang)
+    if boundary is None:
+        boundary = left_boundary_costs(m, alpha, max_overhang)
     wt = np.ascontiguousarray(wins.T)[None]  # (1, w, B)
     pt = np.ascontiguousarray(pattern_codes.T)
     E = np.empty((m + 1, w + 1, B), dtype=np.int32)
@@ -235,8 +255,7 @@ def _fill_batch(
 
 class Traced(NamedTuple):
     """A traced batch, row for row: each match's cost, coordinates (in its
-    text as it was read) and CIGAR, and the ``TextSpans`` of the windows
-    it was traced in (for the N counts of the matched text)."""
+    text as it was read) and CIGAR."""
 
     cost: np.ndarray
     text_start: np.ndarray
@@ -244,7 +263,137 @@ class Traced(NamedTuple):
     pattern_start: np.ndarray
     pattern_end: np.ndarray
     cigars: list
-    spans: TextSpans
+
+
+class StrandPlanes(NamedTuple):
+    """A strand's bit-planes as its search packed them, and where each text
+    lies in them: code bit p of position x of text t (in the strand: the
+    text read backwards for the reverse strand) is bit x % 32 of
+    ``planes[p, word0[t] + x // 32]``. ``planes``: (P[+1], L) int32 on the
+    card or the CPU; ``word0``: (T,) int64 on the host."""
+
+    planes: torch.Tensor
+    word0: np.ndarray
+
+
+def trace_tables(m: int, alpha: float | None,
+                 max_overhang: int | None) -> np.ndarray:
+    """(3, m + 1) int32 over rows 0..m: the left boundary's costs
+    (``semantics.left_boundary_costs``), the start overshoot's cost of a
+    walk that stops at column 0 in row j (the float32 floor of
+    ``_walk``), and the end overshoot's cost of an end ``over`` past the
+    window (``semantics.overshoot_costs_vec``). The traceback's overhang
+    math, done once on the host for the kernel and its plain version."""
+    from .semantics import left_boundary_costs, overshoot_costs_vec
+
+    jj = np.arange(m + 1, dtype=np.int64)
+    if alpha is None:
+        start = np.zeros(m + 1, np.int64)
+    elif max_overhang is not None:
+        start = np.floor(np.minimum(jj, max_overhang).astype(np.float32)
+                         * np.float32(alpha)).astype(np.int64) + np.maximum(
+                             0, jj - max_overhang)
+    else:
+        start = np.floor(jj.astype(np.float32)
+                         * np.float32(alpha)).astype(np.int64)
+    return np.stack([left_boundary_costs(m, alpha, max_overhang), start,
+                     overshoot_costs_vec(alpha, jj)]).astype(np.int32)
+
+
+def window_codes(planes: torch.Tensor, profile: Profile, base: np.ndarray,
+                 wlens: np.ndarray, width: int) -> np.ndarray:
+    """(B, width) uint8 engine codes of each row's window, read from the
+    planes (on any device): row b's column c < ``wlens[b]`` is the code at
+    bit position ``base[b] + c`` (32 word0 + the window's offset), its
+    other columns ``profile.pad_code``. ``GATHER_ROWS`` rows a gather."""
+    B = len(base)
+    out = np.empty((B, width), np.uint8)
+    dev = planes.device
+    cols = torch.arange(width, dtype=torch.int64, device=dev)
+    for s in range(0, B, GATHER_ROWS):
+        x = torch.from_numpy(np.ascontiguousarray(
+            base[s : s + GATHER_ROWS])).to(dev)[:, None] + cols
+        ok = cols < torch.from_numpy(np.ascontiguousarray(
+            wlens[s : s + GATHER_ROWS])).to(dev)[:, None]
+        x = torch.where(ok, x, 0)
+        words = planes[: profile.planes][:, x >> 5]  # (P, b, width)
+        bit = (x & 31).to(torch.int32)
+        code = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+        for p in range(profile.planes):
+            code |= ((words[p] >> bit) & 1) << p
+        code = torch.where(ok, code, profile.pad_code)
+        out[s : s + GATHER_ROWS] = code.to(torch.uint8).cpu().numpy()
+    return out
+
+
+def unpack_trace(buf: np.ndarray, m: int, fill_len: int):
+    """A trace's (B, stride) int32 output rows as ``_walk_batch`` returns
+    them: each candidate's start in its window, total cost, pattern start
+    and end (int64), its (B, m + fill_len + 1) int8 ops (-1 past the
+    walk's end) and where it failed."""
+    f = buf[:, :TRACE_FIELDS].astype(np.int64)
+    ops = np.ascontiguousarray(buf[:, TRACE_FIELDS:]).view(np.int8)
+    return (f[:, 0], f[:, 1], f[:, 2], f[:, 3],
+            ops[:, : m + fill_len + 1], f[:, 4] != 0)
+
+
+def trace_plain(planes: torch.Tensor, pcodes: torch.Tensor,
+                cand: torch.Tensor, tables: torch.Tensor, profile: Profile,
+                fill_len: int, alpha_on: bool, chunk: int | None = None,
+                split: dict | None = None) -> torch.Tensor:
+    """Plain version of the traceback kernel (``myers_cuda.trace_windows``),
+    on its inputs: the strand's planes (on any device), the length group's
+    (Q, m) uint8 pattern codes, (5, B) int64 candidate columns (pattern,
+    its text's first plane word, window offset, window length, end) and
+    ``trace_tables``. Decodes the windows from the planes
+    (``window_codes``), then fills and walks ``chunk`` candidates at a
+    time (``_fill_batch``, ``_walk_batch``). Returns the (B, stride) int32
+    output rows on the CPU (``unpack_trace``), -1 in every op byte past a
+    walk's end, as the kernel writes them. ``split``: as
+    ``trace_cells_batch``'s (the window decode under "gather")."""
+    trace_plain.calls += 1
+    t0 = time.perf_counter()
+    pid, word0, off, wlen, end = cand.cpu().numpy()
+    pc = pcodes.cpu().numpy()
+    tab = tables.cpu().numpy()
+    B, m = len(pid), pc.shape[1]
+    codes = window_codes(planes, profile, word0 * WORD_BITS + off, wlen,
+                         fill_len)
+    t0 = _tick(split, "gather", t0, windows=B)
+    out = np.full((B, TRACE_FIELDS + -(-(m + fill_len + 1) // 4)), -1,
+                  np.int32)
+    ops_out = out[:, TRACE_FIELDS:].view(np.int8)
+    step = max(1, chunk or B)
+    for s in range(0, B, step):
+        c = slice(s, s + step)
+        E, mm = _fill_batch(profile, pc[pid[c]], codes[c], None, None,
+                            tab[0])
+        t0 = _tick(split, "fill", t0)
+        i, total, pat_start, pat_end, ops, failed = _walk_batch(
+            E, mm, end[c] - off[c], wlen[c], tab, alpha_on)
+        out[c, :TRACE_FIELDS] = np.stack(
+            [i, total, pat_start, pat_end, failed], axis=1)
+        ops_out[c, : ops.shape[1]] = ops
+        t0 = _tick(split, "walk", t0)
+    return torch.from_numpy(out)
+
+
+trace_plain.calls = 0
+
+
+def host_planes(profile: Profile, text) -> StrandPlanes:
+    """The planes of one host text on the CPU (``myers_torch.pack_plain``),
+    as a one-text ``StrandPlanes``."""
+    from .ops.myers_torch import pack_plain
+
+    text = as_bytes_array(text)
+    n = len(text)
+    planes = pack_plain(torch.from_numpy(text.copy()), n // WORD_BITS,
+                        n % WORD_BITS, profile.planes, False,
+                        profile.pack_mode, profile.pack_shift,
+                        profile.pack_mask, tuple(profile.pack_plane_masks),
+                        profile.pack_fold_case, max(1, -(-n // WORD_BITS)))
+    return StrandPlanes(planes, np.zeros(1, np.int64))
 
 
 def trace_cells_batch(
@@ -259,6 +408,7 @@ def trace_cells_batch(
     fill_len: int,
     alpha: float | None,
     max_overhang: int | None,
+    planes: StrandPlanes,
     reverse: bool = False,
     split: dict | None = None,
 ) -> Traced:
@@ -267,55 +417,84 @@ def trace_cells_batch(
     ``pattern_codes`` are indexed by it) ending at ``ends[b]`` in text
     ``tids[b]``, read backwards with ``reverse``.
 
-    Every window ``[end - fill_len, min(end, n))`` comes from one
-    ``TextSpans`` gather; the fill and the vectorised walk run over all of
-    them together, in chunks of at most ``FILL_BYTES`` of cost matrices.
-    ``split``, a dict, gets the seconds of the gather, the fill, the walk
-    and the CIGARs' build ("build"), and the windows' count."""
+    Every window ``[end - fill_len, min(end, n))`` is read from the
+    strand's ``planes`` (a ``StrandPlanes``): on the card by the traceback
+    kernel (``myers_cuda.trace_windows``: its inputs uploaded, one launch
+    a chunk of at most ``FILL_BYTES`` of cost matrices, its output rows
+    copied to the host once), on the CPU by ``trace_plain``. A failed walk
+    is walked again on the host from its text's bytes (``texts``), which
+    raises the reference's ``TraceError``. ``split``, a dict, gets the
+    seconds of the trace ("trace" on the card; the plain version's
+    "gather", "fill" and "walk" on the CPU) and of the CIGARs' build
+    ("build"), and the windows' count."""
     pids = np.asarray(pids, np.int64)
+    tids = np.asarray(tids, np.int64)
     ends = np.asarray(ends, np.int64)
     B = len(ends)
     if not B:
         none = np.zeros(0, np.int64)
-        return Traced(none, none, none, none, none, [],
-                      TextSpans(texts, text_lens, none, none, none))
+        return Traced(none, none, none, none, none, [])
     t0 = time.perf_counter()
     offsets = np.maximum(0, ends - fill_len)
-    wlens = np.minimum(ends, text_lens[np.asarray(tids, np.int64)]) - offsets
-    spans = TextSpans(texts, text_lens, tids, offsets, wlens, reverse)
-    raw = spans.windows(fill_len)
-    codes = profile.encode(raw)
-    codes[np.arange(fill_len) >= wlens[:, None]] = profile.pad_code
+    wlens = np.minimum(ends, text_lens[tids]) - offsets
     used, pidx = np.unique(pids, return_inverse=True)
-    pcodes = np.stack([pattern_codes[q] for q in used.tolist()])[pidx]
+    pcodes = np.stack([pattern_codes[q] for q in used.tolist()])
     m = pcodes.shape[1]
-    t0 = _tick(split, "gather", t0, windows=B)
-    parts = []
+    word0 = planes.word0[tids]
+    L = planes.planes.shape[1]
+    if (ends - offsets - wlens > m).any() or (
+            word0 + -(-(offsets + wlens) // WORD_BITS) > L).any():
+        raise ValueError("a candidate ends more than m past its text, or "
+                         "its window lies past the planes")
+    tables = trace_tables(m, alpha, max_overhang)
+    cand = np.stack([pidx.astype(np.int64), word0, offsets, wlens, ends])
     # the fill's matrices and match mask, a candidate
-    step = max(1, FILL_BYTES // ((m + 1) * (fill_len + 1) * 4
-                                 + m * fill_len))
-    cols = np.arange(fill_len + 1)
-    for s in range(0, B, step):
-        c = slice(s, s + step)
-        E, mm = _fill_batch(profile, pcodes[c], codes[c], alpha, max_overhang)
-        t0 = _tick(split, "fill", t0)
-        i, total, pat_start, pat_end, ops, failed = _walk_batch(
-            E, mm, ends[c] - offsets[c], wlens[c], alpha, max_overhang)
-        if failed.any():
-            # exact per-candidate errors via the scalar walk, each on its
-            # own pattern and its own text's window
-            for b in (s + np.flatnonzero(failed)).tolist():
-                _walk(profile, patterns[pids[b]], raw[b, : wlens[b]],
-                      E[:, :, b - s] + cols, int(ends[b]), int(offsets[b]),
-                      int(wlens[b]), alpha, max_overhang)
-            raise TraceError("vectorized walk failed but scalar walk passed")
-        t0 = _tick(split, "walk", t0)
-        parts.append((i, total, pat_start, pat_end, _cigars(ops)))
-        t0 = _tick(split, "build", t0)
-    i, total, pat_start, pat_end = (np.concatenate([p[f] for p in parts])
-                                    for f in range(4))
+    chunk = max(1, FILL_BYTES // ((m + 1) * (fill_len + 1) * 4
+                                  + m * fill_len))
+    dev = planes.planes.device
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (pcodes, cand, tables)]
+    if dev.type == "cpu":
+        buf = trace_plain(planes.planes, *args, profile, fill_len,
+                          alpha is not None, chunk, split)
+        t0 = time.perf_counter()
+    else:
+        buf = myers_cuda.trace_windows(planes.planes, *args, profile,
+                                       fill_len, alpha is not None,
+                                       chunk).cpu()
+        t0 = _tick(split, "trace", t0, windows=B)
+    i, total, pat_start, pat_end, ops, failed = unpack_trace(
+        buf.numpy(), m, fill_len)
+    if failed.any():
+        _raise_failed(profile, patterns, pcodes[pidx], texts, text_lens,
+                      pids, tids, ends, offsets, wlens, fill_len, alpha,
+                      max_overhang, reverse, np.flatnonzero(failed), chunk)
+    longest = int(np.count_nonzero(ops >= 0, axis=1).max())
+    cigars = _cigars(ops[:, :longest])
+    _tick(split, "build", t0)
     return Traced(total, offsets + i, offsets + wlens, pat_start, pat_end,
-                  [c for p in parts for c in p[4]], spans)
+                  cigars)
+
+
+def _raise_failed(profile, patterns, pcodes, texts, text_lens, pids, tids,
+                  ends, offsets, wlens, fill_len, alpha, max_overhang,
+                  reverse, bad, chunk):
+    """The exact error of the first failed walk: each of ``bad`` walked
+    again by the scalar walk, on its own pattern and its own text's window
+    (its bytes gathered by ``TextSpans`` and filled on the host)."""
+    cols = np.arange(fill_len + 1)
+    for s in range(0, len(bad), chunk):
+        rows = bad[s : s + chunk]
+        raw = TextSpans(texts, text_lens, tids[rows], offsets[rows],
+                        wlens[rows], reverse).windows(fill_len)
+        codes = profile.encode(raw)
+        codes[np.arange(fill_len) >= wlens[rows][:, None]] = profile.pad_code
+        E, _ = _fill_batch(profile, pcodes[rows], codes, alpha, max_overhang)
+        for r, b in enumerate(rows.tolist()):
+            _walk(profile, patterns[pids[b]], raw[r, : wlens[b]],
+                  E[:, :, r] + cols, int(ends[b]), int(offsets[b]),
+                  int(wlens[b]), alpha, max_overhang)
+    raise TraceError("vectorized walk failed but scalar walk passed")
 
 
 def trace_candidates_batch(
@@ -329,7 +508,8 @@ def trace_candidates_batch(
     max_overhang: int | None,
 ) -> list[Match]:
     """Re-align and trace a batch of candidate end positions of one pattern
-    in one text, in ONE fill (``trace_cells_batch`` with one cell).
+    in one text, in ONE fill (``trace_cells_batch`` with one cell, on the
+    text's planes packed on the CPU).
 
     The reference's ``process_matches`` batches LANES candidates per
     ``simd_fill`` (search.rs:1372-1689, trace.rs:107-178); here the batch is
@@ -343,7 +523,8 @@ def trace_candidates_batch(
     zeros = np.zeros(len(ends), np.int64)
     tr = trace_cells_batch(profile, [pattern], [pattern_codes], [text],
                            np.array([len(text)], np.int64), zeros, zeros,
-                           ends, fill_len, alpha, max_overhang)
+                           ends, fill_len, alpha, max_overhang,
+                           host_planes(profile, text))
     return [
         Match(pattern_idx=0, text_idx=0, cost=c, text_start=ts, text_end=te,
               pattern_start=ps, pattern_end=pe, strand=Strand.FWD, cigar=cg)
@@ -358,8 +539,8 @@ def _walk_batch(
     mm: np.ndarray,  # (m, w, B) match mask (pattern row x window col)
     rel_ends: np.ndarray,  # each end position less its window's offset
     wlens: np.ndarray,
-    alpha: float | None,
-    max_overhang: int | None,
+    tables: np.ndarray,  # trace_tables: the overshoots' costs over 0..m
+    alpha_on: bool,
 ):
     """Vectorized greedy walks: ALL candidates step together.
 
@@ -369,15 +550,15 @@ def _walk_batch(
     recorded per step, in walk order. Replaces the per-candidate Python
     walk that cost ~44 us/candidate (is_match + push dominating) — the
     walk itself is now O(path length) numpy passes over the whole batch.
-    ``E`` and ``mm`` are ``_fill_batch``'s.
+    ``E`` and ``mm`` are ``_fill_batch``'s; the end and start
+    overshoots' costs are rows 2 and 1 of ``trace_tables`` (the start
+    overshoot with ``alpha_on``).
 
     Returns each candidate's text start in its window, total cost, pattern
     start and end, the (B, steps) int8 ops (0-3: =, X, D, I; -1 past the
     walk's end) and where the walk failed (no consistent step, or cost
     left at its end).
     """
-    from .semantics import overshoot_costs_vec
-
     m = E.shape[0] - 1
     w = E.shape[1] - 1
     B = E.shape[2]
@@ -394,13 +575,12 @@ def _walk_batch(
     i = i - over
     j = np.full(B, m, dtype=np.int64) - over
     g = Ev[(j * (w + 1) + i) * B + ar] + i  # D[b, j[b], i[b]]
-    total = g + overshoot_costs_vec(alpha, over)
+    total = g + tables[2][over]
     pat_start = np.zeros(B, dtype=np.int64)
 
     S = m + w + 1
     ops = np.full((B, S), -1, dtype=np.int8)
     act = j > 0
-    alpha_on = alpha is not None
     bad = np.zeros(B, dtype=bool)
     step = 0
     while act.any():
@@ -412,17 +592,8 @@ def _walk_batch(
             stop0 = act & (i == 0)
             if stop0.any():
                 jj = j[stop0]
-                if max_overhang is not None:
-                    oc = np.floor(
-                        np.minimum(jj, max_overhang).astype(np.float32)
-                        * np.float32(alpha)
-                    ).astype(np.int64) + np.maximum(0, jj - max_overhang)
-                else:
-                    oc = np.floor(
-                        jj.astype(np.float32) * np.float32(alpha)
-                    ).astype(np.int64)
                 pat_start[stop0] = jj
-                g[stop0] -= oc
+                g[stop0] -= tables[1][jj]
                 act = act & ~stop0
                 if not act.any():
                     break

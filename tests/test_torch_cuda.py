@@ -10,9 +10,13 @@ the bytes, 50,000 texts of 1-3 words and one of 2 MB, ``TextSet.planes``'
 one launch a strand, its refusals); the single engine's two strands from
 one upload (``prepare_strands``: the reverse strand equal to the pack of
 the flipped bytes; a second search of a read-only array packs nothing);
-and the port's Searcher on the card, single and batched, with and without
+the port's Searcher on the card, single and batched, with and without
 overhang, ascii, and with the suffix prefilter forced on, against its
-CPU path and the numpy oracle.
+CPU path and the numpy oracle; and the host finish's traceback kernel
+(``myers_cuda.trace_windows``) against ``traceback.trace_plain`` on the
+same planes (every profile, both strands, overhang, 8-120 bp, chunked),
+through both engines' finish, on a forced walk failure and on inputs it
+refuses.
 
 Marked ``cuda``: every test skips without a CUDA device. On a GPU machine
 without JAX, run them without the repository's conftest (which imports
@@ -28,7 +32,7 @@ import pytest
 import torch
 
 from sassy_tpu import Searcher as RefSearcher
-from sassy_tpu_torch import Searcher, profiles
+from sassy_tpu_torch import Searcher, profiles, semantics, traceback
 from sassy_tpu_torch.ops import batch, minima, myers_cuda, myers_torch, plan
 from sassy_tpu_torch.ops.myers_torch import Windows
 
@@ -1549,3 +1553,153 @@ def test_two_strand_search_on_the_card_prepares_once(cuda):
         assert [(m.sort_key(), m.cigar.to_string()) for m in got] == [
             (m.sort_key(), m.cigar.to_string()) for m in want]
     assert {m.strand.name for m in want} == {"FWD", "RC"}
+
+
+TRACE_PROFILES = {"iupac": (profiles.Iupac, b"ACGTACGTRYN"),
+                  "dna": (profiles.Dna, b"ACGTacgtN"),
+                  "ascii": (profiles.Ascii, b"abcABC .!9"),
+                  "ascii_fold": (lambda: profiles.Ascii(case_sensitive=False),
+                                 b"abcABC .!9")}
+
+
+def _trace_inputs(dev, pname, reverse, alpha, mo, m, k, seed=0):
+    """The traceback kernel's inputs over a text set on ``dev``: planted
+    copies with an edit or two, random ends from 0 to past each text's end
+    (its overshoot with alpha), copies hanging off a text's start; the
+    strand's planes as the batched search packs them."""
+    make, alphabet = TRACE_PROFILES[pname]
+    prof = make()
+    g = np.random.default_rng(seed + m + 7 * k)
+    ab = np.frombuffer(alphabet, np.uint8)
+    pats = np.stack([g.choice(ab, m) for _ in range(4)])
+    steps = semantics.overhang_steps(m, k, alpha, mo)
+    texts, pids, tids, ends = [], [], [], []
+    for t, n in enumerate((1, m // 2 + 1, 257, 700, 5000)):
+        seq = g.choice(ab, n)
+        for _ in range(n // 250):
+            at = int(g.integers(0, n - m))
+            q = int(g.integers(0, 4))
+            seq[at : at + m] = pats[q]
+            seq[at + int(g.integers(0, m))] = g.choice(ab)
+            pids.append(q)
+            ends.append(at + m)
+        if steps and n > m:
+            seq[: m - min(steps, m - 1)] = pats[0][min(steps, m - 1):]
+            pids.append(0)
+            ends.append(m - min(steps, m - 1))
+        extra = [0, 1, n, n + steps] + g.integers(0, n + steps + 1,
+                                                  20).tolist()
+        pids += g.integers(0, 4, len(extra)).tolist()
+        ends += extra
+        tids += [t] * (len(ends) - len(tids))
+        texts.append(seq[::-1].copy() if reverse else seq)
+    ts = batch.TextSet(texts, dev)
+    if steps:
+        ts.planes(prof, reverse, steps)
+    planes, word0 = ts.strand_planes(prof, reverse)
+    tids, ends = np.array(tids), np.array(ends, np.int64)
+    fill = m + k
+    off = np.maximum(0, ends - fill)
+    wlen = np.minimum(ends, np.array([len(x) for x in texts])[tids]) - off
+    cand = np.stack([np.array(pids, np.int64), word0[tids], off, wlen, ends])
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (planes, to(np.stack([prof.encode(p) for p in pats])), to(cand),
+            to(traceback.trace_tables(m, alpha, mo)), prof, fill,
+            alpha is not None)
+
+
+@pytest.mark.parametrize("m,k", [(8, 0), (8, 2), (24, 0), (24, 6),
+                                 (120, 10), (120, 30)])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("pname,overhang", [
+    (p, None) for p in TRACE_PROFILES] + [("iupac", (0.5, None)),
+                                          ("iupac", (0.5, 3))])
+def test_trace_kernel_equals_plain(cuda, pname, overhang, reverse, m, k):
+    """One launch, its output rows bit for bit the plain version's on the
+    same planes and inputs; chunked, the same rows."""
+    alpha, mo = overhang or (None, None)
+    args = _trace_inputs(cuda, pname, reverse, alpha, mo, m, k)
+    before = myers_cuda.trace_windows.launches
+    got = myers_cuda.trace_windows(*args, 1 << 20)
+    torch.cuda.synchronize()
+    assert myers_cuda.trace_windows.launches == before + 1
+    want = traceback.trace_plain(*args)
+    assert torch.equal(got.cpu(), want)
+    chunked = myers_cuda.trace_windows(*args, 7)
+    assert torch.equal(chunked.cpu(), want)
+    failed = traceback.unpack_trace(want.numpy(), args[1].shape[1],
+                                    args[5])[5]
+    assert not failed.any()
+
+
+def _trace_searches(dev):
+    """Both engines' Match lists (CIGARs included) of an iupac search with
+    overhang, and of a dna and an ascii one, on ``dev``."""
+    rng = np.random.default_rng(19)
+    reads = [rng.choice(np.frombuffer(b"ACGT", np.uint8), 3000)
+             for _ in range(40)]
+    pats = [r[1000:1024].copy() for r in reads[:4]]
+    reads[5][:20] = pats[1][4:]
+    reads[6][-20:] = pats[2][:20]
+    out = []
+    for prof, kw, k in (("iupac", {"rc": True, "alpha": 0.5}, 3),
+                        ("dna", {"rc": True}, 2), ("ascii", {}, 2)):
+        s = Searcher(prof, device=dev, **kw)
+        out.append(s.search_many(pats, reads, k))
+        out.append(s.search(pats[0], reads[0], k))
+    return [[(m.sort_key(), m.cigar.to_string()) for m in ms] for ms in out]
+
+
+@pytest.mark.parametrize("fill_bytes", [None, 3000])
+def test_searcher_traces_on_the_card(cuda, fill_bytes, monkeypatch):
+    """Both engines' finish on the card traces with the kernel (one launch
+    a pattern length and strand, or a chunk of a small ``FILL_BYTES``) and
+    never its plain version, and equals the CPU path's matches."""
+    if fill_bytes:
+        monkeypatch.setattr(traceback, "FILL_BYTES", fill_bytes)
+    want = _trace_searches("cpu")
+    plain = traceback.trace_plain.calls
+    before = myers_cuda.trace_windows.launches
+    got = _trace_searches(cuda)
+    assert traceback.trace_plain.calls == plain
+    launched = myers_cuda.trace_windows.launches - before
+    assert got == want and all(got)
+    # a chunk of one candidate under the small cap: a launch a candidate
+    assert launched >= (sum(map(len, got)) if fill_bytes else 4)
+
+
+def test_forced_trace_failure_raises_as_on_the_cpu(cuda, monkeypatch):
+    """Start-overshoot costs that disagree with the fill's left column
+    fail the walks that stop at column 0, on the card as on the CPU: both
+    walk one again on the host and raise the same TraceError."""
+    trace_tables = traceback.trace_tables
+
+    def off_by_one(m, alpha, max_overhang):
+        t = trace_tables(m, alpha, max_overhang)
+        t[1, 1:] += 1
+        return t
+
+    monkeypatch.setattr(traceback, "trace_tables", off_by_one)
+    pat = b"ACGTTGCAAGGCTTACGATCGATC"
+    text = pat[4:] + b"T" * 40
+    errors = []
+    for dev in ("cpu", cuda):
+        with pytest.raises(traceback.TraceError) as err:
+            Searcher("iupac", alpha=0.5, device=dev).search_many(
+                [pat], [text], 2)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1] == (
+        "vectorized walk failed but scalar walk passed")
+
+
+def test_trace_kernel_rejects_bad_inputs(cuda):
+    args = list(_trace_inputs(cuda, "dna", False, None, None, 8, 2))
+    with pytest.raises(ValueError):
+        myers_cuda.trace_windows(*[a.cpu() if isinstance(a, torch.Tensor)
+                                   else a for a in args], 64)
+    for i, bad in ((0, args[0].to(torch.int64)), (1, args[1].to(torch.int32)),
+                   (2, args[2][:4].contiguous()), (3, args[3][:, :-1])):
+        with pytest.raises(ValueError):
+            myers_cuda.trace_windows(*args[:i], bad, *args[i + 1:], 64)
+    with pytest.raises(ValueError):
+        myers_cuda.trace_windows(*args, 0)

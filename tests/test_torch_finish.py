@@ -259,6 +259,36 @@ def test_fill_routes_agree(alpha, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("max_n_frac", [None, 0.3])
+def test_traceback_gathers_no_host_window(max_n_frac, monkeypatch):
+    """The traceback reads its windows from the strands' planes: without
+    ``max_n_frac`` neither engine's finish builds a ``TextSpans`` (no host
+    window is gathered); with it, only the N counts do, and never a
+    window's bytes."""
+    built, gathered = [], []
+    init, windows = traceback.TextSpans.__init__, traceback.TextSpans.windows
+
+    def counted_init(self, *a, **kw):
+        built.append(1)
+        init(self, *a, **kw)
+
+    def counted_windows(self, *a, **kw):
+        gathered.append(1)
+        return windows(self, *a, **kw)
+
+    monkeypatch.setattr(traceback.TextSpans, "__init__", counted_init)
+    monkeypatch.setattr(traceback.TextSpans, "windows", counted_windows)
+    pats, reads = _inputs("iupac")
+    s = _searcher(Searcher, "iupac", {"alpha": 0.5, "max_n_frac": max_n_frac}
+                  if max_n_frac else {"alpha": 0.5}, device="cpu")
+    plain = traceback.trace_plain.calls
+    many = s.search_many(pats[:3], reads, 3)
+    single = s.search(pats[0], reads[0], 3)
+    assert many and single and traceback.trace_plain.calls > plain
+    assert not gathered
+    assert bool(built) == (max_n_frac is not None)
+
+
 def test_finish_split_counts_the_steps():
     pats, reads = _inputs("dna")
     s = Searcher("dna", rc=True, device="cpu").with_max_n_frac(0.2)
