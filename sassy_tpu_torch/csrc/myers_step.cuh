@@ -19,6 +19,7 @@
 
 #include <cuda_runtime.h>
 
+#include "myers_word.cuh"  // myers_step, the row step
 #include "window_read.cuh"
 
 namespace {
@@ -92,24 +93,6 @@ __device__ __forceinline__ uint32_t row_eq(
     eq |= ~acc & x[P - 1];
   }
   return eq;
-}
-
-// The Myers step of one pattern row on 32 text positions (reference
-// bitpacking.rs:63-85): hp_j/hm_j are the row's horizontal deltas entering
-// the word, hp_o/hm_o its horizontal delta words (bit 31 leaves the word);
-// vp/vm flow down the rows.
-__device__ __forceinline__ void myers_step(
-    uint32_t eq, uint32_t hp_j, uint32_t hm_j, uint32_t& vp, uint32_t& vm,
-    uint32_t& hp_o, uint32_t& hm_o) {
-  const uint32_t vx = eq | vm;
-  const uint32_t eqh = eq | hm_j;
-  const uint32_t hx = (((eqh & vp) + vp) ^ vp) | eqh;
-  hp_o = vm | ~(hx | vp);
-  hm_o = vp & hx;
-  const uint32_t hp_sh = (hp_o << 1) | hp_j;
-  const uint32_t hm_sh = (hm_o << 1) | hm_j;
-  vp = hm_sh | ~(vx | hp_sh);
-  vm = hp_sh & vx;
 }
 
 // Row j of one word with bit-packed carries: bit b of hpw/hmw holds the

@@ -65,11 +65,12 @@ device.
 The host finish's traceback has a kernel of its own: ``trace_windows``
 (``csrc/trace.cu``, its per-candidate work in ``csrc/trace.cuh``) reads
 each candidate's window from the strand's planes, fills its windowed DP
-and walks it back, one thread a candidate: what the JAX package's host
-traceback computes (``sassy_tpu/traceback.py:37`` ``_fill_batch``,
-``:119`` ``_walk_batch``); ``traceback.trace_cells_batch`` runs
-``traceback.trace_plain`` for planes on the CPU and this for planes on a
-CUDA device.
+as Myers words (the scans' step, ``csrc/myers_word.cuh``) and walks it
+back on their delta words, one thread a candidate: what the JAX
+package's host traceback computes (``sassy_tpu/traceback.py:37``
+``_fill_batch``, ``:119`` ``_walk_batch``);
+``traceback.trace_cells_batch`` runs ``traceback.trace_plain`` for planes
+on the CPU and this for planes on a CUDA device.
 
 The four scan kernels of the search paths read their text straight from
 the packed planes: their first argument is a ``myers_torch.Windows``
@@ -78,7 +79,8 @@ descriptor (each tile's ``wstart`` and ``wend`` in the planes; the read in
 describes with ``myers_torch.windows_plain`` first. An (NW, P, T) window
 tensor is described by ``Windows.of``.
 
-The scan sources share the row step of ``csrc/myers_step.cuh``, the
+The scan sources share the row step of ``csrc/myers_step.cuh`` (its
+Myers step in ``csrc/myers_word.cuh``, which the traceback shares), the
 selection sources ``csrc/select_common.cuh``. All are compiled with one
 ``nvcc`` call for ``sm_90a`` at first use into one library in
 ``build/sassy_tpu_torch/`` beside the package, keyed by a hash of the
@@ -117,7 +119,8 @@ SOURCES = (CSRC / "scan_meta.cu", CSRC / "scan_q_meta.cu", CSRC / "scan.cu",
            CSRC / "scan_q.cu", CSRC / "scan_qn.cu", CSRC / "scan_variants.cu",
            CSRC / "select_words.cu", CSRC / "select_positions.cu",
            CSRC / "pack.cu", CSRC / "trace.cu")
-HEADERS = (CSRC / "myers_step.cuh", CSRC / "window_read.cuh",
+HEADERS = (CSRC / "myers_word.cuh", CSRC / "myers_step.cuh",
+           CSRC / "window_read.cuh",
            CSRC / "select_common.cuh",
            CSRC / "select_walk.cuh", CSRC / "select_words.cuh",
            CSRC / "pack.cuh", CSRC / "trace.cuh")
@@ -149,6 +152,12 @@ PACK_MAX_PLANES = 8
 #: the traceback kernel's match tests (csrc/trace.cuh): a code AND
 #: (iupac, dna), byte equality (ascii)
 TRACE_EQ = {"iupac": 0, "ascii": 1}
+#: bytes of one (pattern row, 32 window columns) of the traceback's
+#: scratch: its four delta words (TraceCell)
+TRACE_CELL_BYTES = 16
+#: the most window words a row of the traceback's fill keeps in registers
+#: (kTraceGroupMax); the instantiations hold 1 to this many
+TRACE_GROUP_MAX = 8
 #: int32 fields that start a traced candidate's output row (kTraceFields):
 #: its start in the window, total cost, pattern start, pattern end,
 #: failed; its ops follow as int8 (0-3: =, X, D, I) in walk order, -1 past
@@ -242,8 +251,7 @@ def load_library(path) -> ctypes.CDLL:
                                           ptr])
         lib.sassy_trace.argtypes = ([ptr, big] + [num] * 2 + [ptr] * 2
                                     + [big, ptr] + [num] * 3
-                                    + [ptr, big, ptr, ptr] + [big] * 3
-                                    + [ptr])
+                                    + [ptr, big, ptr] + [big] * 3 + [ptr])
         for fn in (lib.sassy_scan_meta, lib.sassy_scan_q_meta, lib.sassy_scan,
                    lib.sassy_scan_q, lib.sassy_scan_qn,
                    lib.sassy_scan_variant, lib.sassy_select_words,
@@ -1334,6 +1342,20 @@ def _check_trace(planes, pcodes, cand, tables, profile, fill_len: int,
         raise ValueError(f"fill_len = {fill_len}, chunk = {chunk}")
 
 
+def trace_cells(chunk: int, m: int, fill_len: int) -> int:
+    """The traceback kernel's scratch in cells (``TRACE_CELL_BYTES``
+    each) for ``chunk`` candidates: each candidate's (pattern row, window
+    word) cells by anti-diagonal (``trace_at`` in ``csrc/trace.cuh``), m +
+    nwp diagonals of nwp words, nwp the ceil(fill_len / 32) window words
+    rounded up to a multiple of the words a row of the fill keeps in
+    registers (``trace_dispatch``: all of them, at most
+    ``TRACE_GROUP_MAX``)."""
+    nw = -(-int(fill_len) // 32)
+    group = min(max(nw, 1), TRACE_GROUP_MAX)
+    nwp = -(-nw // group) * group
+    return chunk * (m + nwp) * nwp
+
+
 def trace_windows(planes, pcodes, cand, tables, profile, fill_len: int,
                   alpha_on: bool, chunk: int):
     """The traceback kernel (``csrc/trace.cu``) on CUDA tensors: what
@@ -1341,12 +1363,14 @@ def trace_windows(planes, pcodes, cand, tables, profile, fill_len: int,
     planes (rows, L) int32, the strand's; pcodes (Q, m) uint8; cand (5, B)
     int64: each candidate's pattern, its text's first plane word, its
     window's offset and length, its end; tables (3, m + 1) int32
-    (``traceback.trace_tables``). Every window must lie in the planes and
-    end no more than m before its candidate (the caller checks; a word at
-    or past L reads as zero). Returns the (B, stride) int32 output rows
-    on the device (``traceback.unpack_trace``). One launch a ``chunk`` of
-    candidates, in one scratch of their cost matrices and codes; raises
-    ValueError before any build or launch on other inputs."""
+    (``traceback.trace_tables``: a left boundary that starts at 0 and
+    steps by 0 or 1). Every window must lie in the planes, hold at most
+    ``fill_len`` positions and end no more than m before its candidate
+    (the caller checks; a word at or past L reads as zero). Returns the
+    (B, stride) int32 output rows on the device
+    (``traceback.unpack_trace``). One launch a ``chunk`` of candidates, in
+    one scratch of their delta words (``trace_cells``); raises ValueError
+    before any build or launch on other inputs."""
     fill_len, chunk = int(fill_len), int(chunk)
     _check_trace(planes, pcodes, cand, tables, profile, fill_len, chunk)
     dev = planes.device
@@ -1356,10 +1380,10 @@ def trace_windows(planes, pcodes, cand, tables, profile, fill_len: int,
     if B == 0:
         return out
     chunk = min(chunk, B)
-    E = torch.empty(chunk * (m + 1) * (fill_len + 1), dtype=torch.int32,
-                    device=dev)
-    codes = torch.empty(chunk * max(fill_len, 1), dtype=torch.uint8,
-                        device=dev)
+    # int32 words: the allocator's blocks are 16-byte aligned
+    cells = torch.empty(max(1, trace_cells(chunk, m, fill_len))
+                        * (TRACE_CELL_BYTES // 4),
+                        dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1368,7 +1392,7 @@ def trace_windows(planes, pcodes, cand, tables, profile, fill_len: int,
                 _ptr(planes), planes.shape[1], profile.planes,
                 TRACE_EQ[profile.eq_mode], _ptr(pcodes) if m else None,
                 _ptr(cand), B, _ptr(tables), m, fill_len, int(bool(alpha_on)),
-                _ptr(out), stride, _ptr(E), _ptr(codes), chunk, b0,
+                _ptr(out), stride, _ptr(cells), chunk, b0,
                 min(chunk, B - b0), stream), "trace")
             trace_windows.launches += 1
     return out

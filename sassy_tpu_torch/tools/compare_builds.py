@@ -4,7 +4,8 @@
         [--turns 2] [--q2-reads N]
         [--off-target] [--search-many N [--plant]] [--overhang-reads N]
         [--pack-set] [--strands] [--overhang-search] [--no-scans]
-        [--cli-search N [--cli-v2] [--cli-profile]] [--out FILE]
+        [--cli-search N [--cli-v2] [--cli-profile]] [--trace-long N]
+        [--trace-holds] [--out FILE]
 
 Each run is a fresh process that imports the ``sassy_tpu_torch`` of one
 checkout root, builds that checkout's kernel library from its own sources,
@@ -116,6 +117,19 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   (``cli._groups``), one run with ``--v2``; with ``--cli-profile``, one
   more run with the reader thread under ``cProfile`` (every thread, on
   Python 3.12): its ``CLI_PROFILE_TOP`` functions by own time;
+- with ``--trace-long N``: the traceback kernel alone
+  (``myers_cuda.trace_windows``) at a long pattern, ``TRACE_LONG_M`` bp
+  at k = ``TRACE_LONG_K``: N windows of the full fill length over one
+  random text of ``TRACE_LONG_TEXT`` bases on the card (the forward
+  strand's planes of a one-text ``TextSet``), each ending at a planted
+  copy of the pattern with substitutions, one deletion and one
+  insertion; one call under CUDA events (the mean of ``--reps``), and
+  the same call captured as a CUDA graph and replayed (the launch
+  without the wrapper's host work), beside ``diagnostics.trace_bound``,
+  with a digest of the output rows to compare the checkouts;
+- with ``--trace-holds``: the same at the shapes of ``chip_smoke.py``'s
+  traceback holds of phases 6, 9 and 11b (``TRACE_HOLDS``: 16,752 x 24
+  bp at k = 3, 2 and 261 x 120 bp at k = 10);
 - with ``--no-scans``, none of the scan kernels' timings above (the
   prepared text, q1meta, q1, q2meta, q2), nor ``--overhang-reads``.
 
@@ -161,6 +175,15 @@ OH_K = 10
 OH_ALPHA = 0.1
 #: --search-many: the timed ``search_many`` calls of a run
 SEARCH_MANY_RUNS = 3
+#: --trace-long: the pattern's length and k; the text's bases (also of
+#: --trace-holds)
+TRACE_LONG_M = 500
+TRACE_LONG_K = 50
+TRACE_LONG_TEXT = 4_000_000
+#: --trace-holds: (pattern length, k, candidates, key) of chip_smoke.py's
+#: traceback holds of phases 6, 9 and 11b
+TRACE_HOLDS = ((24, 3, 16_752, "trace_phase6"), (120, 10, 2, "trace_phase9"),
+               (120, 10, 261, "trace_phase11b"))
 #: --cli-search: the runs after the warm-up, in turns
 CLI_RUNS = ("prefetch", "serial", "serial", "prefetch")
 #: reads of the warm-up run
@@ -190,7 +213,8 @@ def _child(root: str, seed: int, mib: int, reps: int,
            pack_sets: bool = False, strands: bool = False,
            scans: bool = True, overhang_search: bool = False,
            cli_reads: int = 0, cli_v2: bool = False,
-           cli_profile: bool = False) -> dict:
+           cli_profile: bool = False, trace_long: int = 0,
+           trace_holds: bool = False) -> dict:
     """One run: the kernels of the checkout at ``root``."""
     sys.path.insert(0, root)
     import torch
@@ -218,6 +242,12 @@ def _child(root: str, seed: int, mib: int, reps: int,
         out.update(_strands(acgt, dna, mib))
     if overhang_search:
         out.update(_overhang_search(acgt, mib))
+    if trace_long:
+        out.update(_trace_shape(acgt, TRACE_LONG_M, TRACE_LONG_K, trace_long,
+                                reps, "trace_long"))
+    if trace_holds:
+        for m, k, n, key in TRACE_HOLDS:
+            out.update(_trace_shape(acgt, m, k, n, reps, key))
     if cli_reads:
         barcodes = acgt(N_BARCODES * BARCODE_LEN).cpu().numpy()
         out.update(_cli_search(dna, barcodes.reshape(N_BARCODES, -1), acgt,
@@ -493,6 +523,57 @@ def _overhang_search(acgt, mib: int) -> dict:
         for owner, name, fn in wrapped:
             setattr(owner, name, fn)
     return out
+
+
+def _trace_shape(acgt, m: int, k: int, n: int, reps: int,
+                 key: str) -> dict:
+    """The traceback kernel alone (``--trace-long``, ``--trace-holds``): n
+    full windows of a pattern of m at k over one random text, each ending
+    at a planted copy with substitutions, one deletion and one insertion;
+    one call timed through the wrapper and, captured as a CUDA graph, by
+    its replay (the launch without the wrapper's host work)."""
+    import numpy as np
+    import torch
+
+    from sassy_tpu_torch import profiles, traceback
+    from sassy_tpu_torch.diagnostics import trace_bound
+    from sassy_tpu_torch.ops import myers_cuda
+    from sassy_tpu_torch.ops.batch import TextSet
+
+    fill = m + k
+    iupac = profiles.Iupac()
+    text = acgt(TRACE_LONG_TEXT).cpu().numpy()
+    pat = acgt(m).cpu().numpy()
+    rng = np.random.default_rng(0)
+    ends = (np.arange(1, n + 1) * (len(text) // (n + 1))).astype(np.int64)
+    for e in ends.tolist():
+        mut = pat.copy()
+        mut[rng.integers(0, m, 3)] = rng.choice(np.frombuffer(b"ACGT",
+                                                               np.uint8), 3)
+        mut = np.insert(np.delete(mut, int(rng.integers(0, m))),
+                        int(rng.integers(0, m)), ord("G"))
+        text[e - m : e] = mut
+    planes, word0 = TextSet([text], DEVICE).strand_planes(iupac, False)
+    cand = np.stack([np.zeros(n, np.int64), np.full(n, word0[0]),
+                     ends - fill, np.full(n, fill), ends])
+    args = (planes, *(torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)
+                      for x in (iupac.encode(pat)[None], cand,
+                                traceback.trace_tables(m, None, None))),
+            iupac, fill, False, n)
+    rows = myers_cuda.trace_windows(*args).cpu().numpy()
+    ms = _cuda_ms(lambda: myers_cuda.trace_windows(*args), reps)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        myers_cuda.trace_windows(*args)
+    graph_ms = _cuda_ms(graph.replay, reps)
+    bound = trace_bound(cand, rows, m, fill, iupac.planes, 1)
+    return {f"{key}_ms": ms, f"{key}_graph_ms": graph_ms,
+            f"{key}_candidates": n, f"{key}_m": m, f"{key}_k": k,
+            f"{key}_bound_ms": bound["bound_ms"],
+            f"{key}_bound_by": bound["bound_by"],
+            f"{key}_costs": np.bincount(rows[:, 1]).tolist(),
+            f"{key}_failed": int(rows[:, 4].sum()),
+            f"{key}_digest": hashlib.sha256(rows.tobytes()).hexdigest()[:16]}
 
 
 def _chunk_windows(ts, prof, pp, t0, t1):
@@ -811,6 +892,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cli-search", type=int, default=0, metavar="N_READS")
     ap.add_argument("--cli-v2", action="store_true")
     ap.add_argument("--cli-profile", action="store_true")
+    ap.add_argument("--trace-long", type=int, default=0, metavar="N")
+    ap.add_argument("--trace-holds", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
@@ -820,7 +903,8 @@ def main(argv=None) -> int:
                                 a.q2_reads, a.off_target, a.pack_set,
                                 a.strands, not a.no_scans,
                                 a.overhang_search, a.cli_search,
-                                a.cli_v2, a.cli_profile)),
+                                a.cli_v2, a.cli_profile, a.trace_long,
+                                a.trace_holds)),
               flush=True)
         return 0
     card = subprocess.run(
@@ -846,7 +930,9 @@ def main(argv=None) -> int:
             + (["--strands"] if a.strands else [])
             + (["--overhang-search"] if a.overhang_search else [])
             + (["--no-scans"] if a.no_scans else [])
-            + ["--cli-search", str(a.cli_search)]
+            + ["--cli-search", str(a.cli_search),
+               "--trace-long", str(a.trace_long)]
+            + (["--trace-holds"] if a.trace_holds else [])
             + (["--cli-v2"] if a.cli_v2 else [])
             + (["--cli-profile"] if a.cli_profile else []),
             capture_output=True, text=True,

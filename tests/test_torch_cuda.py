@@ -14,9 +14,11 @@ the port's Searcher on the card, single and batched, with and without
 overhang, ascii, and with the suffix prefilter forced on, against its
 CPU path and the numpy oracle; and the host finish's traceback kernel
 (``myers_cuda.trace_windows``) against ``traceback.trace_plain`` on the
-same planes (every profile, both strands, overhang, 8-120 bp, chunked),
-through both engines' finish, on a forced walk failure and on inputs it
-refuses.
+same planes (every profile, both strands, overhang, 8-120 bp, chunked;
+at the Myers words' edges: patterns of 31-65 and 200 bp, windows of 31-33
+positions at every offset modulo 32; a 500 bp pattern at k = 50, also
+chunked by a small ``FILL_BYTES``), through both engines' finish, on a
+forced walk failure and on inputs it refuses.
 
 Marked ``cuda``: every test skips without a CUDA device. On a GPU machine
 without JAX, run them without the repository's conftest (which imports
@@ -1630,6 +1632,97 @@ def test_trace_kernel_equals_plain(cuda, pname, overhang, reverse, m, k):
     failed = traceback.unpack_trace(want.numpy(), args[1].shape[1],
                                     args[5])[5]
     assert not failed.any()
+
+
+def _edge_trace_inputs(dev, pname, reverse, m, k, seed=0):
+    """The traceback kernel's inputs at the Myers words' edges on ``dev``:
+    over three texts, windows of 31, 32 and 33 positions starting at every
+    offset modulo 32 (some ending past their window: end overshoot), and
+    full windows of m + k positions ending at planted copies with an edit;
+    iupac with alpha 0.5, the others without overhang."""
+    make, alphabet = TRACE_PROFILES[pname]
+    prof = make()
+    alpha = 0.5 if pname == "iupac" else None
+    g = np.random.default_rng(seed + m)
+    ab = np.frombuffer(alphabet, np.uint8)
+    pats = np.stack([g.choice(ab, m) for _ in range(2)])
+    fill = m + k
+    texts, cols = [], []
+    for t, n in enumerate((1100 + 7 * m, 1333 + 5 * m, 1500 + 9 * m)):
+        seq = g.choice(ab, n)
+        for r in range(32):
+            for i0 in (31, 32, 33):
+                over = int(g.integers(0, 3)) if i0 == 32 else 0
+                off = 33 * r + t
+                cols.append((int(g.integers(0, 2)), t, off, i0,
+                             off + i0 + over))
+        for e in range(fill + 40, n - 1, max(fill + 40, n // 6)):
+            q = int(g.integers(0, 2))
+            seq[e - m : e] = pats[q]
+            seq[e - int(g.integers(1, m))] = g.choice(ab)
+            cols.append((q, t, e - fill, fill, e))
+        texts.append(seq[::-1].copy() if reverse else seq)
+    ts = batch.TextSet(texts, dev)
+    steps = semantics.overhang_steps(m, k, alpha, None)
+    if steps:
+        ts.planes(prof, reverse, steps)
+    planes, word0 = ts.strand_planes(prof, reverse)
+    cand = np.array(cols, np.int64).T.copy()
+    cand[1] = word0[cand[1]]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (planes, to(np.stack([prof.encode(p) for p in pats])), to(cand),
+            to(traceback.trace_tables(m, alpha, None)), prof, fill,
+            alpha is not None)
+
+
+@pytest.mark.parametrize("m", [31, 32, 33, 64, 65, 200])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("pname", ["iupac", "ascii"])
+def test_trace_kernel_at_word_edges(cuda, pname, reverse, m):
+    """At the Myers words' edges the kernel's rows are the plain
+    version's bit for bit, in one launch and chunked."""
+    args = _edge_trace_inputs(cuda, pname, reverse, m, m // 2)
+    want = traceback.trace_plain(*args)
+    for chunk in (1 << 20, 13):
+        got = myers_cuda.trace_windows(*args, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+    assert not traceback.unpack_trace(want.numpy(), m, args[5])[5].any()
+
+
+def test_trace_kernel_long_pattern(cuda, monkeypatch):
+    """A 500 bp pattern at k = 50 (18 window words a row: three groups of
+    the fill): the kernel's rows equal the plain version's; through
+    ``trace_cells_batch`` with a small ``FILL_BYTES`` (a launch a
+    candidate) the Traced equals the CPU path's."""
+    m, k = 500, 50
+    args = _edge_trace_inputs(cuda, "iupac", False, m, k)
+    cand = args[2]
+    keep = torch.arange(0, cand.shape[1], 9, device=cuda)  # a few windows
+    args = (args[0], args[1], cand[:, keep].contiguous(), *args[3:])
+    want = traceback.trace_plain(*args)
+    assert torch.equal(myers_cuda.trace_windows(*args, 1 << 20).cpu(), want)
+    rng = np.random.default_rng(5)
+    text = rng.choice(np.frombuffer(b"ACGT", np.uint8), 4000)
+    pat = text[1500:2000].copy()
+    pat[[10, 250, 400]] = [ord("A") if c != ord("A") else ord("C")
+                           for c in pat[[10, 250, 400]]]
+    ends = np.array([2000, 1999, 2003, 2040, 3000], np.int64)
+    prof = profiles.Iupac()
+    traced = []
+    monkeypatch.setattr(traceback, "FILL_BYTES", 3 << 20)
+    for dev in ("cpu", cuda):
+        planes = batch.TextSet([text], dev).strand_planes(prof, False)
+        before = myers_cuda.trace_windows.launches
+        tr = traceback.trace_cells_batch(
+            prof, [pat], [prof.encode(pat)], [text], np.array([4000]),
+            np.zeros(5, np.int64), np.zeros(5, np.int64), ends, m + k, None,
+            None, traceback.StrandPlanes(*planes))
+        traced.append([x.tolist() for x in tr[:5]]
+                      + [[c.to_string() for c in tr.cigars]])
+    # 3 MiB of FILL_BYTES hold two candidates' cost matrices: three launches
+    assert myers_cuda.trace_windows.launches - before == 3
+    assert traced[0] == traced[1] and traced[0][0][0] == 3
 
 
 def _trace_searches(dev):

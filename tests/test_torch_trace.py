@@ -12,7 +12,11 @@ failure included.
 The cases: iupac, dna, ascii and ascii folded; both strands; no overhang,
 alpha 0.5, alpha 0.5 with max_overhang 3 (iupac); patterns of 8, 24 and
 120; k 0 and m / 4; candidates at a text's start, at random ends, at
-planted copies and past a text's end.
+planted copies and past a text's end. At the Myers words' edges: patterns
+of 31, 32, 33, 64, 65 and 200 (one word of pattern rows and more), windows
+of 31, 32 and 33 positions at every offset modulo 32 and full windows of
+several words (more than a fill keeps in registers at 200), over iupac
+with overhang and ascii, both strands.
 """
 
 import ctypes
@@ -56,12 +60,12 @@ def _host():
     csrc = myers_cuda.CSRC
     lib = ctypes.CDLL(str(gxx.build(
         "trace_host", [os.path.join(here, "torch_trace_host.cc"),
-                       csrc / "trace.cuh"],
+                       csrc / "trace.cuh", csrc / "myers_word.cuh"],
         ["-std=c++17", "-O1", "-shared", "-fPIC", "-ffp-contract=off",
          f"-I{csrc}"])))
     ptr, num, big = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sassy_trace_host.argtypes = ([ptr, big, num, num, ptr, ptr, big, ptr]
-                                     + [num] * 3 + [ptr, big, ptr, ptr, big])
+                                     + [num] * 3 + [ptr, big, ptr, big])
     lib.sassy_trace_host.restype = num
     lib.sassy_trace_codes_host.argtypes = [ptr, big, num, big, num, ptr]
     return lib
@@ -147,19 +151,25 @@ def _kernel_inputs(case):
 def _host_trace(lib, planes, pcodes, cand, tables, prof, fill, alpha_on,
                 chunk):
     """The host build's output rows over all candidates, ``chunk`` at a
-    time in one scratch."""
+    time in one scratch of delta words (16-byte cells, 16-byte aligned, of
+    ``myers_cuda.trace_cells``' size, as ``myers_cuda.trace_windows``
+    allocates them), which it writes nothing past."""
     pl = planes.numpy()
     pc, cd, tb = pcodes.numpy(), cand.numpy(), tables.numpy()
     m, B = pc.shape[1], cd.shape[1]
     stride = myers_cuda.TRACE_FIELDS + -(-(m + fill + 1) // 4)
     out = np.zeros((B, stride), np.int32)
-    E = np.empty(chunk * (m + 1) * (fill + 1), np.int32)
-    codes = np.empty(chunk * max(fill, 1), np.uint8)
+    words = myers_cuda.TRACE_CELL_BYTES // 4
+    n = words * myers_cuda.trace_cells(chunk, m, fill)
+    cells = np.full(n + 64 * words, 0xA5A5A5A5, np.uint32)
+    lead = (-cells.ctypes.data) % 16 // 4  # words to a 16-byte boundary
     assert lib.sassy_trace_host(
         pl.ctypes.data, pl.shape[1], prof.planes,
         myers_cuda.TRACE_EQ[prof.eq_mode], pc.ctypes.data, cd.ctypes.data, B,
         tb.ctypes.data, m, fill, int(alpha_on), out.ctypes.data, stride,
-        E.ctypes.data, codes.ctypes.data, chunk) == 0
+        cells[lead:].ctypes.data, chunk) == 0
+    assert (cells[:lead] == 0xA5A5A5A5).all()
+    assert (cells[lead + n :] == 0xA5A5A5A5).all()
     return out
 
 
@@ -251,6 +261,82 @@ def test_host_build_equals_plain(case):
     i, total, ps, pe, ops, failed = traceback.unpack_trace(
         got, pcodes.shape[1], fill)
     assert not failed.any() and (ops >= 0).any()
+
+
+EDGE_MS = (31, 32, 33, 64, 65, 200)
+
+
+def _edge_inputs(pname, strand, m, seed=0):
+    """The kernel's inputs at the Myers words' edges: over three texts (so
+    that their first plane words differ), windows of 31, 32 and 33
+    positions starting at every offset modulo 32, some of them with an
+    end past them (end overshoot), and windows of the full fill length
+    m + m // 2 ending at planted copies with an edit (those of m = 200
+    span ten words)."""
+    make, _, alphabet = PROFILES[pname]
+    prof = make()
+    alpha, mo = OVERHANG["alpha" if pname == "iupac" else "none"]
+    g = np.random.default_rng(seed + m)
+    ab = np.frombuffer(alphabet, np.uint8)
+    pats = [g.choice(ab, m) for _ in range(2)]
+    fill = m + m // 2
+    texts, pids, tids, offs, wlens, ends = [], [], [], [], [], []
+    for t, n in enumerate((1100 + 7 * m, 1333 + 5 * m, 1500 + 9 * m)):
+        seq = g.choice(ab, n)
+        for r in range(32):
+            off = 32 * r + r + t
+            for i0 in (31, 32, 33):
+                over = int(g.integers(0, 3)) if i0 == 32 else 0
+                pids.append(int(g.integers(0, 2)))
+                offs.append(off)
+                wlens.append(i0)
+                ends.append(off + i0 + over)
+        for e in range(fill + 40, n - 1, max(fill + 40, n // 6)):
+            q = int(g.integers(0, 2))
+            seq[e - m : e] = pats[q]
+            seq[e - int(g.integers(1, m))] = g.choice(ab)
+            pids.append(q)
+            offs.append(e - fill)
+            wlens.append(fill)
+            ends.append(e)
+        tids += [t] * (len(ends) - len(tids))
+        texts.append(seq)
+    reverse = strand == "rc"
+    if reverse:
+        texts = [x[::-1].copy() for x in texts]
+    sp = _planes(prof, texts, reverse,
+                 semantics.overhang_steps(m, m // 4, alpha, mo))
+    cand = np.stack([np.array(pids, np.int64), sp.word0[tids],
+                     np.array(offs, np.int64), np.array(wlens, np.int64),
+                     np.array(ends, np.int64)])
+    return (prof, sp.planes, torch.from_numpy(
+        np.stack([prof.encode(p) for p in pats])),
+        torch.from_numpy(np.ascontiguousarray(cand)),
+        torch.from_numpy(traceback.trace_tables(m, alpha, mo)), fill,
+        alpha is not None)
+
+
+@pytest.mark.parametrize("m", EDGE_MS)
+@pytest.mark.parametrize("strand", ["fwd", "rc"])
+@pytest.mark.parametrize("pname", ["iupac", "ascii"])
+def test_host_build_at_word_edges(pname, strand, m):
+    """At the Myers words' edges (pattern rows across a word of rows,
+    windows ending at and beside a word's end at every offset, groups of
+    words), the host build gives the plain version's rows bit for bit,
+    chunked too."""
+    lib = _host()
+    prof, planes, pcodes, cand, tables, fill, alpha_on = _edge_inputs(
+        pname, strand, m)
+    want = traceback.trace_plain(planes, pcodes, cand, tables, prof, fill,
+                                 alpha_on).numpy()
+    for chunk in (cand.shape[1], 13):
+        np.testing.assert_array_equal(_host_trace(
+            lib, planes, pcodes, cand, tables, prof, fill, alpha_on, chunk),
+            want)
+    i, total, ps, pe, ops, failed = traceback.unpack_trace(want, m, fill)
+    assert not failed.any()
+    assert ((ops == 0).sum(axis=1) >= m - 6).any()  # walks along a copy
+    assert set(cand.numpy()[2] % 32) == set(range(32))
 
 
 @pytest.mark.parametrize("chunk", [1, 5, 64])
