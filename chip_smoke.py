@@ -1601,7 +1601,8 @@ def off_targets_chunk() -> dict:
 
 def finish_split_text(sp: dict) -> str:
     """A ``Searcher.last_finish_split`` as one clause: its steps' host
-    times and sizes."""
+    times and sizes, the Match build split into its steps and the
+    collector's passes during them."""
     if "trace" in sp:  # the kernel: uploads, launches, the one copy
         trace = (f"trace {sp['trace'] * 1e3:.1f} ms ({sp.get('windows', 0)} "
                  "windows)")
@@ -1614,7 +1615,11 @@ def finish_split_text(sp: dict) -> str:
             f"({sp.get('candidates', 0)} candidates, {sp.get('kept', 0)} "
             f"kept), {trace}, Match build "
             f"{sp.get('build', 0) * 1e3:.1f} ms ({sp.get('matches', 0)} "
-            "matches)")
+            f"matches: unpack {sp.get('unpack', 0) * 1e3:.1f} ms, CIGARs "
+            f"{sp.get('cigars', 0) * 1e3:.1f} ms, Match objects "
+            f"{sp.get('match_objects', 0) * 1e3:.1f} ms; the collector's "
+            f"passes in them {sp.get('gc_passes', 0)}, "
+            f"{sp.get('gc_s', 0) * 1e3:.1f} ms)")
 
 
 def batched_strand_phases(label, searcher, prof, pats, texts, k, alpha):

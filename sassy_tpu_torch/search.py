@@ -30,12 +30,14 @@ from typing import NamedTuple
 
 import numpy as np
 
+from . import collector
 from .matchrec import UNKNOWN, Match, Strand
 from .nfilter import n_fraction_ok
 from .ops.batch import BatchEngine, TextSet
 from .ops.myers_torch import TorchEngine, engine_device
 from .profiles import Profile, as_bytes_array, get_profile
-from .traceback import StrandPlanes, TextSpans, _tick, trace_cells_batch
+from .traceback import (StrandPlanes, TextSpans, _tick, _tick_build,
+                        trace_cells_batch)
 
 __all__ = ["Searcher", "CachedRev", "EncodedPatterns", "SearchMode"]
 
@@ -143,7 +145,9 @@ class Searcher:
         self.engine = TorchEngine(device)
         self.batch = BatchEngine(device)
         #: the last call's host finish: its steps' seconds and sizes
-        #: ("filters", "gather", "fill", "walk", "build"; "candidates",
+        #: ("filters", "trace" or "gather", "fill", "walk"; "build", the
+        #: sum of "unpack", "cigars" and "match_objects"; the collector's
+        #: passes during those, "gc_passes" and "gc_s"; "candidates",
         #: "kept", "windows", "matches")
         self.last_finish_split: dict = {}
 
@@ -561,40 +565,42 @@ class Searcher:
         matches in candidate order, then the reverse strand's, in forward
         coordinates (``text_start = n - rc_end``). Indices are offset by
         ``pattern_idx`` and ``text_idx``."""
-        t0 = time.perf_counter()
-        traced = not self.without_trace_flag
-        q, t, seq, cost, te, pe = (
-            np.concatenate([getattr(f, a) for f in found])
-            for a in ("q", "t", "seq", "cost", "text_end", "pattern_end"))
-        strand = np.concatenate([np.full(len(f.q), int(f.strand))
-                                 for f in found])
-        rc = strand == int(Strand.RC)
-        n = lens[t]
-        if traced:
-            ts, ps = (np.concatenate([getattr(f, a) for f in found])
-                      for a in ("text_start", "pattern_start"))
-            ts, te = np.where(rc, n - te, ts), np.where(rc, n - ts, te)
-            cigars = [c for f in found for c in f.cigars]
-        else:
-            ts = np.where(rc, n - te, 0)
-        order = np.lexsort((seq, strand, t, q))
-        cols = [a[order].tolist() for a in (q + pattern_idx, t + text_idx,
-                                            cost, ts, te, pe, strand)]
-        if traced:
-            out = [Match(pattern_idx=qi, text_idx=ti, text_start=s,
-                         text_end=e, pattern_start=p0, pattern_end=p,
-                         cost=c, strand=_STRANDS[sd], cigar=cigars[i])
-                   for i, qi, ti, c, s, e, p, sd, p0 in zip(
-                       order.tolist(), *cols, ps[order].tolist())]
-        else:
-            out = [Match(pattern_idx=qi, text_idx=ti,
-                         text_start=s if sd else UNKNOWN,
-                         text_end=UNKNOWN if sd else e,
-                         pattern_start=UNKNOWN, pattern_end=p, cost=c,
-                         strand=_STRANDS[sd])
-                   for qi, ti, c, s, e, p, sd in zip(*cols)]
-        _tick(self.last_finish_split, "build", t0, matches=len(out))
-        return out
+        with collector.counted(self.last_finish_split):
+            t0 = time.perf_counter()
+            traced = not self.without_trace_flag
+            q, t, seq, cost, te, pe = (
+                np.concatenate([getattr(f, a) for f in found])
+                for a in ("q", "t", "seq", "cost", "text_end", "pattern_end"))
+            strand = np.concatenate([np.full(len(f.q), int(f.strand))
+                                     for f in found])
+            rc = strand == int(Strand.RC)
+            n = lens[t]
+            if traced:
+                ts, ps = (np.concatenate([getattr(f, a) for f in found])
+                          for a in ("text_start", "pattern_start"))
+                ts, te = np.where(rc, n - te, ts), np.where(rc, n - ts, te)
+                cigars = [c for f in found for c in f.cigars]
+            else:
+                ts = np.where(rc, n - te, 0)
+            order = np.lexsort((seq, strand, t, q))
+            cols = [a[order].tolist() for a in (q + pattern_idx, t + text_idx,
+                                                cost, ts, te, pe, strand)]
+            if traced:
+                out = [Match(pattern_idx=qi, text_idx=ti, text_start=s,
+                             text_end=e, pattern_start=p0, pattern_end=p,
+                             cost=c, strand=_STRANDS[sd], cigar=cigars[i])
+                       for i, qi, ti, c, s, e, p, sd, p0 in zip(
+                           order.tolist(), *cols, ps[order].tolist())]
+            else:
+                out = [Match(pattern_idx=qi, text_idx=ti,
+                             text_start=s if sd else UNKNOWN,
+                             text_end=UNKNOWN if sd else e,
+                             pattern_start=UNKNOWN, pattern_end=p, cost=c,
+                             strand=_STRANDS[sd])
+                       for qi, ti, c, s, e, p, sd in zip(*cols)]
+            _tick_build(self.last_finish_split, "match_objects", t0,
+                        matches=len(out))
+            return out
 
 
 class _Found(NamedTuple):

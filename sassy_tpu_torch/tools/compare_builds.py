@@ -53,8 +53,12 @@ descriptor of the planes where the checkout has ``TextSet.descriptor``):
   reads forward, odd reads reverse-complemented, as ``chip_smoke.py``
   phase 6 plants them), so that the host traceback of one match per read
   takes most of the call; with the host finish's split where the
-  checkout has ``Searcher.last_finish_split``, and a digest of the Match list
-  (every field and the CIGAR, in order) to compare the checkouts;
+  checkout has ``Searcher.last_finish_split`` (its Match build split into
+  the rows' unpacking, the CIGARs and the Match objects, and the
+  collector's passes during them, where the checkout splits it), and a
+  digest of the Match list (every field and the CIGAR, in order) to
+  compare the checkouts; then the same for ``Searcher("dna",
+  rc=False)``, the forward strand alone (keys ``fwd_*``);
 - with ``--overhang-reads N``, where the checkout has overhang on the
   batched engine: the forward strand of ``chip_smoke.py`` phase 11b's
   position-level dispatch, 8 random 120 bp patterns at k=10, alpha 0.1
@@ -857,18 +861,23 @@ def _search_many(dna, barcodes, acgt, n_reads: int, plant: bool) -> dict:
     finally:
         tracemalloc.stop()
     del ts
-    searcher = Searcher("dna", rc=True, device="cuda")
-    out["search_many_s"] = []
-    for _ in range(SEARCH_MANY_RUNS):
-        t0 = time.perf_counter()
-        matches = searcher.search_many(list(barcodes), reads, K)
-        out["search_many_s"].append(time.perf_counter() - t0)
-    out["matches"] = len(matches)
-    # where the checkout has it
-    out["finish_split"] = getattr(searcher, "last_finish_split", {})
-    out["matches_digest"] = hashlib.sha256("".join(
-        f"{m.sort_key()} {m.cigar.to_string()}\n" for m in matches
-    ).encode()).hexdigest()[:16]
+    # both strands, then the forward strand alone (its matches' build
+    # rate beside the two strands')
+    for pre, rc in (("", True), ("fwd_", False)):
+        searcher = Searcher("dna", rc=rc, device="cuda")
+        out[pre + "search_many_s"] = []
+        for _ in range(SEARCH_MANY_RUNS):
+            t0 = time.perf_counter()
+            matches = searcher.search_many(list(barcodes), reads, K)
+            out[pre + "search_many_s"].append(time.perf_counter() - t0)
+        out[pre + "matches"] = len(matches)
+        # where the checkout has it
+        out[pre + "finish_split"] = getattr(searcher, "last_finish_split",
+                                            {})
+        out[pre + "matches_digest"] = hashlib.sha256("".join(
+            f"{m.sort_key()} {m.cigar.to_string()}\n" for m in matches
+        ).encode()).hexdigest()[:16]
+        del matches
     return out
 
 

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import collector
 from .cigar import DEL, INS, MATCH, SUB, Cigar
 from .matchrec import Match, Strand
 from .oracle import dp_matrix
@@ -87,6 +88,15 @@ def _tick(split: dict | None, key: str, t0: float, **sizes) -> float:
         split[key] = split.get(key, 0.0) + now - t0
         for name, n in sizes.items():
             split[name] = split.get(name, 0) + n
+    return now
+
+
+def _tick_build(split: dict | None, key: str, t0: float, **sizes) -> float:
+    """``_tick`` of one step of the Match build ("unpack", "cigars",
+    "match_objects"): its seconds also under "build", the steps' sum."""
+    now = _tick(split, key, t0, **sizes)
+    if split is not None:
+        split["build"] = split.get("build", 0.0) + now - t0
     return now
 
 
@@ -425,8 +435,10 @@ def trace_cells_batch(
     is walked again on the host from its text's bytes (``texts``), which
     raises the reference's ``TraceError``. ``split``, a dict, gets the
     seconds of the trace ("trace" on the card; the plain version's
-    "gather", "fill" and "walk" on the CPU) and of the CIGARs' build
-    ("build"), and the windows' count."""
+    "gather", "fill" and "walk" on the CPU), of the rows' unpacking
+    ("unpack") and the CIGARs' build ("cigars"), both also under "build",
+    the collector's passes during those two ("gc_passes", "gc_s"), and
+    the windows' count."""
     pids = np.asarray(pids, np.int64)
     tids = np.asarray(tids, np.int64)
     ends = np.asarray(ends, np.int64)
@@ -463,15 +475,18 @@ def trace_cells_batch(
                                        fill_len, alpha is not None,
                                        chunk).cpu()
         t0 = _tick(split, "trace", t0, windows=B)
-    i, total, pat_start, pat_end, ops, failed = unpack_trace(
-        buf.numpy(), m, fill_len)
-    if failed.any():
-        _raise_failed(profile, patterns, pcodes[pidx], texts, text_lens,
-                      pids, tids, ends, offsets, wlens, fill_len, alpha,
-                      max_overhang, reverse, np.flatnonzero(failed), chunk)
-    longest = int(np.count_nonzero(ops >= 0, axis=1).max())
-    cigars = _cigars(ops[:, :longest])
-    _tick(split, "build", t0)
+    with collector.counted(split):
+        i, total, pat_start, pat_end, ops, failed = unpack_trace(
+            buf.numpy(), m, fill_len)
+        t0 = _tick_build(split, "unpack", t0)
+        if failed.any():
+            _raise_failed(profile, patterns, pcodes[pidx], texts, text_lens,
+                          pids, tids, ends, offsets, wlens, fill_len, alpha,
+                          max_overhang, reverse, np.flatnonzero(failed),
+                          chunk)
+        longest = int(np.count_nonzero(ops >= 0, axis=1).max())
+        cigars = _cigars(ops[:, :longest])
+        _tick_build(split, "cigars", t0)
     return Traced(total, offsets + i, offsets + wlens, pat_start, pat_end,
                   cigars)
 
