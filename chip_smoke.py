@@ -378,6 +378,10 @@ CLI_READS = 6_400
 CLI_SUBSET = 32
 AGREP_BYTES = 1 << 20
 RESUME_BATCH = 4 << 20
+#: seconds a CLI subprocess of phase 17 may take (each takes under 30 s
+#: on the card): a stuck one dumps its threads' stacks at this less 30 s
+#: and fails the phase, well inside the script's own limit
+CLI_TIMEOUT = 240
 RESUME_CRASH = 3
 #: phase 18: GenomeScan's segment, and how far the device memory after the
 #: scan may lie from its value before
@@ -3005,8 +3009,10 @@ def cli_child(spec_path: str):
     ``split_times`` if the spec asks. Writes each run's record, and any
     module of JAX or the reference package, to the spec's result file;
     returns the last exit code."""
+    import faulthandler
     import runpy
 
+    faulthandler.dump_traceback_later(CLI_TIMEOUT - 30)
     spec = json.loads(Path(spec_path).read_text())
     result = {"runs": []}
     code = 0
@@ -3040,17 +3046,23 @@ def run_cli(what: str, commands, mode: str = "module", expect: int = 0,
     """Run ``commands`` (argument lists of ``python -m sassy_tpu_torch``)
     in one subprocess through ``cli_child``. Returns the process, its
     result record and its wall seconds; fails on another exit code, a
-    command of mode "main" that did not exit 0, or an import of JAX or the
-    reference package."""
+    command of mode "main" that did not exit 0, an import of JAX or the
+    reference package, or no exit within ``CLI_TIMEOUT``."""
     spec, result = CLI_DIR / "spec.json", CLI_DIR / "result.json"
     result.unlink(missing_ok=True)
     spec.write_text(json.dumps({
         "mode": mode, "split": split, "result": str(result),
         "commands": [[str(a) for a in c] for c in commands]}))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", _CLI_CHILD, str(spec)], cwd=ROOT,
-        env=dict(os.environ, **(env or {})), capture_output=True, timeout=900)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _CLI_CHILD, str(spec)], cwd=ROOT,
+            env=dict(os.environ, **(env or {})), capture_output=True,
+            timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        fail(f"{what}: no exit within {CLI_TIMEOUT} s; its stderr and "
+             "threads: "
+             f"{(e.stderr or b'').decode(errors='replace')[-8000:]}")
     seconds = time.perf_counter() - t0
     if proc.returncode != expect:
         fail(f"{what}: exit {proc.returncode} (want {expect}): "

@@ -26,6 +26,7 @@ rc_end``), keeping the CIGAR in pattern direction.
 from __future__ import annotations
 
 import time
+from itertools import chain, compress, repeat
 from typing import NamedTuple
 
 import numpy as np
@@ -529,7 +530,7 @@ class Searcher:
                                   or [seq[:0]])
 
         cigars = [c for _, tr, kp in parts
-                  for c, kept in zip(tr.cigars, kp.tolist()) if kept]
+                  for c in compress(tr.cigars, kp.tolist())]
         return _Found(strand, q[rows], t[rows], rows, cat("cost"),
                       cat("text_start"), cat("text_end"),
                       cat("pattern_start"), cat("pattern_end"), cigars)
@@ -565,39 +566,37 @@ class Searcher:
         matches in candidate order, then the reverse strand's, in forward
         coordinates (``text_start = n - rc_end``). Indices are offset by
         ``pattern_idx`` and ``text_idx``."""
-        with collector.counted(self.last_finish_split):
+        with collector.paused(self.last_finish_split):
             t0 = time.perf_counter()
-            traced = not self.without_trace_flag
             q, t, seq, cost, te, pe = (
                 np.concatenate([getattr(f, a) for f in found])
-                for a in ("q", "t", "seq", "cost", "text_end", "pattern_end"))
+                for a in ("q", "t", "seq", "cost", "text_end",
+                          "pattern_end"))
             strand = np.concatenate([np.full(len(f.q), int(f.strand))
                                      for f in found])
             rc = strand == int(Strand.RC)
             n = lens[t]
-            if traced:
+            order = np.lexsort((seq, strand, t, q))
+            qs, tis, costs, pes = (a[order].tolist() for a in (
+                q + pattern_idx, t + text_idx, cost, pe))
+            strands = list(map(_STRANDS.__getitem__,
+                               strand[order].tolist()))
+            if self.without_trace_flag:
+                ends = np.where(rc, n - te, te)[order].tolist()
+                out = list(map(
+                    Match, qs, tis,
+                    [e if sd else UNKNOWN for e, sd in zip(ends, strands)],
+                    [UNKNOWN if sd else e for e, sd in zip(ends, strands)],
+                    repeat(UNKNOWN), pes, costs, strands))
+            else:
                 ts, ps = (np.concatenate([getattr(f, a) for f in found])
                           for a in ("text_start", "pattern_start"))
                 ts, te = np.where(rc, n - te, ts), np.where(rc, n - ts, te)
-                cigars = [c for f in found for c in f.cigars]
-            else:
-                ts = np.where(rc, n - te, 0)
-            order = np.lexsort((seq, strand, t, q))
-            cols = [a[order].tolist() for a in (q + pattern_idx, t + text_idx,
-                                                cost, ts, te, pe, strand)]
-            if traced:
-                out = [Match(pattern_idx=qi, text_idx=ti, text_start=s,
-                             text_end=e, pattern_start=p0, pattern_end=p,
-                             cost=c, strand=_STRANDS[sd], cigar=cigars[i])
-                       for i, qi, ti, c, s, e, p, sd, p0 in zip(
-                           order.tolist(), *cols, ps[order].tolist())]
-            else:
-                out = [Match(pattern_idx=qi, text_idx=ti,
-                             text_start=s if sd else UNKNOWN,
-                             text_end=UNKNOWN if sd else e,
-                             pattern_start=UNKNOWN, pattern_end=p, cost=c,
-                             strand=_STRANDS[sd])
-                       for qi, ti, c, s, e, p, sd in zip(*cols)]
+                cigars = list(chain.from_iterable(f.cigars for f in found))
+                out = list(map(Match, qs, tis, ts[order].tolist(),
+                               te[order].tolist(), ps[order].tolist(), pes,
+                               costs, strands,
+                               map(cigars.__getitem__, order.tolist())))
             _tick_build(self.last_finish_split, "match_objects", t0,
                         matches=len(out))
             return out

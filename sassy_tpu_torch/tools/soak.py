@@ -5,6 +5,7 @@
     python -m sassy_tpu_torch.tools.soak --repro GROUP SEED
     python -m sassy_tpu_torch.tools.soak --single [--pairs 3000] [--seed 0]
     python -m sassy_tpu_torch.tools.soak --single --repro CASE SEED
+    python -m sassy_tpu_torch.tools.soak --trace [--pairs 80000] [--seed 0]
 
 The port of the reference's ``scripts/soak_batch.py`` (batch mode, the
 default) and ``scripts/soak_cpu.py`` (``--single``). The reference's
@@ -25,6 +26,21 @@ reference's 14, then two of 110 bp at k=10, alpha 0.1 (101 overshoot
 steps, more than the word-level path's three words), so a round of 16
 groups (8,000 pairs) also reaches the position-level kernels: q2 in the
 batch, q1 in the spot pairs.
+
+``--trace`` (batch mode) also holds Match records and CIGARs: each group
+goes through ``Searcher(profile, rc=reverse, alpha).search_many_with_fn``
+on ``--device`` (the filters, the traceback kernel reading the strands'
+planes, the Match build), once with the Iupac profile and, where the
+signature has no overhang, once with the Ascii one (forward only);
+``TRACE_SAMPLE`` of its matches, drawn from ``default_rng((seed, group,
+1))``, and every match of the two spot pairs through
+``Searcher.search_with_fn`` (the single engine) are each held to the
+scalar traceback, ``traceback.trace_candidate`` over ``oracle.dp_matrix``,
+at the match's end in its strand (the complemented pattern on the
+reversed text for RC): cost, coordinates and CIGAR. The spot pairs'
+matches must also end, strand by strand, where ``oracle.candidates``
+puts the candidates. On the card a traced run also needs the traceback
+kernel launched.
 
 ``--single`` mode: ``gen_case`` from ``default_rng(seed)``, one case at a
 time as the reference script makes it, each through ``TorchEngine``,
@@ -65,6 +81,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 
 from .. import oracle, profiles
+from ..matchrec import Strand
+from ..ops import myers_cuda
+from ..traceback import trace_candidate
 from .timing import launch_counts, open_device
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -100,6 +119,9 @@ SINGLE_UNIT = 100
 #: units (groups, or SINGLE_UNIT cases) whose oracle work is in flight
 DEPTH = 2
 KERNELS = ("q1meta", "q2meta", "q1", "q2")
+#: --trace: the matches of each group (and profile) held to the scalar
+#: traceback, besides every match of its spot pairs
+TRACE_SAMPLE = 32
 
 
 def gen_text(rng, n, mode):
@@ -277,9 +299,82 @@ def case_unit(rng, seed: int, c0: int, c1: int, prof, be, te) -> _Unit:
     return _Unit(f"cases {c0}..{c1 - 1} seed={seed}", labels, pairs, card)
 
 
+def _in_strand(prof, pat, text, strand):
+    """A pattern and a text as the search of ``strand`` reads them: the
+    complemented pattern on the reversed text for RC."""
+    if strand is Strand.RC:
+        return (np.frombuffer(prof.complement(pat), np.uint8),
+                np.ascontiguousarray(text[::-1]))
+    return pat, text
+
+
+def _scalar(prof, pats, texts, k: int, alpha, mt):
+    """``mt`` (a Match of pattern ``pats[mt.pattern_idx]`` over text
+    ``texts[mt.text_idx]``) and the scalar traceback at its end, each as
+    (cost, start and end in the strand, pattern start and end, CIGAR)."""
+    n = len(texts[mt.text_idx])
+    pat, text = _in_strand(prof, pats[mt.pattern_idx], texts[mt.text_idx],
+                           mt.strand)
+    start, end = mt.text_start, mt.text_end
+    if mt.strand is Strand.RC:
+        start, end = n - end, n - start
+    got = (mt.cost, start, end, mt.pattern_start, mt.pattern_end,
+           mt.cigar.to_string())
+    w = trace_candidate(prof, pat, prof.encode(pat), text,
+                        end + len(pat) - mt.pattern_end, len(pat) + k,
+                        alpha, None)
+    return got, (w.cost, w.text_start, w.text_end, w.pattern_start,
+                 w.pattern_end, w.cigar.to_string())
+
+
+def trace_group(seed: int, gidx: int, device) -> tuple[str | None, int]:
+    """--trace: group ``gidx``'s matches through the ``Searcher`` on
+    ``device``, a sample and the spot pairs' held to the scalar
+    traceback. Returns (the first difference or None, matches held)."""
+    from ..search import Searcher
+
+    sig, pats, texts, spot = group(seed, gidx)
+    Q, T, n, m, k, alpha, allm, reverse = sig
+    rng = np.random.default_rng((seed, gidx, 1))
+    held = 0
+    for prof in [profiles.Iupac()] + ([profiles.Ascii()] if alpha is None
+                                      else []):
+        s = Searcher(prof, rc=reverse and prof.name != "ascii", alpha=alpha,
+                     device=device)
+        got = s.search_many_with_fn(pats, texts, k, allm, None)
+        pick = rng.choice(len(got), min(TRACE_SAMPLE, len(got)),
+                          replace=False)
+        held_now = [(f"{prof.name} search_many match {i}", got[i])
+                    for i in np.sort(pick).tolist()]
+        for qi, ti in spot:
+            cell = s.search_with_fn(pats[qi], texts[ti], k, allm, None)
+            what = f"{prof.name} spot pair=(q={qi}, t={ti})"
+            for strand in (Strand.FWD, Strand.RC) if s.rc else (Strand.FWD,):
+                pat, text = _in_strand(prof, pats[qi], texts[ti], strand)
+                want = [e for e, _ in oracle.candidates(
+                    prof, prof.encode(pat), text, k, alpha, None, allm)]
+                ends = sorted((n - mt.text_start if strand is Strand.RC
+                               else mt.text_end) + m - mt.pattern_end
+                              for mt in cell if mt.strand is strand)
+                if ends != want:
+                    return (f"{what} {strand.name}: match ends {ends} != "
+                            f"the oracle's candidates {want}"), held
+            for mt in cell:
+                mt.pattern_idx, mt.text_idx = qi, ti
+                held_now.append((what, mt))
+        for what, mt in held_now:
+            a, b = _scalar(prof, pats, texts, k, alpha, mt)
+            if a != b:
+                return (f"{what}: {mt!r} gives {a}, the scalar traceback "
+                        f"{b}"), held
+            held += 1
+    return None, held
+
+
 def run(pairs: int, seed: int, device, workers: int, single: bool = False,
-        log=print) -> dict:
-    """Soak ``pairs`` pairs (``single``: cases, each counted as one pair).
+        log=print, trace: bool = False) -> dict:
+    """Soak ``pairs`` pairs (``single``: cases, each counted as one pair;
+    ``trace``: each group's matches held as well, see ``trace_group``).
     Returns the record: ``ok``, and on a mismatch its ``mismatch`` and
     ``repro`` lines."""
     from ..ops.batch import BatchEngine
@@ -291,8 +386,9 @@ def run(pairs: int, seed: int, device, workers: int, single: bool = False,
     pool = (ProcessPoolExecutor(workers, multiprocessing.get_context("spawn"))
             if workers > 0 else None)
     before = launch_counts()
-    card_s = oracle_s = wait_s = 0.0
-    done = units = 0
+    traces_before = myers_cuda.trace_windows.launches
+    card_s = oracle_s = wait_s = trace_s = 0.0
+    done = units = traced = 0
     rng = np.random.default_rng(seed)
     pending: deque = deque()
     t0 = time.perf_counter()
@@ -333,6 +429,16 @@ def run(pairs: int, seed: int, device, workers: int, single: bool = False,
                 tc = time.perf_counter()
                 got = unit.card()
                 card_s += time.perf_counter() - tc
+                if trace:
+                    tc = time.perf_counter()
+                    diff, held = trace_group(seed, units, device)
+                    trace_s += time.perf_counter() - tc
+                    traced += held
+                    if diff is not None:
+                        bad = (f"MISMATCH {unit.name} traced {diff}",
+                               f"repro: python -m sassy_tpu_torch.tools.soak "
+                               f"--repro {units} {seed}")
+                        break
                 pending.append((unit, got, job))
                 done += n_unit
                 units += 1
@@ -358,6 +464,10 @@ def run(pairs: int, seed: int, device, workers: int, single: bool = False,
            "launches": launched}
     if not single:
         rec["signatures"] = len(SIGNATURES)
+    if trace:
+        rec.update(traced=traced, trace_s=trace_s,
+                   trace_launches=(myers_cuda.trace_windows.launches
+                                   - traces_before))
     if bad is not None:
         rec["mismatch"], rec["repro"] = bad
     return rec
@@ -398,6 +508,9 @@ def main(argv=None) -> int:
                          "build/soak/ and stop")
     ap.add_argument("--single", action="store_true",
                     help="scripts/soak_cpu.py's one-case-at-a-time soak")
+    ap.add_argument("--trace", action="store_true",
+                    help="also hold each group's Match records and CIGARs "
+                         "to the scalar traceback (batch mode)")
     ap.add_argument("--workers", type=int,
                     default=max(0, (os.cpu_count() or 1) - 1),
                     help="oracle processes (0: in this process)")
@@ -405,6 +518,8 @@ def main(argv=None) -> int:
     ap.add_argument("--log", help="append the passing run's line here "
                     "(default on the card: evals/output-h100/soak_log.txt)")
     a = ap.parse_args(argv)
+    if a.trace and a.single:
+        ap.error("--trace holds the groups of batch mode, not --single")
     if a.repro:
         write_repro(a.repro[0], a.repro[1], a.single)
         return 0
@@ -414,7 +529,7 @@ def main(argv=None) -> int:
     pairs = a.pairs if a.pairs is not None else (3000 if a.single
                                                 else 1_000_000)
     rec = run(pairs, a.seed, dev, a.workers, a.single,
-              log=lambda msg: print(msg, flush=True))
+              log=lambda msg: print(msg, flush=True), trace=a.trace)
     if not rec["ok"]:
         print(f"{rec['mismatch']}  {rec['repro']}", flush=True)
         return 1
@@ -426,10 +541,15 @@ def main(argv=None) -> int:
            f"{rec['card_s']:.1f}s, oracle {rec['oracle_s']:.1f}s in "
            f"{a.workers} workers, {rec['oracle_wait_s']:.1f}s waited; "
            + (f"{len(SIGNATURES)} signatures, " if not a.single else "")
+           + (f"{rec['traced']} matches held to the scalar traceback in "
+              f"{rec['trace_s']:.1f}s, {rec['trace_launches']} traceback "
+              "kernel launches, " if a.trace else "")
            + f"seed={a.seed}, {dev}; launches {rec['launches']})")
     print(msg, flush=True)
     missing = [k for k in required(rec) if dev.type == "cuda"
                and rec["launches"][k] == 0]
+    if a.trace and dev.type == "cuda" and not rec["trace_launches"]:
+        missing.append("the traceback kernel")
     if missing:
         print(f"soak: {', '.join(missing)} never launched", flush=True)
         return 1

@@ -475,7 +475,7 @@ def trace_cells_batch(
                                        fill_len, alpha is not None,
                                        chunk).cpu()
         t0 = _tick(split, "trace", t0, windows=B)
-    with collector.counted(split):
+    with collector.paused(split):
         i, total, pat_start, pat_end, ops, failed = unpack_trace(
             buf.numpy(), m, fill_len)
         t0 = _tick_build(split, "unpack", t0)
@@ -645,10 +645,23 @@ def _walk_batch(
     return i, total, pat_start, pat_end, ops[:, :step], bad | (g != 0)
 
 
+#: the op of each walk code (0 =, 1 X, 2 D, 3 I)
+_OP_CHARS = (MATCH, SUB, DEL, INS)
+
+
 def _cigars(ops: np.ndarray) -> list[Cigar]:
     """Each row's ops (walk order, as ``_walk_batch`` gives them) as a
-    Cigar read forward."""
+    Cigar read forward. A batch has few distinct rows: each one's
+    (op, length) runs are made once, as tuples its rows' Cigars share;
+    every row gets its own Cigar and its own list of runs (``Cigar.push``
+    changes the list)."""
     B, step = ops.shape
+    if not step:
+        return [Cigar([]) for _ in range(B)]
+    rows = np.ascontiguousarray(ops).view(np.dtype((np.void, step)))
+    uniq, inv = np.unique(rows.reshape(-1), return_inverse=True)
+    ops = uniq.view(np.int8).reshape(-1, step)
+    U = len(ops)
     # each row's valid ops are a prefix; read it backwards (forward along
     # the pattern), -1 past it
     n_ops = np.count_nonzero(ops >= 0, axis=1)
@@ -658,7 +671,7 @@ def _cigars(ops: np.ndarray) -> list[Cigar]:
     # run-length encode every row at once: values tagged with the row id
     # so runs cannot span rows, then one np.nonzero pass yields every
     # (row, op, length) run, rows in order
-    flat = (fwd.astype(np.int64) + (np.arange(B)[:, None] << 8)).reshape(-1)
+    flat = (fwd.astype(np.int64) + (np.arange(U)[:, None] << 8)).reshape(-1)
     chg = np.ones(flat.shape[0], dtype=bool)
     chg[1:] = flat[1:] != flat[:-1]
     starts = np.flatnonzero(chg)
@@ -666,10 +679,12 @@ def _cigars(ops: np.ndarray) -> list[Cigar]:
     vals = fwd.reshape(-1)[starts]
     keep = vals >= 0
     starts, lens, vals = starts[keep], lens[keep], vals[keep]
-    runs = list(zip(np.array([MATCH, SUB, DEL, INS])[vals].tolist(),
+    runs = list(zip(map(_OP_CHARS.__getitem__, vals.tolist()),
                     lens.tolist()))
-    cut = np.searchsorted(starts // max(step, 1), np.arange(B + 1)).tolist()
-    return [Cigar(ops=runs[a:z]) for a, z in zip(cut[:-1], cut[1:])]
+    cut = np.searchsorted(starts // step, np.arange(U + 1)).tolist()
+    shared = [tuple(runs[a:z]) for a, z in zip(cut[:-1], cut[1:])]
+    return list(map(Cigar, map(list, map(shared.__getitem__,
+                                         inv.reshape(-1).tolist()))))
 
 
 def trace_candidate(

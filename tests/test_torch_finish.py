@@ -2,14 +2,21 @@
 choice and the traceback over all candidates of a strand at once, against
 ``sassy_tpu.Searcher(engine="xla")``, Match for Match in the same order
 with CIGARs; the window gather, the fill's chunking and a failed walk's
-diagnostics."""
+diagnostics; the Match build (one run tuple a distinct CIGAR, positional
+Match calls, the collector held off) against a per-object construction,
+its objects, its types and the collector's state."""
+
+import gc
+import threading
 
 import numpy as np
 import pytest
 
 from sassy_tpu import Searcher as RefSearcher
-from sassy_tpu_torch import Searcher, cli, nfilter, profiles, traceback
-from sassy_tpu_torch.matchrec import Strand
+from sassy_tpu_torch import (Searcher, cli, collector, nfilter, profiles,
+                             traceback)
+from sassy_tpu_torch.cigar import Cigar
+from sassy_tpu_torch.matchrec import UNKNOWN, Match, Strand
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 
@@ -398,3 +405,310 @@ def test_is_match_bytes_equals_is_match():
                      for a in range(256)])
     np.testing.assert_array_equal(
         prof.is_match_bytes(every[:, None], every[None, :]), want)
+
+
+# ---------------------------------------------------------------------
+# the Match build
+
+
+def _per_row_cigars(ops):
+    """Each row's Cigar pushed op by op (the scalar walk's construction)."""
+    out = []
+    for row in ops:
+        cigar = Cigar()
+        for v in row[row >= 0][::-1].tolist():
+            cigar.push("=XDI"[v])
+        out.append(cigar)
+    return out
+
+
+def _per_object_matches(without_trace, found, lens, pattern_idx, text_idx):
+    """The strands' matches one object at a time, by keywords, sorted by
+    pattern, text, strand and candidate rank."""
+    rows = sorted(((f, r) for f in found for r in range(len(f.q))),
+                  key=lambda fr: (int(fr[0].q[fr[1]]), int(fr[0].t[fr[1]]),
+                                  int(fr[0].strand), int(fr[0].seq[fr[1]])))
+    out = []
+    for f, r in rows:
+        rc = f.strand is Strand.RC
+        n, te = int(lens[f.t[r]]), int(f.text_end[r])
+        at = dict(pattern_idx=int(f.q[r]) + pattern_idx,
+                  text_idx=int(f.t[r]) + text_idx,
+                  pattern_end=int(f.pattern_end[r]), cost=int(f.cost[r]),
+                  strand=f.strand)
+        if without_trace:
+            out.append(Match(text_start=n - te if rc else UNKNOWN,
+                             text_end=UNKNOWN if rc else te,
+                             pattern_start=UNKNOWN, **at))
+        else:
+            ts = int(f.text_start[r])
+            out.append(Match(text_start=n - te if rc else ts,
+                             text_end=n - ts if rc else te,
+                             pattern_start=int(f.pattern_start[r]),
+                             cigar=f.cigars[r], **at))
+    return out
+
+
+def _spied(monkeypatch):
+    """Record every Match build (its inputs and list) and every CIGAR
+    build (its ops rows and Cigars) of the port's Searchers."""
+    builds, cigars = [], []
+    matches, make_cigars = Searcher._matches, traceback._cigars
+
+    def spy_matches(self, found, lens, pattern_idx=0, text_idx=0):
+        out = matches(self, found, lens, pattern_idx, text_idx)
+        builds.append((self.without_trace_flag, found, lens, pattern_idx,
+                       text_idx, out))
+        return out
+
+    def spy_cigars(ops):
+        out = make_cigars(ops)
+        cigars.append((ops.copy(), out))
+        return out
+
+    monkeypatch.setattr(Searcher, "_matches", spy_matches)
+    monkeypatch.setattr(traceback, "_cigars", spy_cigars)
+    return builds, cigars
+
+
+#: CASES whose builds are held to the per-object construction, and the
+#: single path's search_all over a few reads
+BUILD_CASES = ["dna", "dna_fwd", "iupac", "all_minima_filter_fn",
+               "only_best", "without_trace", "without_trace_fwd",
+               "max_n_frac", "alpha_max_overhang", "n_runs_only_best",
+               "single", "single_without_trace"]
+
+
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_build_equals_per_object_construction(case, monkeypatch):
+    builds, cigars = _spied(monkeypatch)
+    if case.startswith("single"):
+        pats, reads = _inputs("iupac")
+        s = _searcher(Searcher, "iupac", {"without_trace": case != "single",
+                                          "alpha": 0.5}, device="cpu")
+        got = [m for r in reads[:10] for m in s.search_all(pats[0], r, 3)]
+        assert len(builds) == 10
+    else:
+        profile, k, opts, entry, kind = CASES[case]
+        pats, reads = _inputs(profile, kind)
+        if "alpha" in opts:
+            pats = pats[:3]
+        got = _call(_searcher(Searcher, profile, opts, device="cpu"), entry,
+                    pats, reads, k)
+        assert len(builds) == 1
+    assert got
+    for without_trace, found, lens, pi, ti, out in builds:
+        want = _per_object_matches(without_trace, found, lens, pi, ti)
+        assert len(out) == len(want)
+        assert all(a.same_as(b) for a, b in zip(out, want))
+    assert bool(cigars) == ("without_trace" not in case)
+    for ops, out in cigars:
+        assert out == _per_row_cigars(ops)
+
+
+@pytest.mark.parametrize("entry", ["search_many", "search_all", "ascii",
+                                   "without_trace"])
+def test_build_gives_each_match_its_own_objects_and_python_types(entry):
+    pats, reads = _inputs("dna")
+    if entry == "ascii":
+        s = Searcher("ascii", device="cpu")
+        got = s.search_many(pats, reads, 2)
+    elif entry == "search_all":
+        s = Searcher("dna", rc=True, device="cpu")
+        got = [m for r in reads[::5] for m in s.search_all(pats[0], r, 2)]
+    else:
+        s = Searcher("dna", rc=True, device="cpu")
+        if entry == "without_trace":
+            s.without_trace()
+        got = s.search_many(pats, reads, 2)
+    assert len(got) > 8
+    for m in got:
+        for f in ("pattern_idx", "text_idx", "text_start", "text_end",
+                  "pattern_start", "pattern_end", "cost"):
+            assert type(getattr(m, f)) is int, (f, m)
+        assert type(m.strand) is Strand and type(m.cigar) is Cigar
+    assert len({id(m.cigar) for m in got}) == len(got)
+    assert len({id(m.cigar.ops) for m in got}) == len(got)
+    if entry == "without_trace":
+        assert not any(m.cigar for m in got)
+        return
+    # two matches with the same CIGAR: pushing onto one leaves the other
+    by_cigar = {}
+    for m in got:
+        by_cigar.setdefault(m.cigar.to_string(), []).append(m)
+    a, b = next(ms for ms in by_cigar.values() if len(ms) > 1)[:2]
+    before = b.cigar.to_string()
+    a.cigar.push("I")
+    a.cigar.push(a.cigar.ops[0][0])
+    assert b.cigar.to_string() == before != a.cigar.to_string()
+    assert all(m.cigar.to_string() == cig for cig, ms in by_cigar.items()
+               for m in ms if m is not a)
+
+
+#: (entry, profile, Searcher options) of the single path and the ascii
+#: profile, against the JAX package's XLA engine
+REF_BUILD_CASES = [
+    ("search_all", "dna", {}),
+    ("search_all", "iupac", {"alpha": 0.5, "only_best": True}),
+    ("search_all", "iupac", {"without_trace": True}),
+    ("search_all", "iupac", {"max_n_frac": 0.2}),
+    ("search_all", "ascii", {"rc": False}),
+    ("search_many", "ascii", {"rc": False}),
+    ("search_many", "ascii", {"rc": False, "without_trace": True}),
+]
+
+
+@pytest.mark.parametrize("entry,profile,opts", REF_BUILD_CASES)
+def test_build_equals_reference_on_the_single_path_and_ascii(entry, profile,
+                                                              opts):
+    pats, reads = _inputs("dna" if profile == "ascii" else profile)
+    reads = reads[:10]
+
+    def run(s):
+        if entry == "search_many":
+            return s.search_many(pats, reads, 2)
+        return [m for r in reads[::2] for m in s.search_all(pats[0], r, 2)]
+
+    got = run(_searcher(Searcher, profile, opts, device="cpu"))
+    assert got
+    _same(got, run(_searcher(RefSearcher, profile, opts, engine="xla")))
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+@pytest.mark.parametrize("fails", [False, True])
+def test_build_restores_the_collectors_state(enabled, fails, monkeypatch):
+    """The collector's state after a call is the one before it, also
+    after a TraceError; the build never runs ``gc.collect``."""
+
+    def no_collect(*a):
+        raise AssertionError("the build ran gc.collect")
+
+    monkeypatch.setattr(gc, "collect", no_collect)
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        seen = []
+        paused = collector.paused
+
+        def watched(split=None):
+            seen.append(gc.isenabled())
+            return paused(split)
+
+        monkeypatch.setattr(collector, "paused", watched)
+        pat = b"ACGTACGTTGCA"
+        texts = [b"TTTT" + pat + b"TTTT", b"GGGG" + pat[:-1] + b"Z" + b"GG"]
+        s = Searcher("dna", rc=False, device="cpu")
+        if fails:
+            fill = traceback._fill_batch
+
+            def corrupt(profile, pcodes, wins, *a):
+                E, mm = fill(profile, pcodes, wins, *a)
+                E[-1] += 50
+                return E, mm
+
+            monkeypatch.setattr(traceback, "_fill_batch", corrupt)
+            with pytest.raises(traceback.TraceError):
+                s.search_many([pat], texts, 1)
+        else:
+            assert s.search_many([pat], texts, 1)
+        assert seen and gc.isenabled() is enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
+def test_overlapping_builds_hold_the_collector_off_until_the_last_leaves():
+    """Two threads' builds: the collector stays off while either holds it
+    and comes back on when the last one leaves; passes that run in a
+    build anyway are counted into its split."""
+    was = gc.isenabled()
+    gc.enable()
+    try:
+        inside, release = threading.Event(), threading.Event()
+
+        def other():
+            with collector.paused():
+                inside.set()
+                release.wait(10)
+
+        th = threading.Thread(target=other)
+        th.start()
+        assert inside.wait(10)
+        split = {}
+        with collector.paused(split):
+            assert not gc.isenabled()
+            gc.collect()
+        assert not gc.isenabled()  # the other build holds it still
+        assert split["gc_passes"] >= 1 and split["gc_s"] > 0
+        release.set()
+        th.join(10)
+        assert gc.isenabled()
+        assert gc.callbacks.count(collector._on_pass) == 0
+    finally:
+        release.set()
+        (gc.enable if was else gc.disable)()
+
+
+@pytest.mark.parametrize("entry", ["search_many", "search_all"])
+def test_build_split_sums_to_build(entry):
+    pats, reads = _inputs("dna")
+    s = Searcher("dna", rc=True, device="cpu")
+    if entry == "search_many":
+        ms = s.search_many(pats, reads, 2)  # two lengths, two strands
+    else:
+        ms = s.search_all(pats[0], reads[0], 2)
+    sp = s.last_finish_split
+    assert ms and sp["matches"] == len(ms)
+    parts = sp["unpack"] + sp["cigars"] + sp["match_objects"]
+    assert parts == pytest.approx(sp["build"], rel=1e-9, abs=1e-12)
+    assert min(sp["unpack"], sp["cigars"], sp["match_objects"]) > 0
+    assert sp["gc_passes"] == 0 and sp["gc_s"] == 0
+
+
+def test_many_threads_building_at_once_keep_the_collector_consistent():
+    """More threads than cores enter and leave builds with a short switch
+    interval: inside every build the collector is off, and after the last
+    it is on again with the pass counter removed."""
+    import os
+    import sys
+
+    was, interval = gc.isenabled(), sys.getswitchinterval()
+    gc.enable()
+    sys.setswitchinterval(1e-6)
+    on_inside = []
+
+    def builds():
+        for _ in range(300):
+            with collector.paused({}):
+                if gc.isenabled():
+                    on_inside.append(1)
+
+    try:
+        threads = [threading.Thread(target=builds)
+                   for _ in range((os.cpu_count() or 1) + 4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+        assert not any(th.is_alive() for th in threads)
+        assert not on_inside and gc.isenabled() and collector._held == 0
+        assert gc.callbacks.count(collector._on_pass) == 0
+    finally:
+        sys.setswitchinterval(interval)
+        (gc.enable if was else gc.disable)()
+
+
+@pytest.mark.parametrize("B,step", [(0, 5), (3, 0), (1, 1), (500, 9),
+                                    (2000, 52)])
+def test_cigars_equal_per_row_construction(B, step):
+    """Walk-order ops rows (a prefix of codes, -1 past it; some rows with
+    no op, many repeated) give the Cigars pushed op by op, each its own
+    object."""
+    rng = np.random.default_rng(B + step)
+    lens = rng.integers(0, step + 1, B)
+    ops = np.where(np.arange(step) < lens[:, None],
+                   rng.choice(4, (B, step), p=[0.7, 0.1, 0.1, 0.1]),
+                   -1).astype(np.int8)
+    ops[: B // 2] = ops[B // 4 : B // 4 + B // 2]  # repeated rows
+    got = traceback._cigars(ops)
+    assert got == _per_row_cigars(ops)
+    assert len({id(c) for c in got}) == len({id(c.ops) for c in got}) == B

@@ -237,3 +237,69 @@ def test_without_a_card_the_soak_exits_before_searching(monkeypatch,
     assert soak.main(["--single", "--device", "cuda", "--workers", "0"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "log").exists()
+
+
+@pytest.fixture
+def traced_sigs(monkeypatch):
+    """Four shrunk signatures (2 x 2 pairs) for ``--trace``: overhang at
+    the word level, overhang on both strands with all minima, both strands
+    and the ascii pass without overhang, and the position level's
+    overhang on both strands; two matches sampled a group."""
+    sigs = [(2, 2) + soak.SIGNATURES[i][2:] for i in (4, 8, 11, 15)]
+    monkeypatch.setattr(soak, "SIGNATURES", sigs)
+    monkeypatch.setattr(soak, "TRACE_SAMPLE", 2)
+    return sum(s[0] * s[1] for s in sigs)
+
+
+def test_a_traced_round_holds_matches_to_the_scalar_traceback(traced_sigs,
+                                                              capsys):
+    assert soak.main(["--trace", "--device", "cpu", "--workers", "0",
+                      "--pairs", str(traced_sigs)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    rec = json.loads(out[-1])
+    assert rec["ok"] and rec["pairs"] == traced_sigs
+    # the sample and every spot pair's match, on both strands and ascii
+    assert rec["traced"] > 4 * 2 and rec["trace_s"] > 0
+    assert rec["trace_launches"] == 0  # the plain version on the CPU
+    assert any("matches held to the scalar traceback" in ln for ln in out)
+
+
+@pytest.mark.parametrize("what", ["cigar", "coordinate"])
+def test_a_traced_round_fails_on_a_wrong_match(traced_sigs, monkeypatch,
+                                               what, capsys):
+    """A CIGAR that loses its last run, or a pattern end one short, on
+    the card's side fails the traced soak with a repro line."""
+    from sassy_tpu_torch import search, traceback
+
+    if what == "cigar":
+        cigars = traceback._cigars
+
+        def lossy(ops):
+            out = cigars(ops)
+            if out and out[-1].ops:
+                out[-1].ops.pop()
+            return out
+
+        monkeypatch.setattr(traceback, "_cigars", lossy)
+    else:
+        matches = search.Searcher._matches
+
+        def short(self, *a, **kw):
+            out = matches(self, *a, **kw)
+            if out:
+                out[0].pattern_end -= 1
+            return out
+
+        monkeypatch.setattr(search.Searcher, "_matches", short)
+    monkeypatch.setattr(soak, "TRACE_SAMPLE", 1 << 20)
+    assert soak.main(["--trace", "--device", "cpu", "--workers", "0",
+                      "--pairs", str(traced_sigs)]) == 1
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("MISMATCH")]
+    assert len(line) == 1 and " traced " in line[0]
+    assert "repro: python -m sassy_tpu_torch.tools.soak --repro " in line[0]
+
+
+def test_trace_is_refused_in_single_mode(capsys):
+    with pytest.raises(SystemExit):
+        soak.main(["--trace", "--single", "--device", "cpu"])
