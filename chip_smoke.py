@@ -1875,19 +1875,22 @@ def host_finish(searcher, pattern, pcodes, text, k: int, cands, prep):
     planes of ``prep``, its ``PreparedText``) and the Match build."""
     import numpy as np
 
-    from sassy_tpu_torch import Strand
+    from sassy_tpu_torch import Strand, spans
     from sassy_tpu_torch.traceback import StrandPlanes
 
     pos, cost = cands.numpy().astype(np.int64)
     order = np.lexsort((cost, pos))
     zeros = np.zeros(len(pos), np.int64)
     lens = np.array([len(text)], np.int64)
-    searcher.last_finish_split = {}
-    found = searcher._finish_strand(
-        [pattern], [pcodes], [text], lens,
-        (zeros, zeros, pos[order], cost[order]), k, None, Strand.FWD,
-        lambda: StrandPlanes(prep.planes, np.zeros(1, np.int64)))
-    return searcher._matches([found], lens)
+    split: dict = {}
+    with spans.bound(split):
+        found = searcher._finish_strand(
+            [pattern], [pcodes], [text], lens,
+            (zeros, zeros, pos[order], cost[order]), k, None, Strand.FWD,
+            lambda: StrandPlanes(prep.planes, np.zeros(1, np.int64)))
+        out = searcher._matches([found], lens)
+    searcher.last_finish_split = split
+    return out
 
 
 def single_strand_phases(label, searcher, prof, pattern, text, k):
@@ -2937,7 +2940,10 @@ def split_times(acc: dict):
                 return fn(self, *a, **kw)
             finally:
                 for key, v in self.last_finish_split.items():
-                    acc["finish"][key] = acc["finish"].get(key, 0) + v
+                    # seconds and sizes; a traced call's "call_id" and
+                    # "spans" are no sums
+                    if key != "call_id" and isinstance(v, (int, float)):
+                        acc["finish"][key] = acc["finish"].get(key, 0) + v
         setattr(search.Searcher, name, wrapper)
 
     add_split("_finish_many_batched")

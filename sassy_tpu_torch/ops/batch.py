@@ -62,7 +62,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from .. import semantics
+from .. import semantics, spans
 from ..profiles import Profile, as_bytes_array
 from . import minima, myers_cuda, plan
 from .bitpack import WORD_BITS
@@ -432,6 +432,8 @@ class TextSet:
         self._nw = -(-n // WORD_BITS)
         self._wofs = np.concatenate([[0], np.cumsum(self._nw)]).astype(np.int64)
         self._offs = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
+        #: bytes of all texts
+        self.nbytes = int(self._offs[-1])
         self._plans: dict = {}
         self._planes: dict = {}
         self._tables: dict = {}
@@ -453,34 +455,42 @@ class TextSet:
         key = (halo, w_chars, steps)
         got = self._plans.get(key)
         if got is None:
-            col = _plan_columns(self.lens, steps, w_chars, halo).get
-            tidx = col("text_idx")
-            wstart = col("start_char") // WORD_BITS
-            nw, wofs = self.layout(steps)
-            dev = self.device
-            i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
-            i64 = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-            got = PiecePlan(
-                w_chars=w_chars,
-                steps=steps,
-                true_start=torch.from_numpy(col("true_start") != 0).to(dev),
-                valid_from=i32(col("valid_from")),
-                valid_to=i32(col("valid_to")),
-                islast_at=i32(col("islast_at")),
-                text_end=i64(col("text_end")),
-                start_char=i64(col("start_char")),
-                text_idx=i64(tidx),
-                wstart=i64(wofs[tidx] + wstart),
-                wend=i64(wofs[tidx] + nw[tidx]),
-            )
+            with spans.span("plan"):
+                got = self._plan(halo, w_chars, steps)
+            spans.count(pieces=got.T)
             self._plans[key] = got
         return got
+
+    def _plan(self, halo: int, w_chars: int, steps: int) -> PiecePlan:
+        col = _plan_columns(self.lens, steps, w_chars, halo).get
+        tidx = col("text_idx")
+        wstart = col("start_char") // WORD_BITS
+        nw, wofs = self.layout(steps)
+        i32 = lambda a: a.astype(np.int32)  # noqa: E731
+        cols = dict(
+            true_start=col("true_start") != 0,
+            valid_from=i32(col("valid_from")),
+            valid_to=i32(col("valid_to")),
+            islast_at=i32(col("islast_at")),
+            text_end=col("text_end"),
+            start_char=col("start_char"),
+            text_idx=tidx,
+            wstart=wofs[tidx] + wstart,
+            wend=wofs[tidx] + nw[tidx],
+        )
+        # PyTorch synchronises a copy from pageable memory with the stream:
+        # on the card it waits for the work queued before it
+        with spans.span("device_wait", device_waits=1):
+            return PiecePlan(w_chars=w_chars, steps=steps, **{
+                name: torch.from_numpy(a).to(self.device)
+                for name, a in cols.items()})
 
     def data(self) -> torch.Tensor:
         """The texts' bytes on the device, concatenated (uploaded at the
         first call)."""
         if self._data is None:
-            self._data = _upload_set(self.texts, self.device)
+            with spans.span("upload"):
+                self._data = _upload_set(self.texts, self.device)
         return self._data
 
     def tables(self, steps: int = 0) -> tuple[torch.Tensor, ...]:
@@ -490,10 +500,13 @@ class TextSet:
         total)."""
         got = self._tables.get(steps)
         if got is None:
-            got = self._tables[steps] = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                for a in (self._offs[:-1], np.diff(self._offs),
-                          self.layout(steps)[1]))
+            # PyTorch synchronises each copy with the stream: on the card
+            # they wait for the upload's last chunk
+            with spans.span("device_wait", device_waits=1):
+                got = self._tables[steps] = tuple(
+                    torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                    for a in (self._offs[:-1], np.diff(self._offs),
+                              self.layout(steps)[1]))
         return got
 
     def planes(self, profile: Profile, reverse: bool,
@@ -504,9 +517,11 @@ class TextSet:
                steps)
         got = self._planes.get(key)
         if got is None:
-            got = pack_set(self.data(), *self.tables(steps),
-                           aligned_words(self.words(steps) + 1), profile,
-                           reverse, steps)
+            data = self.data()
+            with spans.span("pack"):
+                got = pack_set(data, *self.tables(steps),
+                               aligned_words(self.words(steps) + 1), profile,
+                               reverse, steps)
             self._planes[key] = got
         return got
 
@@ -616,17 +631,16 @@ class BatchEngine:
                 _masks_pure_np(per[q][0], per[q][1]) for q in qidx
             ):
                 eq_mode = "pure"
-            pm, pad, hi = state_from_numpy(
-                *(np.stack([per[q][i] for q in qidx]) for i in range(3)),
-                device=self.device,
-            )
-            scal = torch.tensor(
-                [[len(pattern_codes[q]) for q in qidx],
-                 [per[q][3] for q in qidx]],
-                dtype=torch.int32, device=self.device,
-            )
+            state = [np.stack([per[q][i] for q in qidx]) for i in range(3)]
+            scal = np.array([[len(pattern_codes[q]) for q in qidx],
+                             [per[q][3] for q in qidx]], np.int32)
+            # copies from pageable memory, each synchronised with the stream
+            with spans.span("device_wait", device_waits=1):
+                pm, pad, hi = state_from_numpy(*state, device=self.device)
+                scal = torch.from_numpy(scal).to(self.device)
+                qi = torch.tensor(qidx, dtype=torch.int64, device=self.device)
             g = _Group(
-                qidx=torch.tensor(qidx, dtype=torch.int64, device=self.device),
+                qidx=qi,
                 pmasks=pm, is_pad=pad, h_init=hi, m_real=scal[0],
                 boundary_m=scal[1], eq_mode=eq_mode, halo=M + k, w_chars=0,
                 steps=steps, alpha=alpha,
@@ -716,7 +730,9 @@ class BatchEngine:
             g.pmasks[q0:q1, -S:].contiguous(), zeros, torch.ones_like(zeros),
             s_vec, s_vec, k, g.eq_mode,
         )[3]
-        return torch.nonzero(((meta & 1) != 0).any(dim=1).any(dim=0)).view(-1)
+        flagged = ((meta & 1) != 0).any(dim=1).any(dim=0)
+        with spans.span("device_wait", device_waits=1):
+            return torch.nonzero(flagged).view(-1)
 
     @staticmethod
     def select(outs, g: _Group, pp: PiecePlan, q0, t0, t1, k: int,
@@ -755,7 +771,9 @@ class BatchEngine:
     def dispatch(self, profile: Profile, ts: TextSet, g: _Group, k: int,
                  all_minima: bool, reverse: bool) -> list[torch.Tensor]:
         """Scan and select every chunk of one group on the current stream;
-        returns the chunks' device columns."""
+        returns the chunks' device columns. The first chunk's descriptor
+        uploads the text set and packs the strand's planes where they are
+        not cached yet."""
         pp = ts.piece_plan(g.halo, g.w_chars, g.steps)
         found = []
         carry = None
@@ -764,22 +782,23 @@ class BatchEngine:
                 carry = torch.zeros((q1 - q0, 1), dtype=torch.int32,
                                     device=self.device)
             win = ts.descriptor(profile, pp, reverse, t0, t1)
-            saved = ((q1 - q0) * (g.pmasks.shape[1] - g.hier_s) * pp.NW
-                     * (t1 - t0))
-            if g.hier_s and saved >= plan.HIER_MIN_SAVED_PAIRS:
-                cols, carry = self._scan_flagged(win, g, pp, q0, q1, t0, t1,
-                                                 k, all_minima, carry)
-                if cols is not None:
+            with spans.span("launch", chunks=1):
+                saved = ((q1 - q0) * (g.pmasks.shape[1] - g.hier_s) * pp.NW
+                         * (t1 - t0))
+                if g.hier_s and saved >= plan.HIER_MIN_SAVED_PAIRS:
+                    cols, carry = self._scan_flagged(win, g, pp, q0, q1, t0,
+                                                     t1, k, all_minima, carry)
+                    if cols is not None:
+                        found.append(cols)
+                    continue
+                outs = self.scan(win, g, pp, q0, q1, t0, t1, k)
+                del win
+                for s0, s1 in self.select_ranges(g, pp, q1 - q0, t0, t1,
+                                                 outs[0].device):
+                    part = tuple(o[..., s0 - t0 : s1 - t0] for o in outs)
+                    cols, carry = self.select(part, g, pp, q0, s0, s1, k,
+                                              all_minima, carry)
                     found.append(cols)
-                continue
-            outs = self.scan(win, g, pp, q0, q1, t0, t1, k)
-            del win
-            for s0, s1 in self.select_ranges(g, pp, q1 - q0, t0, t1,
-                                             outs[0].device):
-                part = tuple(o[..., s0 - t0 : s1 - t0] for o in outs)
-                cols, carry = self.select(part, g, pp, q0, s0, s1, k,
-                                          all_minima, carry)
-                found.append(cols)
         return found
 
     def _scan_flagged(self, win, g: _Group, pp: PiecePlan, q0, q1, t0, t1,
@@ -795,7 +814,8 @@ class BatchEngine:
         ids = self.flagged_pieces(win, g, pp, q0, q1, t0, t1, k)
         if ids.numel() == 0:
             return None, torch.zeros_like(carry)
-        first, last = ids[[0, -1]].tolist()
+        with spans.span("device_wait", device_waits=1):
+            first, last = ids[[0, -1]].tolist()
         if first != 0:
             carry = torch.zeros_like(carry)
         sub = pp.take(t0 + ids)
@@ -839,14 +859,22 @@ class BatchEngine:
         def run() -> np.ndarray:
             found: list[torch.Tensor] = []
             if Q and NT:
-                for g in self.groups(profile, pattern_codes, ts, k, alpha,
-                                     max_overhang):
+                with spans.span("groups"):
+                    groups = self.groups(profile, pattern_codes, ts, k,
+                                         alpha, max_overhang)
+                for g in groups:
                     found += self.dispatch(profile, ts, g, k, all_minima,
                                            reverse)
             return _fetch(found)
 
         job = dispatch_async(self.device, run)
-        return lambda: _decode(job.result(), Q, NT, _flat)
+
+        def finish():
+            with spans.span("wait"):
+                cols = job.result()
+            with spans.span("decode"):
+                return _decode(cols, Q, NT, _flat)
+        return finish
 
 
 def _fetch(found: list[torch.Tensor]) -> np.ndarray:
@@ -854,7 +882,9 @@ def _fetch(found: list[torch.Tensor]) -> np.ndarray:
     copy."""
     if not found:
         return np.zeros((4, 0), np.int64)
-    return torch.cat(found, 1).cpu().numpy()
+    cols = torch.cat(found, 1)
+    with spans.span("device_wait", device_waits=1):
+        return cols.cpu().numpy()
 
 
 def _decode(cols: np.ndarray, Q: int, NT: int, flat: bool):

@@ -104,6 +104,7 @@ from pathlib import Path
 
 import torch
 
+from .. import spans
 from . import minima, myers_torch
 
 __all__ = ["scan_meta", "scan_meta_plain", "scan_q_meta",
@@ -898,7 +899,8 @@ def _three_passes(launch, scratch, rows: int, device, emit_empty: bool):
     ``emit_empty``, for a carry out written there)."""
     launch(0)
     launch(1)
-    N = int(scratch[-1])
+    with spans.span("device_wait", device_waits=1):
+        N = int(scratch[-1])
     out = torch.empty((rows, N), dtype=torch.int64, device=device)
     if N or emit_empty:
         launch(2, out, N)

@@ -54,7 +54,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import gxx, semantics
+from .. import gxx, semantics, spans
 from ..profiles import Profile, as_bytes_array
 from . import minima, myers_cuda, plan
 from .bitpack import WORD_BITS
@@ -115,14 +115,20 @@ def dispatch_async(device: torch.device, fn) -> Future:
     """Run ``fn()`` on the dispatch thread, on the caller's current CUDA
     stream (on the CPU, as it is). The host waits inside ``fn`` (each
     ``torch.nonzero`` waits for the scan before it), so the caller's
-    thread is free meanwhile; the future raises ``fn``'s errors."""
+    thread is free meanwhile; the future raises ``fn``'s errors. While a
+    profiler runs, the job's spans go into the caller's bound record, under
+    a "dispatch" span (the caller's ``enqueue`` span holds this call)."""
     stream = (torch.cuda.current_stream(device) if device.type == "cuda"
               else None)
+    rec = spans.handoff()
 
     def run():
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()):
-            return fn()
+            if rec is None:
+                return fn()
+            with spans.bound(rec), spans.span("dispatch"):
+                return fn()
 
     return _worker().submit(run)
 
@@ -553,15 +559,19 @@ def _stage_chunks(texts, offs: np.ndarray, out: torch.Tensor, st) -> None:
         c1 = min(n, c0 + STAGE_BYTES)
         slot = i % 2
         pieces = _chunk_pieces(texts, offs, c0, c1)
-        st.wait(slot)
-        if len(pieces) == 1 and pieces[0].strides[0] == 1:
-            with warnings.catch_warnings():
-                # a read-only array (bytes) is only read
-                warnings.simplefilter("ignore", UserWarning)
-                st.bufs[slot][: c1 - c0].copy_(torch.from_numpy(pieces[0]))
-        else:
-            _fill(texts, offs, c0, c1, views[slot][: c1 - c0])
-        st.send(slot, out[c0:c1], c1 - c0)
+        with spans.span("stage_wait"):
+            st.wait(slot)
+        with spans.span("stage_fill", fill_bytes=c1 - c0):
+            if len(pieces) == 1 and pieces[0].strides[0] == 1:
+                with warnings.catch_warnings():
+                    # a read-only array (bytes) is only read
+                    warnings.simplefilter("ignore", UserWarning)
+                    st.bufs[slot][: c1 - c0].copy_(
+                        torch.from_numpy(pieces[0]))
+            else:
+                _fill(texts, offs, c0, c1, views[slot][: c1 - c0])
+        with spans.span("send"):
+            st.send(slot, out[c0:c1], c1 - c0)
     st.end(out)
 
 
@@ -596,7 +606,10 @@ def _upload_set(texts, device: torch.device) -> torch.Tensor:
     device = torch.device(device)
     st = _staging_for(device) if offs[-1] else None
     if st is None:
-        whole = np.concatenate(texts) if texts else np.zeros(0, np.uint8)
+        # the host fill of a set with no staging: one array
+        with spans.span("stage_fill", fill_bytes=int(offs[-1])):
+            whole = (np.concatenate(texts) if texts
+                     else np.zeros(0, np.uint8))
         return torch.from_numpy(whole.astype(np.uint8, copy=False)).to(device)
     out = torch.empty(int(offs[-1]), dtype=torch.uint8, device=device)
     with st.lock:

@@ -25,20 +25,18 @@ rc_end``), keeping the CIGAR in pattern direction.
 
 from __future__ import annotations
 
-import time
 from itertools import chain, compress, repeat
 from typing import NamedTuple
 
 import numpy as np
 
-from . import collector
+from . import collector, spans
 from .matchrec import UNKNOWN, Match, Strand
 from .nfilter import n_fraction_ok
 from .ops.batch import BatchEngine, TextSet
 from .ops.myers_torch import TorchEngine, engine_device
 from .profiles import Profile, as_bytes_array, get_profile
-from .traceback import (StrandPlanes, TextSpans, _tick, _tick_build,
-                        trace_cells_batch)
+from .traceback import StrandPlanes, TextSpans, trace_cells_batch
 
 __all__ = ["Searcher", "CachedRev", "EncodedPatterns", "SearchMode"]
 
@@ -145,11 +143,13 @@ class Searcher:
         self.device = device
         self.engine = TorchEngine(device)
         self.batch = BatchEngine(device)
-        #: the last call's host finish: its steps' seconds and sizes
-        #: ("filters", "trace" or "gather", "fill", "walk"; "build", the
-        #: sum of "unpack", "cigars" and "match_objects"; the collector's
-        #: passes during those, "gc_passes" and "gc_s"; "candidates",
-        #: "kept", "windows", "matches")
+        #: the last finished call's record (``spans``): its host finish's
+        #: steps' seconds and sizes ("filters", "trace" or "gather",
+        #: "fill", "walk"; "build", the sum of "unpack", "cigars" and
+        #: "match_objects"; the collector's passes during those,
+        #: "gc_passes" and "gc_s"; "candidates", "kept", "windows",
+        #: "matches"); of a batched call made while a ``torch.profiler``
+        #: ran, also its "call_id", counters and "spans"
         self.last_finish_split: dict = {}
 
     # ------------------------------------------------------------------
@@ -370,39 +370,59 @@ class Searcher:
         share the call: the engine groups them by row bucket and overhang
         steps. ``textset``: a ``_text_set`` of the same texts, shared with
         other calls (one upload and one pack a strand for all of them);
-        without it the call builds its own."""
+        without it the call builds its own. The call's record
+        (``spans.record``) gets the submit's spans here, the dispatch
+        jobs' on the dispatch thread and the finish's in ``finish()``."""
         prof = self.profile
-        pcodes = [prof.encode(p) for p in pats]
-        ts = textset if textset is not None else self._text_set(rc_texts)
-        fin = self.batch.candidates_many_flat_async(
-            prof, pcodes, ts, k, self.alpha, self.max_overhang, all_minima)
-        strands = [(Strand.FWD, pats, pcodes, fin)]
-        if rc:
-            comp = [as_bytes_array(prof.complement(p)) for p in pats]
-            ccodes = [prof.encode(c) for c in comp]
-            strands.append((Strand.RC, comp, ccodes,
-                            self.batch.candidates_many_flat_async(
-                                prof, ccodes, ts, k, self.alpha,
-                                self.max_overhang, all_minima, reverse=True)))
-        return lambda: self._finish_many_batched(strands, ts, k, filter_fn)
+        rec = spans.record()
+        with spans.bound(rec), spans.span("submit"):
+            with spans.span("encode"):
+                pcodes = [prof.encode(p) for p in pats]
+            with spans.span("text_set"):
+                ts = (textset if textset is not None
+                      else self._text_set(rc_texts))
+            spans.count(texts=len(ts.lens), text_bytes=ts.nbytes)
+            with spans.span("enqueue"):
+                fin = self.batch.candidates_many_flat_async(
+                    prof, pcodes, ts, k, self.alpha, self.max_overhang,
+                    all_minima)
+            strands = [(Strand.FWD, pats, pcodes, fin)]
+            if rc:
+                with spans.span("encode"):
+                    comp = [as_bytes_array(prof.complement(p)) for p in pats]
+                    ccodes = [prof.encode(c) for c in comp]
+                with spans.span("enqueue"):
+                    strands.append((Strand.RC, comp, ccodes,
+                                    self.batch.candidates_many_flat_async(
+                                        prof, ccodes, ts, k, self.alpha,
+                                        self.max_overhang, all_minima,
+                                        reverse=True)))
+        return lambda: self._finish_many_batched(strands, ts, k, filter_fn,
+                                                 rec)
 
     def _finish_many_batched(self, strands, ts: TextSet, k: int,
-                             filter_fn) -> list[Match]:
+                             filter_fn, rec: dict | None = None
+                             ) -> list[Match]:
         """Each strand's flat candidate columns, waited for in turn (the
         forward strand's finish overlaps the reverse strand's device
         work), finished as arrays, then one Match list in the reference's
         order. ``strands``: (strand, its patterns, their codes, the
         engine's ``finish()``); ``ts``: the call's text set, whose planes
-        the traceback reads."""
+        the traceback reads; ``rec``: the call's record (None: a new one),
+        published as ``last_finish_split`` at the end."""
+        if rec is None:
+            rec = spans.record()
         texts = ts.texts
         lens = np.fromiter(map(len, texts), np.int64, len(texts))
-        self.last_finish_split = {}
-        found = [self._finish_strand(
-            pats, codes, texts, lens, fin(), k, filter_fn, strand,
-            lambda rc=strand is Strand.RC: StrandPlanes(
-                *ts.strand_planes(self.profile, rc)))
-            for strand, pats, codes, fin in strands]
-        return self._matches(found, lens)
+        with spans.bound(rec), spans.span("finish"):
+            found = [self._finish_strand(
+                pats, codes, texts, lens, fin(), k, filter_fn, strand,
+                lambda rc=strand is Strand.RC: StrandPlanes(
+                    *ts.strand_planes(self.profile, rc)))
+                for strand, pats, codes, fin in strands]
+            out = self._matches(found, lens)
+        self.last_finish_split = rec
+        return out
 
     # ------------------------------------------------------------------
     # single-pattern pipeline
@@ -419,21 +439,24 @@ class Searcher:
         pat = as_bytes_array(pattern)
         fwd = _as_rc_searchable(text).text()
         lens = np.array([len(fwd)], np.int64)
-        self.last_finish_split = {}
-        if not self.rc:
-            found = [self._search_one_strand(
-                pat, fwd, self.engine.prepare(self.profile, fwd), k,
-                all_minima, filter_fn, Strand.FWD)]
-        else:
-            comp = as_bytes_array(self.profile.complement(pat))
-            fprep, rprep = self.engine.prepare_strands(self.profile, fwd)
-            found = [
-                self._search_one_strand(pat, fwd, fprep, k, all_minima,
-                                        filter_fn, Strand.FWD),
-                self._search_one_strand(comp, fwd, rprep, k, all_minima,
-                                        filter_fn, Strand.RC),
-            ]
-        return self._matches(found, lens, pattern_idx, text_idx)
+        split: dict = {}
+        with spans.bound(split):
+            if not self.rc:
+                found = [self._search_one_strand(
+                    pat, fwd, self.engine.prepare(self.profile, fwd), k,
+                    all_minima, filter_fn, Strand.FWD)]
+            else:
+                comp = as_bytes_array(self.profile.complement(pat))
+                fprep, rprep = self.engine.prepare_strands(self.profile, fwd)
+                found = [
+                    self._search_one_strand(pat, fwd, fprep, k, all_minima,
+                                            filter_fn, Strand.FWD),
+                    self._search_one_strand(comp, fwd, rprep, k, all_minima,
+                                            filter_fn, Strand.RC),
+                ]
+            out = self._matches(found, lens, pattern_idx, text_idx)
+        self.last_finish_split = split
+        return out
 
     def _search_one_strand(self, pattern: np.ndarray, text: np.ndarray,
                            prepared, k: int, all_minima: bool, filter_fn,
@@ -469,34 +492,36 @@ class Searcher:
         strand's text, which for RC is the forward text read backwards.
         ``planes()``: the strand's ``StrandPlanes``, which the traceback
         reads (called only where a candidate is traced). Returns the kept
-        matches, in the strand's coordinates."""
-        split = self.last_finish_split
-        t0 = time.perf_counter()
-        q, t, end, cost = (np.asarray(c, np.int64) for c in cols)
-        reverse = strand is Strand.RC
-        n_cands = len(q)
-        plen = np.fromiter(map(len, pats), np.int64, len(pats))
-        if filter_fn is not None and len(q):
-            keep = self._end_filter(filter_fn, pats, texts, lens, q, t, end,
-                                    strand)
-            q, t, end, cost = q[keep], t[keep], end[keep], cost[keep]
-        e = np.minimum(end, lens[t])
-        m = plen[q]
-        if self.max_n_frac is not None and len(q):
-            # the mandatory window text[e - (m - k) : e], over m + k
-            ln = np.minimum(e, np.maximum(0, m - k))
-            count = TextSpans(texts, lens, t, e - ln, ln,
-                              reverse).n_counts(e - ln, e)
-            keep = n_fraction_ok(count, ln, self.max_n_frac, m + k)
-            q, t, end, cost, e, m = (a[keep] for a in (q, t, end, cost, e, m))
-        seq = np.arange(len(q))
-        if self.only_best_match_flag and len(q):
-            # smallest cost; ties broken by larger end position
-            # (search.rs:1392-1411), one a (pattern, text) cell
-            order = np.lexsort((-end, cost, t, q))
-            cell = q[order] * len(texts) + t[order]
-            seq = order[np.r_[True, cell[1:] != cell[:-1]]]
-        t0 = _tick(split, "filters", t0, candidates=n_cands, kept=len(seq))
+        matches, in the strand's coordinates. The steps' seconds and sizes
+        go into the record this thread has bound (``spans.bound``)."""
+        split = spans.current()
+        with spans.step(split, "filters"):
+            q, t, end, cost = (np.asarray(c, np.int64) for c in cols)
+            reverse = strand is Strand.RC
+            n_cands = len(q)
+            plen = np.fromiter(map(len, pats), np.int64, len(pats))
+            if filter_fn is not None and len(q):
+                keep = self._end_filter(filter_fn, pats, texts, lens, q, t,
+                                        end, strand)
+                q, t, end, cost = q[keep], t[keep], end[keep], cost[keep]
+            e = np.minimum(end, lens[t])
+            m = plen[q]
+            if self.max_n_frac is not None and len(q):
+                # the mandatory window text[e - (m - k) : e], over m + k
+                ln = np.minimum(e, np.maximum(0, m - k))
+                count = TextSpans(texts, lens, t, e - ln, ln,
+                                  reverse).n_counts(e - ln, e)
+                keep = n_fraction_ok(count, ln, self.max_n_frac, m + k)
+                q, t, end, cost, e, m = (a[keep]
+                                         for a in (q, t, end, cost, e, m))
+            seq = np.arange(len(q))
+            if self.only_best_match_flag and len(q):
+                # smallest cost; ties broken by larger end position
+                # (search.rs:1392-1411), one a (pattern, text) cell
+                order = np.lexsort((-end, cost, t, q))
+                cell = q[order] * len(texts) + t[order]
+                seq = order[np.r_[True, cell[1:] != cell[:-1]]]
+        spans.add(split, candidates=n_cands, kept=len(seq))
 
         if self.without_trace_flag:
             q, t, end, cost, e, m = (a[seq] for a in (q, t, end, cost, e, m))
@@ -512,16 +537,16 @@ class Searcher:
                 strand_planes, reverse, split)
             assert (tr.cost <= cost[rows]).all(), "trace cost > recorded cost"
             assert (tr.cost <= k).all()
-            t0 = time.perf_counter()
-            if self.max_n_frac is not None:
-                span = tr.text_end - tr.text_start
-                keep = n_fraction_ok(
-                    TextSpans(texts, lens, t[rows], tr.text_start, span,
-                              reverse).n_counts(tr.text_start, tr.text_end),
-                    span, self.max_n_frac)
-            else:
-                keep = np.ones(len(rows), bool)
-            _tick(split, "filters", t0)
+            with spans.step(split, "filters"):
+                if self.max_n_frac is not None:
+                    span = tr.text_end - tr.text_start
+                    keep = n_fraction_ok(
+                        TextSpans(texts, lens, t[rows], tr.text_start, span,
+                                  reverse).n_counts(tr.text_start,
+                                                    tr.text_end),
+                        span, self.max_n_frac)
+                else:
+                    keep = np.ones(len(rows), bool)
             parts.append((rows[keep], tr, keep))
         rows = np.concatenate([p[0] for p in parts] or [seq[:0]])
 
@@ -566,8 +591,9 @@ class Searcher:
         matches in candidate order, then the reverse strand's, in forward
         coordinates (``text_start = n - rc_end``). Indices are offset by
         ``pattern_idx`` and ``text_idx``."""
-        with collector.paused(self.last_finish_split):
-            t0 = time.perf_counter()
+        split = spans.current()
+        with collector.paused(split), spans.span("build"), \
+                spans.step(split, "match_objects", build=True):
             q, t, seq, cost, te, pe = (
                 np.concatenate([getattr(f, a) for f in found])
                 for a in ("q", "t", "seq", "cost", "text_end",
@@ -597,9 +623,8 @@ class Searcher:
                                te[order].tolist(), ps[order].tolist(), pes,
                                costs, strands,
                                map(cigars.__getitem__, order.tolist())))
-            _tick_build(self.last_finish_split, "match_objects", t0,
-                        matches=len(out))
-            return out
+        spans.add(split, matches=len(out))
+        return out
 
 
 class _Found(NamedTuple):

@@ -30,13 +30,12 @@ read: the N counts (``TextSpans``) and a failed walk's diagnostics.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import collector
+from . import collector, spans
 from .cigar import DEL, INS, MATCH, SUB, Cigar
 from .matchrec import Match, Strand
 from .oracle import dp_matrix
@@ -78,26 +77,6 @@ ACCUMULATE_BELOW = 384
 #: few windows in a long text), else by binary searches in the positions
 #: of its N bytes (one pass over its bytes)
 N_GATHER_COST = 8
-
-
-def _tick(split: dict | None, key: str, t0: float, **sizes) -> float:
-    """Add the seconds since ``t0`` to ``split[key]`` and each of
-    ``sizes`` to its key (``split`` None: nothing); returns the clock."""
-    now = time.perf_counter()
-    if split is not None:
-        split[key] = split.get(key, 0.0) + now - t0
-        for name, n in sizes.items():
-            split[name] = split.get(name, 0) + n
-    return now
-
-
-def _tick_build(split: dict | None, key: str, t0: float, **sizes) -> float:
-    """``_tick`` of one step of the Match build ("unpack", "cigars",
-    "match_objects"): its seconds also under "build", the steps' sum."""
-    now = _tick(split, key, t0, **sizes)
-    if split is not None:
-        split["build"] = split.get("build", 0.0) + now - t0
-    return now
 
 
 class TextSpans:
@@ -362,29 +341,29 @@ def trace_plain(planes: torch.Tensor, pcodes: torch.Tensor,
     walk's end, as the kernel writes them. ``split``: as
     ``trace_cells_batch``'s (the window decode under "gather")."""
     trace_plain.calls += 1
-    t0 = time.perf_counter()
-    pid, word0, off, wlen, end = cand.cpu().numpy()
-    pc = pcodes.cpu().numpy()
-    tab = tables.cpu().numpy()
-    B, m = len(pid), pc.shape[1]
-    codes = window_codes(planes, profile, word0 * WORD_BITS + off, wlen,
-                         fill_len)
-    t0 = _tick(split, "gather", t0, windows=B)
+    with spans.step(split, "gather"):
+        pid, word0, off, wlen, end = cand.cpu().numpy()
+        pc = pcodes.cpu().numpy()
+        tab = tables.cpu().numpy()
+        B, m = len(pid), pc.shape[1]
+        codes = window_codes(planes, profile, word0 * WORD_BITS + off, wlen,
+                             fill_len)
+    spans.add(split, windows=B)
     out = np.full((B, TRACE_FIELDS + -(-(m + fill_len + 1) // 4)), -1,
                   np.int32)
     ops_out = out[:, TRACE_FIELDS:].view(np.int8)
     step = max(1, chunk or B)
     for s in range(0, B, step):
         c = slice(s, s + step)
-        E, mm = _fill_batch(profile, pc[pid[c]], codes[c], None, None,
-                            tab[0])
-        t0 = _tick(split, "fill", t0)
-        i, total, pat_start, pat_end, ops, failed = _walk_batch(
-            E, mm, end[c] - off[c], wlen[c], tab, alpha_on)
-        out[c, :TRACE_FIELDS] = np.stack(
-            [i, total, pat_start, pat_end, failed], axis=1)
-        ops_out[c, : ops.shape[1]] = ops
-        t0 = _tick(split, "walk", t0)
+        with spans.step(split, "fill"):
+            E, mm = _fill_batch(profile, pc[pid[c]], codes[c], None, None,
+                                tab[0])
+        with spans.step(split, "walk"):
+            i, total, pat_start, pat_end, ops, failed = _walk_batch(
+                E, mm, end[c] - off[c], wlen[c], tab, alpha_on)
+            out[c, :TRACE_FIELDS] = np.stack(
+                [i, total, pat_start, pat_end, failed], axis=1)
+            ops_out[c, : ops.shape[1]] = ops
     return torch.from_numpy(out)
 
 
@@ -446,47 +425,50 @@ def trace_cells_batch(
     if not B:
         none = np.zeros(0, np.int64)
         return Traced(none, none, none, none, none, [])
-    t0 = time.perf_counter()
-    offsets = np.maximum(0, ends - fill_len)
-    wlens = np.minimum(ends, text_lens[tids]) - offsets
-    used, pidx = np.unique(pids, return_inverse=True)
-    pcodes = np.stack([pattern_codes[q] for q in used.tolist()])
-    m = pcodes.shape[1]
-    word0 = planes.word0[tids]
-    L = planes.planes.shape[1]
-    if (ends - offsets - wlens > m).any() or (
-            word0 + -(-(offsets + wlens) // WORD_BITS) > L).any():
-        raise ValueError("a candidate ends more than m past its text, or "
-                         "its window lies past the planes")
-    tables = trace_tables(m, alpha, max_overhang)
-    cand = np.stack([pidx.astype(np.int64), word0, offsets, wlens, ends])
-    # the fill's matrices and match mask, a candidate
-    chunk = max(1, FILL_BYTES // ((m + 1) * (fill_len + 1) * 4
-                                  + m * fill_len))
-    dev = planes.planes.device
-    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-            for x in (pcodes, cand, tables)]
-    if dev.type == "cpu":
-        buf = trace_plain(planes.planes, *args, profile, fill_len,
-                          alpha is not None, chunk, split)
-        t0 = time.perf_counter()
-    else:
-        buf = myers_cuda.trace_windows(planes.planes, *args, profile,
-                                       fill_len, alpha is not None,
-                                       chunk).cpu()
-        t0 = _tick(split, "trace", t0, windows=B)
-    with collector.paused(split):
-        i, total, pat_start, pat_end, ops, failed = unpack_trace(
-            buf.numpy(), m, fill_len)
-        t0 = _tick_build(split, "unpack", t0)
-        if failed.any():
-            _raise_failed(profile, patterns, pcodes[pidx], texts, text_lens,
-                          pids, tids, ends, offsets, wlens, fill_len, alpha,
-                          max_overhang, reverse, np.flatnonzero(failed),
-                          chunk)
-        longest = int(np.count_nonzero(ops >= 0, axis=1).max())
-        cigars = _cigars(ops[:, :longest])
-        _tick_build(split, "cigars", t0)
+    on_card = planes.planes.device.type != "cpu"
+    # on the card the whole trace is one step; on the CPU its plain
+    # version's steps are
+    with (spans.step(split, "trace") if on_card else spans.span("trace")):
+        offsets = np.maximum(0, ends - fill_len)
+        wlens = np.minimum(ends, text_lens[tids]) - offsets
+        used, pidx = np.unique(pids, return_inverse=True)
+        pcodes = np.stack([pattern_codes[q] for q in used.tolist()])
+        m = pcodes.shape[1]
+        word0 = planes.word0[tids]
+        L = planes.planes.shape[1]
+        if (ends - offsets - wlens > m).any() or (
+                word0 + -(-(offsets + wlens) // WORD_BITS) > L).any():
+            raise ValueError("a candidate ends more than m past its text, "
+                             "or its window lies past the planes")
+        tables = trace_tables(m, alpha, max_overhang)
+        cand = np.stack([pidx.astype(np.int64), word0, offsets, wlens, ends])
+        # the fill's matrices and match mask, a candidate
+        chunk = max(1, FILL_BYTES // ((m + 1) * (fill_len + 1) * 4
+                                      + m * fill_len))
+        dev = planes.planes.device
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in (pcodes, cand, tables)]
+        if on_card:
+            buf = myers_cuda.trace_windows(planes.planes, *args, profile,
+                                           fill_len, alpha is not None,
+                                           chunk).cpu()
+        else:
+            buf = trace_plain(planes.planes, *args, profile, fill_len,
+                              alpha is not None, chunk, split)
+    if on_card:
+        spans.add(split, windows=B)
+    with collector.paused(split), spans.span("build"):
+        with spans.step(split, "unpack", build=True):
+            i, total, pat_start, pat_end, ops, failed = unpack_trace(
+                buf.numpy(), m, fill_len)
+        with spans.step(split, "cigars", build=True):
+            if failed.any():
+                _raise_failed(profile, patterns, pcodes[pidx], texts,
+                              text_lens, pids, tids, ends, offsets, wlens,
+                              fill_len, alpha, max_overhang, reverse,
+                              np.flatnonzero(failed), chunk)
+            longest = int(np.count_nonzero(ops >= 0, axis=1).max())
+            cigars = _cigars(ops[:, :longest])
     return Traced(total, offsets + i, offsets + wlens, pat_start, pat_end,
                   cigars)
 
